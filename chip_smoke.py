@@ -6,23 +6,29 @@ every hand-written kernel against its plain PyTorch version, times them,
 and ends with one JSON line.  Phases:
 
 1. device  — the card's name and power limit; aborts without CUDA
-2. build   — nvcc builds every kernel from fabric_tpu_torch/ops/csrc/
+2. build   — nvcc builds every kernel from fabric_tpu_torch/ops/csrc/,
+             cc the C DER parser from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
              ints, mod p and mod n, edge values included
 4. block   — 10,000 txs x (3 endorsements from 3 org keys + 1 creator
              signature from 64 clients) = 40,000 P-256 items, 2% of them
              corrupted (7 kinds), plus 64 Ed25519 items, through
              init_factories(FactoryOpts(default="CUDA")) ->
-             batch_verify_async -> resolve(); every verdict checked
-             against its label, a subset against the software provider,
-             and KP2 against its plain version on a 4096-item slice
-5. times   — medians of repeated runs (CUDA events for kernels); KP2's
-             plain version is timed on the block's own words, after one
-             more comparison with the kernel there
+             batch_verify_async -> resolve(), twice: cold (the bank
+             builds the 67 keys' tables) and warm (no builds).  Every
+             verdict is checked against its label, a subset against the
+             software provider, KP3 and KP2 against their plain versions
+             on 4096-item slices; then a spill drill on a 500-tx block
+             with two bank slots for three hot keys
+5. times   — medians of repeated runs (CUDA events for kernels); each
+             kernel's plain version is timed on the block's own batch for
+             that kernel, after one more comparison with the kernel there
 6. kernels — one JSON line per the port's kernel table, then the result
 
-The main path launches KP2 only.  KP1 is the field layer's benchmark
-kernel and is not on it: its count from the main path's run is 0.
+The main path (each block run, counts set to 0 just before it) launches
+KP3 for the signatures under the 67 hot keys and KP2 for the rest (the
+off-curve keys of the corrupted items).  KP1 is the field layer's
+benchmark kernel and is not on it: its count from the main path is 0.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -52,10 +58,12 @@ CORRUPT_FRAC = 0.02
 CORRUPT_KINDS = ("wrong_digest", "high_s", "r_zero", "s_eq_n",
                  "off_curve", "bad_der", "short_point")
 HOST_REJECTED_KINDS = ("r_zero", "bad_der", "short_point")
+FAST_THRESHOLD = 64             # the provider's default fast_key_threshold
 SLICE = 4096
 SW_SUBSET = 512
 FIELD_LANES = 4096
 CHAIN_K = 256
+SPILL_TXS = 500
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
 # 64 per SM per clock (CUDA C Programming Guide, arithmetic instruction
@@ -241,6 +249,34 @@ def item_words(items, idxs):
     return [ints_to_words(c) for c in cols]
 
 
+def fast_lane_items(items, kinds, n_p256, on_curve):
+    """Indices of the items the provider must send to KP3: well-formed
+    P-256 items under on-curve keys that bring at least FAST_THRESHOLD
+    well-formed signatures to the block."""
+    wf = [i for i in range(n_p256) if kinds[i] not in HOST_REJECTED_KINDS]
+    counts = {}
+    for i in wf:
+        counts[items[i].pubkey] = counts.get(items[i].pubkey, 0) + 1
+    hot = {pk for pk, c in counts.items() if c >= FAST_THRESHOLD
+           and on_curve(int.from_bytes(pk[1:33], "big"),
+                        int.from_bytes(pk[33:65], "big"))}
+    return [i for i in wf if items[i].pubkey in hot], len(wf), len(hot)
+
+
+def drive(provider, items, fns):
+    """One main-path run: counts set to 0 just before, read just after.
+    -> (verdicts, seconds, launches, stats delta)."""
+    before = dict(provider.stats)
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    verdicts = provider.batch_verify_async(items)()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in fns.items()}
+    delta = {k: v - before[k] for k, v in provider.stats.items()}
+    return verdicts, seconds, launches, delta
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -257,10 +293,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    from fabric_tpu_torch import native
     from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
     from fabric_tpu_torch.bccsp import cuda as cudaprov
     from fabric_tpu_torch.bccsp.sw import SoftwareProvider
-    from fabric_tpu_torch.ops import _build, field, p256, p256_tables
+    from fabric_tpu_torch.ops import (_build, field, p256, p256_fixed,
+                                      p256_tables)
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -280,6 +318,10 @@ def main(argv=None) -> int:
         for line in info["log"].splitlines():
             if line.strip():
                 print("   ", line.strip(), flush=True)
+    t0 = time.perf_counter()
+    log = native.build("der")
+    phase("build", lib="der (cc)", seconds=round(time.perf_counter() - t0, 2),
+          log=log.strip() or "clean")
 
     # --- 3. field ----------------------------------------------------------
     rng = random.Random(SEED + 1)
@@ -317,46 +359,106 @@ def main(argv=None) -> int:
     with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
         items, labels, kinds = build_block(args.txs, pool)
     n_p256 = 4 * args.txs
+    fast_idx, well_formed, hot_keys = fast_lane_items(
+        items, kinds, n_p256, p256_tables.on_curve)
     phase("block", items=len(items), p256=n_p256, ed25519=N_ED25519,
           corrupted=sum(k is not None for k in kinds),
+          well_formed=well_formed, hot_keys=hot_keys,
+          fast_lane_items=len(fast_idx),
           build_s=round(time.perf_counter() - t0, 2))
+    want = np.asarray(labels)
+    fns = {"p256_verify_rows": p256_fixed.p256_verify_rows,
+           "p256_verify": p256.p256_verify,
+           "field_mul_chain": field.field_mul_chain}
 
-    # the main path: the factory builds the provider, then one block
-    # through KP2
-    field.field_mul_chain.launches = 0
-    p256.p256_verify.launches = 0
+    # the main path: the factory builds the provider, then the block goes
+    # through it cold (the bank builds every hot key's table) and warm
     t0 = time.perf_counter()
     provider = init_factories(FactoryOpts(default="CUDA"))
-    verdicts = provider.batch_verify_async(items)()
-    main_path_s = time.perf_counter() - t0
-    launches = {"p256_verify": p256.p256_verify.launches,
-                "field_mul_chain": field.field_mul_chain.launches}
-    phase("block", main_path_s=round(main_path_s, 4), launches=launches,
-          stats=provider.stats)
+    init_s = time.perf_counter() - t0
     check(provider.name == "cuda", "factory did not give the CUDA provider")
-    check(launches["p256_verify"] > 0,
-          "p256_verify was not launched on the main path")
-    want = np.asarray(labels)
-    check(verdicts.shape == want.shape, "verdict shape")
-    wrong = np.nonzero(verdicts != want)[0]
-    check(wrong.size == 0, f"{wrong.size} verdicts differ from labels, "
-          f"first {[(int(i), kinds[i]) for i in wrong[:5]]}")
-    well_formed = sum(1 for k in kinds[:n_p256]
-                      if k not in HOST_REJECTED_KINDS)
-    check(provider.stats["device_sigs"] == well_formed,
-          f"device_sigs {provider.stats['device_sigs']} != {well_formed}")
-    check(provider.stats["fallbacks"] == 0, "fallbacks != 0")
-    phase("block", verdicts_vs_labels="equal", valid=int(want.sum()),
-          device_sigs=well_formed, fallbacks=0)
+    bank = provider.key_tables
+    build_fn = bank.build_fn
+    build_s = []
+
+    def timed_build(pk):
+        t = time.perf_counter()
+        tab = build_fn(pk)
+        build_s.append(time.perf_counter() - t)
+        return tab
+
+    bank.build_fn = timed_build
+    runs = {}
+    for run in ("cold", "warm"):
+        builds0 = bank.stats["builds"]
+        verdicts, secs, launches, delta = drive(provider, items, fns)
+        runs[run] = launches
+        phase("block", run=run,
+              main_path_s=round(secs + (init_s if run == "cold" else 0), 4),
+              launches=launches, stats=delta,
+              table_builds=bank.stats["builds"] - builds0,
+              table_build_s=round(sum(build_s), 3),
+              bank_bytes=bank.array().nbytes,
+              table_h2d_bytes=bank.stats["h2d_bytes"])
+        check(verdicts.shape == want.shape, "verdict shape")
+        wrong = np.nonzero(verdicts != want)[0]
+        check(wrong.size == 0, f"{run}: {wrong.size} verdicts differ from "
+              f"labels, first {[(int(i), kinds[i]) for i in wrong[:5]]}")
+        check(delta["device_sigs"] == well_formed,
+              f"{run}: device_sigs {delta['device_sigs']} != {well_formed}")
+        check(delta["fast_key_sigs"] == len(fast_idx),
+              f"{run}: fast_key_sigs {delta['fast_key_sigs']} != "
+              f"{len(fast_idx)}")
+        check(delta["fallbacks"] == 0, f"{run}: fallbacks != 0")
+        check(bank.stats["builds"] - builds0
+              == (hot_keys if run == "cold" else 0),
+              f"{run}: {bank.stats['builds'] - builds0} table builds")
+        for kern in ("p256_verify_rows", "p256_verify"):
+            check(launches[kern] > 0,
+                  f"{run}: {kern} was not launched on the main path")
+        phase("block", run=run, verdicts_vs_labels="equal",
+              valid=int(want.sum()), device_sigs=well_formed,
+              fast_key_sigs=len(fast_idx), fallbacks=0)
+    bank.build_fn = build_fn
+    table_build_s = sum(build_s)
 
     srng = random.Random(SEED + 2)
-    subset = set(srng.sample(range(len(items)), SW_SUBSET))
+    subset = set(srng.sample(range(len(items)),
+                             min(SW_SUBSET, len(items))))
     for kind in CORRUPT_KINDS + ("ed25519_wrong_msg",):
         subset.update([i for i, k in enumerate(kinds) if k == kind][:4])
     subset = sorted(subset)
     sw = SoftwareProvider().batch_verify([items[i] for i in subset])
     check((sw == verdicts[subset]).all(), "CUDA provider != SW on subset")
     phase("block", sw_subset=len(subset), vs_sw="equal")
+
+    # KP3 against its plain version on a slice of the block's own KP3
+    # batch that holds every corrupted kind reaching it
+    table = p256_tables.g_table(dev)
+    batch = provider.pass_p256(items, range(n_p256))
+    bank.unpin(batch.pinned)
+    f_keep, f_arrays, f_slot = batch.fast
+    check(sorted(f_keep.tolist()) == fast_idx, "host pass: KP3 batch")
+    f_bad = [j for j, i in enumerate(f_keep) if kinds[i] is not None]
+    f_fill = [j for j, i in enumerate(f_keep) if kinds[i] is None]
+    f_sl = np.asarray(sorted(f_bad + f_fill[:max(0, SLICE - len(f_bad))]))
+    check({kinds[f_keep[j]] for j in f_bad}
+          == {"wrong_digest", "high_s", "s_eq_n"},
+          "KP3 batch: corrupted kinds")
+    bank_t = bank.array()
+    sl_words = [torch.from_numpy(np.ascontiguousarray(a[:, f_sl])).to(dev)
+                for a in f_arrays]
+    sl_slot = torch.from_numpy(f_slot[f_sl])
+    kern = p256_fixed.p256_verify_rows(*sl_words, sl_slot, bank_t, table)
+    plain = p256_fixed.verify_words_rows_plain(*sl_words, sl_slot, bank_t,
+                                               table)
+    torch.cuda.synchronize()
+    check(torch.equal(kern, plain), "KP3 != verify_words_rows_plain")
+    check((kern.cpu().numpy() == want[f_keep[f_sl]]).all(),
+          "KP3 slice != labels")
+    kp3_err = int((kern.to(torch.int8) - plain.to(torch.int8)).abs().max())
+    phase("block", kp3_slice=len(f_sl), corrupted_in_slice=len(f_bad),
+          kp3_vs_plain="equal")
 
     bad_dev = [i for i in range(n_p256)
                if kinds[i] is not None and kinds[i] not in ("bad_der",
@@ -365,7 +467,6 @@ def main(argv=None) -> int:
     slice_idx = sorted(bad_dev + fill[:max(0, SLICE - len(bad_dev))])
     words = [torch.from_numpy(w).to(dev)
              for w in item_words(items, slice_idx)]
-    table = p256_tables.g_table(dev)
     kern = p256.p256_verify(*words, table)
     plain = p256.verify_words_plain(*words, table)
     torch.cuda.synchronize()
@@ -376,23 +477,54 @@ def main(argv=None) -> int:
     phase("block", slice=len(slice_idx), corrupted_in_slice=len(bad_dev),
           kp2_vs_plain="equal")
 
+    # spill drill: two slots for the three org keys of a smaller block of
+    # the same form; the third key's signatures spill to KP2
+    n_spill = 4 * min(SPILL_TXS, args.txs)
+    drill = cudaprov.CudaProvider(max_cached_keys=2)
+    got = drill.batch_verify(items[:n_spill])
+    st = drill.key_tables.stats
+    check((got == want[:n_spill]).all(), "spill drill: verdicts != labels")
+    check(st["pinned_spills"] > 0, "spill drill: no pinned spill")
+    check(drill.stats["fallbacks"] == 0, "spill drill: fallbacks != 0")
+    phase("block", spill_items=n_spill, bank_stats=st,
+          fast_key_sigs=drill.stats["fast_key_sigs"],
+          device_sigs=drill.stats["device_sigs"], verdicts_vs_labels="equal")
+    del drill
+
     # --- 5. times ----------------------------------------------------------
     t = args.trials
     e2e_ms = median_ms(lambda: provider.batch_verify(items), t)
     p256_items = items[:n_p256]
     p256_ms = median_ms(lambda: provider.batch_verify(p256_items), t)
 
-    def parse_pack():
-        recs, _ = cudaprov.parse_p256(p256_items, range(n_p256))
-        return cudaprov.pack_p256_recs(recs)
+    def host_pass():
+        bank.unpin(provider.pass_p256(p256_items, range(n_p256)).pinned)
 
-    host_ms = median_ms(parse_pack, t)
-    keep, arrays = parse_pack()
+    host_ms = median_ms(host_pass, t)
+
+    # KP3 on the block's own KP3 batch
+    f_words = [torch.from_numpy(a).to(dev) for a in f_arrays]
+    f_slot_t = torch.from_numpy(f_slot)
+    kp3_ms = event_ms(torch, lambda: p256_fixed.p256_verify_rows(
+        *f_words, f_slot_t, bank_t, table), t)
+    kern = p256_fixed.p256_verify_rows(*f_words, f_slot_t, bank_t, table)
+    plain = p256_fixed.verify_words_rows_plain(*f_words, f_slot_t, bank_t,
+                                               table)
+    torch.cuda.synchronize()
+    check(torch.equal(kern, plain),
+          "KP3 != verify_words_rows_plain on the block's KP3 batch")
+    kp3_err = max(kp3_err, int((kern.to(torch.int8)
+                                - plain.to(torch.int8)).abs().max()))
+    kp3_plain_ms = median_ms(
+        lambda: (p256_fixed.verify_words_rows_plain(
+            *f_words, f_slot_t, bank_t, table), torch.cuda.synchronize()),
+        t, warm=False)
+
+    # KP2 on the whole block's device-bound words, as in slice 1
+    recs, _ = cudaprov.parse_p256(p256_items, range(n_p256))
+    keep, arrays = cudaprov.pack_p256_recs(recs)
     block_words = [torch.from_numpy(a).to(dev) for a in arrays]
     kp2_ms = event_ms(torch, lambda: p256.p256_verify(*block_words, table), t)
-    kp2_slice_ms = event_ms(torch, lambda: p256.p256_verify(*words, table), t)
-    # the plain version at the kernel's shape: its first call is the
-    # warm-up and one more comparison, over every device-bound item
     kern = p256.p256_verify(*block_words, table)
     plain = p256.verify_words_plain(*block_words, table)
     torch.cuda.synchronize()
@@ -411,16 +543,23 @@ def main(argv=None) -> int:
         lambda: (field.mul_chain_plain(ca, cb, CHAIN_K),
                  torch.cuda.synchronize()), t)
 
+    # one table's upload into a bank slot (K4: a host-to-device copy)
+    tab = torch.from_numpy(p256_tables.g_comb_table().copy())
+    scratch = torch.empty_like(tab, device=dev)
+    upload_ms = event_ms(torch, lambda: scratch.copy_(tab), t)
+
     # bounds: the larger of bytes over HBM rate and the multiply-adds the
     # field work needs (field.IMADS) over the INT32 rate, for this run's
-    # inputs
+    # inputs; s^-1 counts as batched, one Fermat chain per launch
     n = p256.N
-    muls = imads = 0
-    for qx_, qy_, r_, s_, e_ in zip(*[[int(v) for v in
-                                       field.limbs_to_ints(
-                                           field.words_be_to_limbs(
-                                               torch.from_numpy(a)))]
-                                      for a in arrays]):
+    chain_muls = sum(p256.INV_N_CHAIN.values())
+
+    def ints(a):
+        return field.limbs_to_ints(field.words_be_to_limbs(
+            torch.from_numpy(a)))
+
+    muls, imads = chain_muls, p256.imads_per_launch()
+    for qx_, qy_, r_, s_, e_ in zip(*[ints(a) for a in arrays]):
         w = pow(s_ % n, n - 2, n)
         u1, u2 = e_ * w % n, r_ * w % n
         muls += sum(p256.field_ops_per_verify(u1, u2).values())
@@ -428,6 +567,18 @@ def main(argv=None) -> int:
     kp2_ops_s = imads / imad_rate
     kp2_bytes_s = (lanes * (5 * 32 + 1) + table.nbytes) / HBM_BYTES_PER_S
     kp2_bound_ms = max(kp2_ops_s, kp2_bytes_s) * 1e3
+    kp3_lanes = len(f_keep)
+    muls3, imads3 = chain_muls, p256.imads_per_launch()
+    for r_, s_, e_ in zip(*[ints(a) for a in f_arrays]):
+        w = pow(s_ % n, n - 2, n)
+        u1, u2 = e_ * w % n, r_ * w % n
+        muls3 += sum(p256_fixed.field_ops_per_verify_rows(u1, u2).values())
+        imads3 += p256_fixed.imads_per_verify_rows(u1, u2)
+    kp3_ops_s = imads3 / imad_rate
+    kp3_tables = len(np.unique(f_slot))
+    kp3_bytes_s = (kp3_lanes * (3 * 32 + 4 + 1)
+                   + (kp3_tables + 1) * table.nbytes) / HBM_BYTES_PER_S
+    kp3_bound_ms = max(kp3_ops_s, kp3_bytes_s) * 1e3
     # the timed chain is mod p (the wrapper's default)
     kp1_ops_s = lanes * CHAIN_K * field.IMADS["p", "mul"] / imad_rate
     kp1_bytes_s = lanes * 3 * 32 / HBM_BYTES_PER_S
@@ -437,14 +588,20 @@ def main(argv=None) -> int:
         items))
 
     print(name_power, flush=True)
-    phase("times", block_items=len(items),
+    phase("times", block_items=len(items), warm=True,
           provider_e2e_ms=round(e2e_ms, 3),
           provider_sigs_per_s=round(len(items) / e2e_ms * 1e3, 1),
           p256_only_ms=round(p256_ms, 3),
-          p256_only_sigs_per_s=round(n_p256 / p256_ms * 1e3, 1))
-    phase("times", host_parse_pack_ms=round(host_ms, 3),
-          kp2_ms=round(kp2_ms, 4), kp2_sigs=lanes,
-          kp2_slice_ms=round(kp2_slice_ms, 4), slice=len(slice_idx),
+          p256_only_sigs_per_s=round(n_p256 / p256_ms * 1e3, 1),
+          host_pass_ms=round(host_ms, 3))
+    phase("times", kp3_ms=round(kp3_ms, 4), kp3_sigs=kp3_lanes,
+          kp3_tables=kp3_tables, kp3_plain_ms=round(kp3_plain_ms, 2),
+          kp3_vs_plain_on_block="equal",
+          mont_muls_per_verify=round(muls3 / kp3_lanes, 1),
+          imads_per_verify=round(imads3 / kp3_lanes, 1),
+          kp3_bound_ms=round(kp3_bound_ms, 4),
+          kp3_bound_by="operations" if kp3_ops_s >= kp3_bytes_s else "bytes")
+    phase("times", kp2_ms=round(kp2_ms, 4), kp2_sigs=lanes,
           plain_ms=round(plain_ms, 2), kp2_vs_plain_on_block="equal",
           mont_muls_per_verify=round(muls / lanes, 1),
           imads_per_verify=round(imads / lanes, 1),
@@ -453,6 +610,11 @@ def main(argv=None) -> int:
           kp1_ns_per_mul=round(kp1_ms * 1e6 / (lanes * CHAIN_K), 4),
           kp1_plain_ms=round(kp1_plain_ms, 2),
           kp1_bound_ms=round(kp1_bound_ms, 4))
+    phase("times", table_upload_ms=round(upload_ms, 4),
+          table_bytes=tab.nbytes, uploads_cold=hot_keys, uploads_warm=0,
+          table_build_s=round(table_build_s, 3),
+          table_build_ms_each=round(table_build_s / max(hot_keys, 1) * 1e3,
+                                    1))
     if busy_ms > 0:
         phase("times", profiled_block_wall_ms=round(wall_ms, 3),
               device_busy_ms=round(busy_ms, 3),
@@ -462,23 +624,34 @@ def main(argv=None) -> int:
         phase("times", device_idle_share="not measured (the profiler "
               "recorded no device time)")
     phase("times", library="none: no PyTorch call computes ECDSA verify "
-          "or a Montgomery multiply chain")
+          "(either lane) or a Montgomery multiply chain")
 
     # --- 6. kernels ----------------------------------------------------------
+    def by(ops_s, bytes_s):
+        return "operations" if ops_s >= bytes_s else "bytes"
+
+    launches = runs["cold"]
     kernels = [
+        {"name": "p256_verify_rows", "route": "cuda",
+         "source": "fabric_tpu_torch/ops/csrc/p256_verify_rows.cu",
+         "replaces": "fabric_tpu/ops/p256_fixed.py:94",
+         "launches": launches["p256_verify_rows"], "max_abs_err": kp3_err,
+         "ms": kp3_ms, "plain_ms": kp3_plain_ms, "bound_ms": kp3_bound_ms,
+         "bound_by": by(kp3_ops_s, kp3_bytes_s),
+         "library_ms": None, "on_main_path": True},
         {"name": "p256_verify", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/p256_verify.cu",
          "replaces": "fabric_tpu/ops/ecp256.py:447",
          "launches": launches["p256_verify"], "max_abs_err": kp2_err,
          "ms": kp2_ms, "plain_ms": plain_ms, "bound_ms": kp2_bound_ms,
-         "bound_by": "operations" if kp2_ops_s >= kp2_bytes_s else "bytes",
+         "bound_by": by(kp2_ops_s, kp2_bytes_s),
          "library_ms": None, "on_main_path": True},
         {"name": "field_mul_chain", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/field_chain.cu",
          "replaces": "experiments/proto_pallas.py:94",
          "launches": launches["field_mul_chain"], "max_abs_err": field_err,
          "ms": kp1_ms, "plain_ms": kp1_plain_ms, "bound_ms": kp1_bound_ms,
-         "bound_by": "operations" if kp1_ops_s >= kp1_bytes_s else "bytes",
+         "bound_by": by(kp1_ops_s, kp1_bytes_s),
          "library_ms": None, "on_main_path": False},
     ]
     phase("done", seconds=round(time.perf_counter() - t_start, 1))

@@ -1,52 +1,67 @@
-"""CUDA batched BCCSP provider: the P-256 generic lane on the GPU.
+"""CUDA batched BCCSP provider: the two P-256 lanes on the GPU.
 
 Counterpart of the P-256 half of `fabric_tpu/bccsp/jaxtpu.py`
-(`_parse_p256` with its pure-Python DER branch, `_pack_p256_recs`,
-`_dispatch`, `batch_verify_async`, `batch_verify`).  Per batch:
+(`_verify_p256` with its vectorized lane split, `_dispatch`,
+`batch_verify_async`, `batch_verify`, `ProviderStats`,
+`stats_snapshot`).  Per batch:
 
-* P-256 items are parsed and packed on the host into (8, B) uint32 word
-  arrays — malformed items (bad SEC1 point, digest length, DER, r/s out
-  of [1, 2^256)) stay False and count as `host_rejects` — then copied to
-  the device and verified by kernel KP2, one launch per chunk of at most
-  `MAX_CHUNK` signatures, on the current CUDA stream.  `resolve()` waits for
-  the device and scatters the verdicts.
+* P-256 items take one host pass: a single C call parses every DER
+  signature (`native.parse_der_sigs`); items with a malformed signature,
+  key or digest stay False and count as `host_rejects`.  Then, biggest
+  key groups first, a key whose comb table is resident in the device bank
+  (`key_tables`), or that brings at least `fast_key_threshold`
+  signatures and so earns a slot, sends its signatures to kernel KP3;
+  the rest go to kernel KP2.  Each lane's words are copied to the device
+  and launched in chunks of at most `MAX_CHUNK` signatures, KP3's batch
+  key-major.  A slot stays pinned from the lane choice until its launch
+  is enqueued.  `resolve()` waits for the device and scatters the
+  verdicts.
 * Ed25519 items go to the port's `SoftwareProvider` (their device lane is
   not ported yet), computed in `resolve()` while the device works.
 * Unknown schemes are False and count as `host_rejects`.
 * Idemix items raise NotImplementedError (ROADMAP A6).
 
-Unlike the reference, nothing falls back to the software provider when a
-launch or a resolve fails: the error propagates, and `stats["fallbacks"]`
-stays 0.  The `stats` keys are the reference's, because the degrading
-wrapper of a later slice reads them.
+All device work of one call (KP2, KP3 and the bank's slot writes) runs
+on the current CUDA stream; `resolve()` waits for that stream's work
+whatever stream is current when it is called.  A slot rebuilt for one
+batch is written only after every launch of an earlier batch that reads
+it, on any stream (`DeviceBank`).
 
-Every P-256 item takes the generic lane; the fixed-key row lane, the C
-batch DER parser and power-of-two bucket padding of the reference are not
-part of this slice (the verdicts do not depend on the lane).
+Unlike the reference, nothing falls back: a failed build of the C parser
+or of a kernel, a failed launch or a failed resolve raises, and
+`stats["fallbacks"]` stays 0.  The reference's (R, C) row grid, its
+bucket padding and its lane telemetry have no counterpart here (ROADMAP
+C5).  The `stats` keys are the reference's, because the degrading
+wrapper of a later slice reads them.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from .. import native
 from ..crypto import decode_dss_signature
 from ..device import resolve_device
-from ..ops import p256_tables
+from ..ops import p256_fixed, p256_tables
 from ..ops import p256 as p256mod
+from ..ops.device_bank import DeviceBank
 from . import provider as prov
 from .provider import (VerifyItem, SCHEME_P256, SCHEME_ED25519,
                        SCHEME_IDEMIX)
 from .sw import IDEMIX_NOT_PORTED, SoftwareProvider
 
 MAX_CHUNK = 1 << 17
+_ZERO32 = b"\x00" * 32
 
 
 def parse_p256(items: Sequence[VerifyItem], idxs: Sequence[int]):
-    """Host-side parse -> (recs, n_rejected); recs are (idx, pubkey,
-    r32, s32, e32) for the well-formed items, in idxs order."""
+    """Pure-Python parse, the oracle of the C parse in the tests ->
+    (recs, n_rejected); recs are (idx, pubkey, r32, s32, e32) for the
+    well-formed items, in idxs order."""
     out = []
     rejected = 0
     for i in idxs:
@@ -81,19 +96,73 @@ def pack_p256_recs(recs):
     return keep, [qx, qy, r, s, e]
 
 
+def _be_words(b: np.ndarray) -> np.ndarray:
+    """(B, 32k) uint8 big-endian -> (B, 8k) uint32 words."""
+    return np.ascontiguousarray(b).view(">u4").astype(np.uint32)
+
+
+@dataclass(frozen=True)
+class ProviderStats:
+    """Immutable point-in-time snapshot of a CudaProvider's counters and
+    its lane settings (the reference's `ProviderStats`)."""
+    dispatches: int = 0
+    device_sigs: int = 0
+    host_rejects: int = 0
+    fallbacks: int = 0
+    fast_key_sigs: int = 0        # sigs that rode the fixed-key lane
+    h2d_bytes: int = 0
+    p256_table_builds: int = 0
+    ed25519_table_builds: int = 0     # 0: Ed25519 stays on SW until A4
+    tuning: dict = field(default_factory=dict)
+
+
+@dataclass
+class P256Pass:
+    """The host pass over a batch's P-256 items.  fast: (keep, [r, s, e],
+    slot) for KP3, key-major; generic: (keep, [qx, qy, r, s, e]) for KP2;
+    either None when empty.  keep holds item indices, the arrays (8, B)
+    uint32 big-endian words, slot the (B,) int32 bank slots.  pinned: the
+    bank slots this batch holds until its launches are enqueued."""
+    rejected: int
+    fast: tuple = None
+    generic: tuple = None
+    pinned: list = field(default_factory=list)
+
+
 class CudaProvider(prov.Provider):
     name = "cuda"
 
-    def __init__(self, require_low_s: bool = True, device=None):
-        """device: where the P-256 lane runs (default CUDA; raises when
+    def __init__(self, require_low_s: bool = True, device=None,
+                 fast_key_threshold: int = 64, max_cached_keys: int = 256):
+        """device: where the P-256 lanes run (default CUDA; raises when
         there is none).  device="cpu" runs the kernels' plain PyTorch
-        versions, for tests."""
+        versions, for tests.
+
+          fast_key_threshold  signatures a key must bring to one batch to
+                              earn a table slot (a build costs ~0.15 s of
+                              host time and one 512 KB upload)
+          max_cached_keys     slots of the device-resident table bank
+                              (512 KB each)
+        """
         self.require_low_s = require_low_s
         self.device = resolve_device(device)
         self.sw = SoftwareProvider(require_low_s=require_low_s)
         self.stats = {"dispatches": 0, "device_sigs": 0, "host_rejects": 0,
                       "fallbacks": 0, "fast_key_sigs": 0, "h2d_bytes": 0}
+        self.fast_key_threshold = int(fast_key_threshold)
+        self.max_cached_keys = int(max_cached_keys)
+        self.key_tables = DeviceBank(
+            self.max_cached_keys, (p256_tables.ROWS, p256_tables.ROW_WORDS),
+            p256_tables.table_for_pubkey, device=self.device)
         self._g_table = p256_tables.g_table(self.device)
+
+    def stats_snapshot(self) -> ProviderStats:
+        """Point-in-time copy of the counters plus the bank's builds."""
+        return ProviderStats(
+            **self.stats,
+            p256_table_builds=self.key_tables.stats["builds"],
+            tuning={"fast_key_threshold": self.fast_key_threshold,
+                    "max_cached_keys": self.max_cached_keys})
 
     # signing / key-gen are host-side: delegate
     def key_gen(self, scheme: str):
@@ -102,23 +171,117 @@ class CudaProvider(prov.Provider):
     def sign(self, private_key, payload: bytes) -> bytes:
         return self.sw.sign(private_key, payload)
 
+    def pass_p256(self, items, idxs) -> P256Pass:
+        """The host pass (no device work but the bank's table uploads):
+        one C DER parse over the items, the validity mask, the lane
+        choice and the packing of both lanes' words.  The caller launches
+        and then releases `pinned` with `key_tables.unpin`."""
+        n = len(idxs)
+        sigs, pays = [None] * n, [None] * n
+        key_ids = np.empty(n, np.int64)
+        pay_ok = np.empty(n, bool)
+        pk_map, pks = {}, []
+        for j, i in enumerate(idxs):
+            it = items[i]
+            sigs[j] = it.signature
+            p = it.payload
+            pay_ok[j] = len(p) == 32
+            pays[j] = p if pay_ok[j] else _ZERO32
+            gid = pk_map.get(it.pubkey)
+            if gid is None:
+                gid = pk_map[it.pubkey] = len(pks)
+                pks.append(it.pubkey)
+            key_ids[j] = gid
+        ok, rs = native.parse_der_sigs(sigs)
+        pk_ok = np.fromiter((len(pk) == 65 and pk[0] == 0x04 for pk in pks),
+                            bool, len(pks))
+        valid = ok & pay_ok & pk_ok[key_ids]
+        out = P256Pass(rejected=n - int(valid.sum()))
+        if not valid.any():
+            return out
+        rsw = _be_words(rs)                                    # (n, 16)
+        ew = _be_words(np.frombuffer(b"".join(pays), np.uint8).reshape(n, 32))
+        idxs_np = np.asarray(idxs, np.int64)
+        counts = np.bincount(key_ids[valid], minlength=len(pks))
+        slots = np.full(len(pks), -1, np.int64)
+        try:
+            # biggest groups claim slots first; each claimed slot stays
+            # pinned until this batch's KP3 launch is enqueued, so a later
+            # build (this batch's or a concurrent one's) cannot evict it
+            for g in np.argsort(-counts, kind="stable"):
+                if not counts[g]:
+                    break
+                slot = self.key_tables.lookup(pks[g], pin=True)
+                if slot is None and counts[g] >= self.fast_key_threshold:
+                    slot = self.key_tables.get_or_build(pks[g], pin=True)
+                if slot is not None:
+                    out.pinned.append(slot)
+                    slots[g] = slot
+        except BaseException:
+            self.key_tables.unpin(out.pinned)
+            raise
+        fast = valid & (slots[key_ids] >= 0)
+        fsel = np.nonzero(fast)[0]
+        if fsel.size:
+            fsel = fsel[np.argsort(key_ids[fsel], kind="stable")]
+            out.fast = (idxs_np[fsel],
+                        [np.ascontiguousarray(rsw[fsel, :8].T),
+                         np.ascontiguousarray(rsw[fsel, 8:].T),
+                         np.ascontiguousarray(ew[fsel].T)],
+                        slots[key_ids[fsel]].astype(np.int32))
+        gsel = np.nonzero(valid & ~fast)[0]
+        if gsel.size:
+            gids, rows = np.unique(key_ids[gsel], return_inverse=True)
+            pkb = np.frombuffer(b"".join(pks[g] for g in gids),
+                                np.uint8).reshape(-1, 65)
+            out.generic = (idxs_np[gsel],
+                           [_be_words(pkb[:, 1:33])[rows].T.copy(),
+                            _be_words(pkb[:, 33:65])[rows].T.copy(),
+                            np.ascontiguousarray(rsw[gsel, :8].T),
+                            np.ascontiguousarray(rsw[gsel, 8:].T),
+                            np.ascontiguousarray(ew[gsel].T)])
+        return out
+
+    def _upload(self, arrays, lo, hi):
+        words = [torch.from_numpy(np.ascontiguousarray(a[:, lo:hi]))
+                 for a in arrays]
+        self.stats["h2d_bytes"] += sum(w.nbytes for w in words)
+        if self.device.type == "cuda":
+            words = [w.pin_memory().to(self.device, non_blocking=True)
+                     for w in words]
+        return words
+
     def _verify_p256(self, items, idxs, pending) -> None:
-        recs, rejected = parse_p256(items, idxs)
-        self.stats["host_rejects"] += rejected
-        keep, arrays = pack_p256_recs(recs)
-        for lo in range(0, len(keep), MAX_CHUNK):
-            hi = min(lo + MAX_CHUNK, len(keep))
-            words = [torch.from_numpy(np.ascontiguousarray(a[:, lo:hi]))
-                     for a in arrays]
-            if self.device.type == "cuda":
-                words = [w.pin_memory().to(self.device, non_blocking=True)
-                         for w in words]
-            out = p256mod.p256_verify(*words, self._g_table,
-                                      require_low_s=self.require_low_s)
-            self.stats["dispatches"] += 1
-            self.stats["device_sigs"] += hi - lo
-            self.stats["h2d_bytes"] += sum(w.nbytes for w in words)
-            pending.append((keep[lo:hi], out))
+        batch = self.pass_p256(items, idxs)
+        self.stats["host_rejects"] += batch.rejected
+        try:
+            if batch.fast is not None:
+                keep, arrays, slot = batch.fast
+                bank = self.key_tables.array()
+                for lo in range(0, len(keep), MAX_CHUNK):
+                    hi = min(lo + MAX_CHUNK, len(keep))
+                    words = self._upload(arrays, lo, hi)
+                    slot_t = torch.from_numpy(slot[lo:hi])
+                    out = p256_fixed.p256_verify_rows(
+                        *words, slot_t, bank, self._g_table,
+                        require_low_s=self.require_low_s)
+                    self.stats["h2d_bytes"] += slot_t.nbytes
+                    self.stats["dispatches"] += 1
+                    self.stats["device_sigs"] += hi - lo
+                    self.stats["fast_key_sigs"] += hi - lo
+                    pending.append((keep[lo:hi], out))
+        finally:
+            self.key_tables.unpin(batch.pinned)
+        if batch.generic is not None:
+            keep, arrays = batch.generic
+            for lo in range(0, len(keep), MAX_CHUNK):
+                hi = min(lo + MAX_CHUNK, len(keep))
+                out = p256mod.p256_verify(*self._upload(arrays, lo, hi),
+                                          self._g_table,
+                                          require_low_s=self.require_low_s)
+                self.stats["dispatches"] += 1
+                self.stats["device_sigs"] += hi - lo
+                pending.append((keep[lo:hi], out))
 
     def batch_verify_async(self, items: Sequence[VerifyItem]):
         """Enqueue the device work and return resolve() -> bool[N]."""
@@ -139,12 +302,21 @@ class CudaProvider(prov.Provider):
                                 self.sw.batch_verify(sub)))
             else:
                 self.stats["host_rejects"] += len(idxs)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
 
         def resolve():
             # host work first, so it overlaps the device's
             for keep, out in sorted(pending,
                                     key=lambda kv: not callable(kv[1])):
-                out = out() if callable(out) else out.cpu().numpy()
+                if callable(out):
+                    out = out()
+                else:
+                    if done is not None:
+                        done.synchronize()
+                    out = out.cpu().numpy()
                 verdicts[np.asarray(keep)] = out
             return verdicts
 

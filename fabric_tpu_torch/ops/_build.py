@@ -38,6 +38,9 @@ SIGNATURES = {
     "p256_verify": {
         "p256_verify_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
+    "p256_verify_rows": {
+        "p256_verify_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -19,13 +19,15 @@
 // the whole 512 KB table stays in L2).  The TPU inverts s with a product
 // tree across the batch; here each thread runs its own Fermat chain.
 //
-// Bound on the H100: integer multiply-adds.  A verify is about 3,960
-// Montgomery multiplies and squares, ~3,530 of them mod p; the exact
-// count for given u1, u2 is fabric_tpu_torch/ops/p256.py:
-// field_ops_per_verify, weighed by the least work of each (ops/field.py:
-// IMADS, see p256_field.cuh) against 64 multiply-adds per SM per clock;
-// each signature moves 161 bytes.  The design does not yet
-// reach that bound: one thread per signature leaves few warps per SM at
+// Bound on the H100: integer multiply-adds.  The least work of a verify
+// is about 3,530 Montgomery multiplies and squares mod p and 6 mod n,
+// with s^-1 batched (3 multiplies per signature, one Fermat chain per
+// launch); the exact count for given u1, u2 is fabric_tpu_torch/ops/
+// p256.py:field_ops_per_verify, weighed by the least work of each
+// (ops/field.py:IMADS, see p256_field.cuh) against 64 multiply-adds per
+// SM per clock; each signature moves 161 bytes.  The design does not yet
+// reach that bound: its per-thread Fermat chain adds ~425 operations mod
+// n, and one thread per signature leaves few warps per SM at
 // block sizes (40k signatures = 313 blocks of 128 on 132 SMs), and the
 // 16-entry table of Q (1.5 KB per thread) lives in local memory.  Later
 // work: comb rows staged through shared memory, a batch inversion pass,
@@ -34,207 +36,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "p256_field.cuh"
+#include "p256_point.cuh"
 
 using namespace p256;
-
-struct Jac {
-  uint32_t X[8], Y[8], Z[8];
-  int inf;
-};
-
-__device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a,
-                                       const uint32_t* b) {
-  mont_mul<MOD_P>(r, a, b);
-}
-__device__ __forceinline__ void fp_sqr(uint32_t* r, const uint32_t* a) {
-  mont_mul<MOD_P>(r, a, a);
-}
-__device__ __forceinline__ void fp_add(uint32_t* r, const uint32_t* a,
-                                       const uint32_t* b) {
-  mod_add<MOD_P>(r, a, b);
-}
-__device__ __forceinline__ void fp_sub(uint32_t* r, const uint32_t* a,
-                                       const uint32_t* b) {
-  mod_sub<MOD_P>(r, a, b);
-}
-
-__device__ __forceinline__ void pt_set_inf(Jac& o) {
-  fe_copy(o.X, C_P_ONE);
-  fe_copy(o.Y, C_P_ONE);
-  fe_copy(o.Z, C_P_ONE);
-  o.inf = 1;
-}
-
-__device__ __forceinline__ void pt_copy(Jac& o, const Jac& p) {
-  fe_copy(o.X, p.X);
-  fe_copy(o.Y, p.Y);
-  fe_copy(o.Z, p.Z);
-  o.inf = p.inf;
-}
-
-// Jacobian doubling, dbl-2001-b with a = -3 (ecp256.py:dbl); 8 mont_muls.
-// o may alias p.  Infinity stays infinity.
-__device__ __forceinline__ void pt_dbl(Jac& o, const Jac& p) {
-  if (p.inf) {
-    pt_copy(o, p);
-    return;
-  }
-  uint32_t delta[8], gamma[8], beta[8], alpha[8], t[8], u[8];
-  uint32_t b4[8], b8[8], X3[8], Y3[8], Z3[8];
-  fp_sqr(delta, p.Z);
-  fp_sqr(gamma, p.Y);
-  fp_mul(beta, p.X, gamma);
-  fp_sub(t, p.X, delta);
-  fp_add(u, p.X, delta);
-  fp_mul(alpha, t, u);
-  fp_add(t, alpha, alpha);
-  fp_add(alpha, t, alpha);          // 3 (X - delta)(X + delta)
-  fp_add(b4, beta, beta);
-  fp_add(b4, b4, b4);               // 4 beta
-  fp_add(b8, b4, b4);               // 8 beta
-  fp_sqr(X3, alpha);
-  fp_sub(X3, X3, b8);               // alpha^2 - 8 beta
-  fp_add(t, p.Y, p.Z);
-  fp_sqr(Z3, t);
-  fp_sub(Z3, Z3, gamma);
-  fp_sub(Z3, Z3, delta);            // (Y + Z)^2 - gamma - delta
-  fp_sub(t, b4, X3);
-  fp_mul(Y3, alpha, t);
-  fp_add(u, gamma, gamma);
-  fp_add(u, u, u);
-  fp_add(u, u, u);                  // 8 gamma
-  fp_mul(t, gamma, u);
-  fp_sub(Y3, Y3, t);                // alpha (4 beta - X3) - 8 gamma^2
-  fe_copy(o.X, X3);
-  fe_copy(o.Y, Y3);
-  fe_copy(o.Z, Z3);
-  o.inf = 0;
-}
-
-// The shared body of add_nodbl / add_complete for finite P, Q: 16
-// mont_muls.  Returns h == 0 in *h_zero and r == 0 in *r_zero.
-__device__ __forceinline__ void pt_add_body(uint32_t X3[8], uint32_t Y3[8],
-                                            uint32_t Z3[8], const Jac& p,
-                                            const Jac& q, bool* h_zero,
-                                            bool* r_zero) {
-  uint32_t z1z1[8], z2z2[8], u1[8], u2[8], s1[8], s2[8], t[8];
-  uint32_t h[8], r[8], h2[8], h3[8], u1h2[8];
-  fp_sqr(z1z1, p.Z);
-  fp_sqr(z2z2, q.Z);
-  fp_mul(u1, p.X, z2z2);
-  fp_mul(u2, q.X, z1z1);
-  fp_mul(t, q.Z, z2z2);
-  fp_mul(s1, p.Y, t);
-  fp_mul(t, p.Z, z1z1);
-  fp_mul(s2, q.Y, t);
-  fp_sub(h, u2, u1);
-  fp_sub(r, s2, s1);
-  *h_zero = fe_is_zero(h);
-  *r_zero = fe_is_zero(r);
-  fp_sqr(h2, h);
-  fp_mul(h3, h, h2);
-  fp_mul(u1h2, u1, h2);
-  fp_sqr(X3, r);
-  fp_sub(X3, X3, h3);
-  fp_sub(X3, X3, u1h2);
-  fp_sub(X3, X3, u1h2);             // r^2 - h^3 - 2 u1 h^2
-  fp_sub(t, u1h2, X3);
-  fp_mul(Y3, r, t);
-  fp_mul(t, s1, h3);
-  fp_sub(Y3, Y3, t);                // r (u1 h^2 - X3) - s1 h^3
-  fp_mul(t, p.Z, q.Z);
-  fp_mul(Z3, t, h);                 // Z1 Z2 h
-}
-
-// Add without the doubling case (ecp256.py:add_nodbl): infinity
-// operands by flag; h == 0 (P == -Q, or P == Q, which the ladder cannot
-// reach for an on-curve Q) gives infinity.  o may alias p or q.
-__device__ __forceinline__ void pt_add_nodbl(Jac& o, const Jac& p,
-                                             const Jac& q) {
-  if (p.inf) {
-    pt_copy(o, q);
-    return;
-  }
-  if (q.inf) {
-    pt_copy(o, p);
-    return;
-  }
-  uint32_t X3[8], Y3[8], Z3[8];
-  bool h_zero, r_zero;
-  pt_add_body(X3, Y3, Z3, p, q, &h_zero, &r_zero);
-  fe_copy(o.X, X3);
-  fe_copy(o.Y, Y3);
-  fe_copy(o.Z, Z3);
-  o.inf = h_zero ? 1 : 0;
-}
-
-// Fully complete add (ecp256.py:add_complete): P == Q doubles.
-__device__ __forceinline__ void pt_add_complete(Jac& o, const Jac& p,
-                                                const Jac& q) {
-  if (p.inf) {
-    pt_copy(o, q);
-    return;
-  }
-  if (q.inf) {
-    pt_copy(o, p);
-    return;
-  }
-  uint32_t X3[8], Y3[8], Z3[8];
-  bool h_zero, r_zero;
-  pt_add_body(X3, Y3, Z3, p, q, &h_zero, &r_zero);
-  if (h_zero && r_zero) {
-    pt_dbl(o, q);
-    return;
-  }
-  fe_copy(o.X, X3);
-  fe_copy(o.Y, Y3);
-  fe_copy(o.Z, Z3);
-  o.inf = h_zero ? 1 : 0;
-}
-
-// Mixed add of an affine comb entry (ecp256.py:add_mixed); 11 mont_muls.
-// The comb never meets P == +-Q (u1 < n), so there is no patch for it.
-__device__ __forceinline__ void pt_add_mixed(Jac& o, const uint32_t x2[8],
-                                             const uint32_t y2[8]) {
-  if (o.inf) {
-    fe_copy(o.X, x2);
-    fe_copy(o.Y, y2);
-    fe_copy(o.Z, C_P_ONE);
-    o.inf = 0;
-    return;
-  }
-  uint32_t z1z1[8], u2[8], s2[8], t[8], h[8], r[8], h2[8], h3[8];
-  uint32_t u1h2[8], X3[8], Y3[8];
-  fp_sqr(z1z1, o.Z);
-  fp_mul(u2, x2, z1z1);
-  fp_mul(t, o.Z, z1z1);
-  fp_mul(s2, y2, t);
-  fp_sub(h, u2, o.X);
-  fp_sub(r, s2, o.Y);
-  fp_sqr(h2, h);
-  fp_mul(h3, h, h2);
-  fp_mul(u1h2, o.X, h2);
-  fp_sqr(X3, r);
-  fp_sub(X3, X3, h3);
-  fp_sub(X3, X3, u1h2);
-  fp_sub(X3, X3, u1h2);
-  fp_sub(t, u1h2, X3);
-  fp_mul(Y3, r, t);
-  fp_mul(t, o.Y, h3);
-  fp_sub(Y3, Y3, t);
-  fp_mul(o.Z, o.Z, h);
-  fe_copy(o.X, X3);
-  fe_copy(o.Y, Y3);
-}
-
-// (8, n) big-endian words, word 0 most significant -> little-endian limbs
-__device__ __forceinline__ void load_be(uint32_t r[8],
-                                        const uint32_t* __restrict__ w,
-                                        int i, int n) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) r[7 - k] = w[(size_t)k * n + i];
-}
 
 __global__ void __launch_bounds__(128) p256_verify_kernel(
     const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
@@ -267,29 +71,12 @@ __global__ void __launch_bounds__(128) p256_verify_kernel(
   q_ok = q_ok && fe_eq(lhs, rhs);
 
   // --- u1 = e / s, u2 = r / s mod n ---
-  uint32_t w[8], u1[8], u2[8];
-  to_mont<MOD_N>(w, S);
-  mont_inv<MOD_N>(w, w);            // Montgomery form of s^-1
-  mont_mul<MOD_N>(u1, E, w);        // e * s^-1 (plain, canonical)
-  mont_mul<MOD_N>(u2, R, w);
+  uint32_t u1[8], u2[8];
+  scalars(u1, u2, R, S, E);
 
   // --- u1*G: 8-bit comb, windows LSB-first, digit 0 adds nothing ---
   Jac acc_g;
-  pt_set_inf(acc_g);
-#pragma unroll 1
-  for (int j = 0; j < 32; ++j) {
-    const uint32_t d = (u1[j >> 2] >> (8 * (j & 3))) & 0xFFu;
-    if (d) {
-      const uint32_t* row = table + ((size_t)j * 256 + d) * 16;
-      uint32_t x2[8], y2[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        x2[k] = __ldg(row + k);
-        y2[k] = __ldg(row + 8 + k);
-      }
-      pt_add_mixed(acc_g, x2, y2);
-    }
-  }
+  pt_comb(acc_g, table, u1);
 
   // --- u2*Q: 16-entry table, 4-bit digits MSB-first ---
   Jac T[16];
@@ -312,24 +99,11 @@ __global__ void __launch_bounds__(128) p256_verify_kernel(
     pt_add_nodbl(acc, acc, T[d]);
   }
 
-  // --- combine (complete: u1*G == +-u2*Q is reachable) ---
+  // --- combine (complete: u1*G == +-u2*Q is reachable), then the
+  // projective x check: X == (r + k n) Z^2, k in {0, 1} ---
   Jac res;
   pt_add_complete(res, acc_g, acc);
-  const bool nonzero = !res.inf && !fe_is_zero(res.Z);
-
-  // --- projective x check: X == (r + k n) Z^2, k in {0, 1} ---
-  uint32_t z2[8], rm[8], t[8], rn[8];
-  fp_sqr(z2, res.Z);
-  to_mont<MOD_P>(rm, R);
-  fp_mul(t, rm, z2);
-  const bool eq1 = fe_eq(res.X, t);
-  const uint32_t carry = fe_add_raw(rn, R, C_N);
-  const bool rn_lt_p = carry == 0 && fe_lt(rn, C_P);
-  to_mont<MOD_P>(rm, rn);
-  fp_mul(t, rm, z2);
-  const bool eq2 = rn_lt_p && fe_eq(res.X, t);
-
-  out[i] = (r_ok && s_ok && q_ok && nonzero && (eq1 || eq2)) ? 1 : 0;
+  out[i] = (r_ok && s_ok && q_ok && x_matches_r(res, R)) ? 1 : 0;
 }
 
 extern "C" int p256_verify_launch(const void* qx, const void* qy,

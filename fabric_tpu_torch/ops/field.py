@@ -309,8 +309,10 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
         return mul_chain_plain(a, b, k, modulus)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    lib = _build.load("field_chain")
     out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
+    lib = _build.load("field_chain")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = lib.field_mul_chain_launch(

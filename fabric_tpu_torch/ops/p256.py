@@ -206,35 +206,23 @@ def ladder(qx_m, qy_m, u):
 # The plain version of KP2
 # ---------------------------------------------------------------------------
 
-def verify_words_plain(qx, qy, r, s, e, table,
-                       require_low_s: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of KP2 on int64 tensors: (8, B) uint32
-    big-endian words and the (8192, 16) uint32 G table, all on one
-    device -> (B,) bool."""
-    QX, QY, R, S, E = (words_be_to_limbs(v) for v in (qx, qy, r, s, e))
-
-    # --- range and key checks ---
+def verify_core_plain(R, S, E, table, q_mul,
+                      require_low_s: bool) -> torch.Tensor:
+    """The steps both P-256 lanes share (the reference's
+    `p256_fixed._verify_core`), on (16, B) limbs: the r and s range
+    checks, u1 = e / s and u2 = r / s mod n, u1*G over G's comb table,
+    `q_mul(u2)` -> u2*Q, the complete combine and the projective x
+    check -> (B,) bool."""
     r_ok = ~is_zero_limbs(R) & lt_const(R, N)
     s_ok = ~is_zero_limbs(S) & lt_const(S, N)
     if require_low_s:
         s_ok = s_ok & lt_const(S, HALF_N + 1)
-    q_ok = lt_const(QX, P) & lt_const(QY, P)
 
-    xm = fp.to_mont(QX)
-    ym = fp.to_mont(QY)
-    lhs = fp.sqr(ym)
-    rhs = fp.add(fp.mul(fp.add(fp.sqr(xm), fp.const_mont(A, xm)), xm),
-                 fp.const_mont(B, xm))
-    q_ok = q_ok & fp.eq(lhs, rhs)
-
-    # --- u1 = e / s, u2 = r / s mod n ---
     w = fn.inv(fn.to_mont(S))          # Montgomery form of s^-1
     u1 = fn.mul(E, w)                  # e * s^-1, canonical
     u2 = fn.mul(R, w)
 
-    acc_g = comb_accumulate(table, u1)
-    acc_q = ladder(xm, ym, u2)
-    X, _, Z, inf = add_complete(acc_g, acc_q)
+    X, _, Z, inf = add_complete(comb_accumulate(table, u1), q_mul(u2))
     nonzero = ~inf & ~fp.is_zero(Z)
 
     # --- projective x check: X == (r + k n) Z^2, k in {0, 1} ---
@@ -243,7 +231,28 @@ def verify_words_plain(qx, qy, r, s, e, table,
     rn, carry = add_const(R, N)
     rn_lt_p = ~carry & lt_const(rn, P)
     eq2 = rn_lt_p & fp.eq(X, fp.mul(fp.to_mont(rn), z2))
-    return r_ok & s_ok & q_ok & nonzero & (eq1 | eq2)
+    return r_ok & s_ok & nonzero & (eq1 | eq2)
+
+
+def verify_words_plain(qx, qy, r, s, e, table,
+                       require_low_s: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of KP2 on int64 tensors: (8, B) uint32
+    big-endian words and the (8192, 16) uint32 G table, all on one
+    device -> (B,) bool."""
+    QX, QY, R, S, E = (words_be_to_limbs(v) for v in (qx, qy, r, s, e))
+
+    # --- key checks: qx, qy < p and Q on the curve ---
+    q_ok = lt_const(QX, P) & lt_const(QY, P)
+    xm = fp.to_mont(QX)
+    ym = fp.to_mont(QY)
+    lhs = fp.sqr(ym)
+    rhs = fp.add(fp.mul(fp.add(fp.sqr(xm), fp.const_mont(A, xm)), xm),
+                 fp.const_mont(B, xm))
+    q_ok = q_ok & fp.eq(lhs, rhs)
+
+    return q_ok & verify_core_plain(R, S, E, table,
+                                    lambda u2: ladder(xm, ym, u2),
+                                    require_low_s)
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +290,10 @@ def p256_verify(qx, qy, r, s, e, table,
         raise ValueError(f"unsupported device {dev}")
     if n >= 1 << 31:
         raise ValueError("batch too large for one launch")
-    lib = _build.load("p256_verify")
     out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    lib = _build.load("p256_verify")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [ctypes.c_void_p(t.data_ptr())
@@ -326,16 +337,30 @@ _DBL = (4, 4)
 _ADD = (12, 4)                                # pt_add_body
 _MIXED = (8, 3)
 
+# s^-1 mod n over a batch, at least: Montgomery's trick costs 3 multiplies
+# per signature (counted in field_ops_per_verify) and one Fermat chain per
+# launch, s^(n-2) by 255 squares and a multiply per further set bit.  The
+# kernels do not batch it yet: each thread runs its own chain.
+INV_N_BATCH_MULS = 3
+INV_N_CHAIN = {("n", "mul"): bin(N - 2)[3:].count("1"), ("n", "sqr"): 255}
+
+
+def imads_per_launch() -> int:
+    """32-bit multiply-adds of the one Fermat chain a launch's batched
+    inversion needs, on top of the per-signature counts."""
+    return sum(IMADS[k] * c for k, c in INV_N_CHAIN.items())
+
 
 def field_ops_per_verify(u1: int, u2: int) -> dict:
-    """Montgomery multiplies and squares KP2 makes for one signature with
-    these scalars, keyed like `field.IMADS`, counted from
+    """Montgomery multiplies and squares one KP2 signature with these
+    scalars needs at least, keyed like `field.IMADS`, counted from
     csrc/p256_verify.cu: the fixed steps, plus the comb and ladder adds
     and ladder doublings the digits of u1 and u2 call for (an add onto
-    infinity is a copy, a digit 0 adds nothing)."""
+    infinity is a copy, a digit 0 adds nothing).  s^-1 counts as batched
+    (`INV_N_CHAIN` is added once per launch)."""
     pm, ps = 2 + 1, 2                         # to_mont Q; the curve check
-    nm = 1 + bin(N - 2)[3:].count("1") + 2    # to_mont s, s^-1, u1 u2
-    ns = 255                                  # s^-1
+    nm = 1 + INV_N_BATCH_MULS + 2             # to_mont s, s^-1, u1 u2
+    ns = 0
     pts = [_DBL] + [_ADD] * 13                # Q's table
     comb = sum(1 for j in range(COMB_WINDOWS) if (u1 >> (8 * j)) & 0xFF)
     pts += [_MIXED] * max(comb - 1, 0)

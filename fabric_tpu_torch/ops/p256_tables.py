@@ -1,24 +1,27 @@
 """Host builder of fixed-base comb tables for ECDSA-P256, in the port's
-layout.
+layout, and the host LRU of per-key tables.
 
 Counterpart of `fabric_tpu/ops/p256_tables.py` (`comb_table_for_point`,
-with its python-int Jacobian helpers).  A table holds, for window j in
-[0, 32) and digit k in [0, 256), the affine point k * 2^(8j) * T at row
-j*256 + k; rows with k = 0 are zero (the kernel never reads them).
+with its python-int Jacobian helpers, and `KeyTableCache`).  The
+generator's table serves both lanes; a public key's table serves the
+fixed-key lane (KP3), from the device bank of `ops/device_bank.py`.  A
+table holds, for window j in [0, 32) and digit k in [0, 256), the affine
+point k * 2^(8j) * T at row j*256 + k; rows with k = 0 are zero (the
+kernels never read them).
 
 Port layout: (8192, 16) uint32, x in words 0..7 and y in words 8..15,
 each the Montgomery form x * 2^256 mod p as little-endian 32-bit limbs —
 64 bytes a row, 512 KB a table.  The reference stores (8192, 44) f32 rows
 of 22 12-bit limbs with R = 2^264 for its one-hot matmul lookup;
 `from_jax_comb_table` converts one into the other.
-
-The per-key cache (`KeyTableCache`) and the device bank come with the
-fixed-key lane in a later slice.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
+from collections import OrderedDict
+from typing import Optional
 
 import numpy as np
 import torch
@@ -152,8 +155,9 @@ def from_jax_comb_table(arr: np.ndarray) -> torch.Tensor:
     """Reference comb table -> port layout (CPU tensor).
 
     arr: (8192, 44) f32 as `fabric_tpu.ops.p256_tables.comb_table_for_point`
-    builds it — each row the x and y limbs (22 x 12 bits, little-endian)
-    of the Montgomery form with R = 2^264.  Each coordinate goes rows ->
+    builds it, for G or for a public key (the reference's per-key tables
+    have G's format) — each row the x and y limbs (22 x 12 bits,
+    little-endian) of the Montgomery form with R = 2^264.  Each coordinate goes rows ->
     ints -> out of the 2^264 domain -> into the 2^256 domain -> limbs."""
     arr = np.asarray(arr)
     if arr.shape != (ROWS, 44):
@@ -169,3 +173,62 @@ def from_jax_comb_table(arr: np.ndarray) -> torch.Tensor:
             v = sum(int(c) << (12 * i) for i, c in enumerate(col))
             out[row, 8 * half:8 * half + 8] = _words_le(v % P * shift % P)
     return torch.from_numpy(out)
+
+
+def table_for_pubkey(pubkey: bytes) -> Optional[np.ndarray]:
+    """Comb table of an uncompressed SEC1 P-256 public key, or None for a
+    malformed or off-curve key (the fixed-key lane's only on-curve
+    check: such a key never gets a table and stays on the generic lane,
+    which rejects it)."""
+    if len(pubkey) != 65 or pubkey[0] != 0x04:
+        return None
+    qx = int.from_bytes(pubkey[1:33], "big")
+    qy = int.from_bytes(pubkey[33:65], "big")
+    if not on_curve(qx, qy):
+        return None
+    return comb_table_for_point(qx, qy)
+
+
+class KeyTableCache:
+    """LRU cache of host-side per-key comb tables, keyed by SEC1 pubkey.
+
+    Thread-safe.  A table is (8192, 16) uint32 = 512 KB; 64 keys = 32 MB.
+    The provider keeps tables device-resident instead
+    (`ops/device_bank.DeviceBank`); this host cache serves tests and
+    host-only tooling, as the reference's does.
+    """
+
+    def __init__(self, max_keys: int = 64):
+        self.max_keys = max_keys
+        self._lru: "OrderedDict[bytes, np.ndarray]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.stats = {"hits": 0, "builds": 0, "rejects": 0}
+
+    def __contains__(self, pubkey: bytes) -> bool:
+        with self._lock:
+            return pubkey in self._lru
+
+    def get(self, pubkey: bytes) -> Optional[np.ndarray]:
+        with self._lock:
+            tab = self._lru.get(pubkey)
+            if tab is not None:
+                self._lru.move_to_end(pubkey)
+                self.stats["hits"] += 1
+            return tab
+
+    def get_or_build(self, pubkey: bytes) -> Optional[np.ndarray]:
+        """Build (and cache) the table for an uncompressed SEC1 pubkey;
+        returns None for malformed/off-curve keys."""
+        tab = self.get(pubkey)
+        if tab is not None:
+            return tab
+        tab = table_for_pubkey(pubkey)
+        with self._lock:
+            if tab is None:
+                self.stats["rejects"] += 1
+                return None
+            self.stats["builds"] += 1
+            self._lru[pubkey] = tab
+            while len(self._lru) > self.max_keys:
+                self._lru.popitem(last=False)
+        return tab

@@ -6,7 +6,14 @@ corpora of tests/test_bccsp.py:42-125 and tests/test_p256.py:72-96.
 
 The plain verify costs seconds per call on the CPU whatever the batch
 size, so the corpora ride one batch per provider (a module fixture) and
-each test checks its own slice of it."""
+each test checks its own slice of it.
+
+The two-lane dispatch (keys with a resident table, or that bring
+fast_key_threshold signatures, go to KP3; the rest to KP2) mirrors
+tests/test_provider_perf.py:76-186 and tests/test_p256.py:129-174: the
+many-keys differential and the overflow / rotation test run the real
+arithmetic; the tests of lane choice, uploads and chunking stub the
+kernels and the table build."""
 import hashlib
 import random
 
@@ -20,6 +27,7 @@ from fabric_tpu.bccsp import SCHEME_ED25519 as REF_ED25519
 from fabric_tpu.bccsp import SCHEME_P256 as REF_P256
 from fabric_tpu.bccsp import VerifyItem as RefItem
 from fabric_tpu.bccsp.jaxtpu import JaxTpuProvider
+from fabric_tpu.bccsp.jaxtpu import ProviderStats as RefStats
 from fabric_tpu.bccsp.sw import SoftwareProvider as RefSW
 from fabric_tpu.crypto import decode_dss_signature as ref_decode
 from fabric_tpu.crypto import encode_dss_signature as ref_encode
@@ -31,6 +39,7 @@ from fabric_tpu_torch.bccsp import factory
 from fabric_tpu_torch.bccsp import cuda as cudaprov
 from fabric_tpu_torch.bccsp.cuda import CudaProvider
 from fabric_tpu_torch.bccsp.sw import P256_N, SoftwareProvider
+from fabric_tpu_torch.ops import p256_tables
 
 N = P256_N
 P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
@@ -316,3 +325,248 @@ def test_pure_python_sw_matches_reference(corpora, monkeypatch):
     ek = sw.key_gen(SCHEME_ED25519)
     eitem = RefItem(REF_ED25519, ek.public_bytes(), sw.sign(ek, b"m"), b"m")
     assert RefSW().batch_verify([item, eitem]).tolist() == [True, True]
+
+
+# ---------------------------------------------------------------------------
+# The two P-256 lanes
+# ---------------------------------------------------------------------------
+
+TABLE_BYTES = p256_tables.ROWS * p256_tables.ROW_WORDS * 4
+
+
+@pytest.fixture(scope="module")
+def keypool():
+    rng = random.Random(41)
+    return [crypto.p256_key_from_scalar(rng.randrange(1, N))
+            for _ in range(100)]
+
+
+def signed(keys, per_key, seed):
+    """per_key low-S signatures under each key, shuffled -> port items."""
+    rng = random.Random(seed)
+    items = []
+    for key in keys:
+        pub = crypto.p256_public_bytes(key)
+        for _ in range(per_key):
+            digest = hashlib.sha256(rng.randbytes(24)).digest()
+            r, s = crypto.p256_sign_digest(key, digest)
+            items.append(VerifyItem(SCHEME_P256, pub,
+                                    crypto.encode_dss_signature(
+                                        r, min(s, N - s)), digest))
+    rng.shuffle(items)
+    return items
+
+
+def even_r(items):
+    """What the stubbed kernels answer: r's low bit is 0."""
+    return [crypto.decode_dss_signature(it.signature)[0] % 2 == 0
+            for it in items]
+
+
+@pytest.fixture
+def stubbed(monkeypatch):
+    """Stubs KP3, KP2 and the table build.  Each kernel answers "r is
+    even" per signature, so a verdict scattered to the wrong item shows;
+    -> the list of launches, ("kp3", slots) or ("kp2", size)."""
+    calls = []
+
+    def kp3(r, s, e, slot, bank, table, require_low_s=True):
+        assert bank.shape == (bank.shape[0], p256_tables.ROWS,
+                              p256_tables.ROW_WORDS)
+        calls.append(("kp3", slot.tolist()))
+        return (r[7].to(torch.int64) & 1) == 0
+
+    def kp2(qx, qy, r, s, e, table, require_low_s=True):
+        calls.append(("kp2", r.shape[1]))
+        return (r[7].to(torch.int64) & 1) == 0
+
+    monkeypatch.setattr(cudaprov.p256_fixed, "p256_verify_rows", kp3)
+    monkeypatch.setattr(cudaprov.p256mod, "p256_verify", kp2)
+    monkeypatch.setattr(
+        cudaprov.p256_tables, "table_for_pubkey",
+        lambda pk: np.zeros((p256_tables.ROWS, p256_tables.ROW_WORDS),
+                            np.uint32))
+    return calls
+
+
+def lanes(calls):
+    kp3 = [s for kind, s in calls if kind == "kp3"]
+    return sum(map(len, kp3)), sum(n for kind, n in calls if kind == "kp2")
+
+
+@pytest.fixture(scope="module")
+def many_keys():
+    """tests/test_p256.py:129-174: 140 items in uneven groups under 7 of
+    9 keys (key 0 has every third item; keys 3 and 6 sign none, as there),
+    every fifth with a wrong digest
+    and every thirteenth with a wrong r; plus the three providers'
+    verdicts with fast_key_threshold=4."""
+    sw = RefSW()
+    rng = random.Random(17)
+    keys = [sw.key_gen(REF_P256) for _ in range(9)]
+    items = []
+    for i in range(140):
+        key = keys[i % 9 if i % 3 else 0]
+        d = hashlib.sha256(rng.randbytes(33)).digest()
+        r, s = ref_decode(sw.sign(key, d))
+        sig = ref_encode(r, s)
+        if i % 5 == 2:
+            d = hashlib.sha256(b"wrong").digest()
+        if i % 13 == 7:
+            sig = ref_encode((r * 2) % N or 1, s)
+        items.append(RefItem(REF_P256, key.public_bytes(), sig, d))
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    ref = JaxTpuProvider(fast_key_threshold=4)
+    return {"port": prov.batch_verify(port(items)), "prov": prov,
+            "sw": RefSW().batch_verify(items),
+            "jax": np.asarray(ref.batch_verify(items)), "ref": ref,
+            "n": len(items)}
+
+
+def test_many_keys_differential_rides_kp3(many_keys):
+    got = many_keys["port"]
+    np.testing.assert_array_equal(got, many_keys["sw"])
+    np.testing.assert_array_equal(got, many_keys["jax"])
+    assert 0 < got.sum() < many_keys["n"]
+    prov, ref = many_keys["prov"], many_keys["ref"]
+    assert prov.stats["fast_key_sigs"] == many_keys["n"]
+    assert ref.stats["fast_key_sigs"] == many_keys["n"]
+    assert prov.stats["dispatches"] == 1 and prov.stats["fallbacks"] == 0
+    assert prov.key_tables.stats["builds"] == 7
+    # the batch's pins are released once KP3 is launched
+    assert not prov.key_tables._pinned
+
+
+def test_stats_snapshot_matches_reference_shape(many_keys):
+    snap = many_keys["prov"].stats_snapshot()
+    assert type(snap).__dataclass_fields__.keys() \
+        == RefStats.__dataclass_fields__.keys()
+    assert snap.fast_key_sigs == many_keys["n"]
+    assert snap.p256_table_builds == 7 and snap.ed25519_table_builds == 0
+    assert snap.tuning == {"fast_key_threshold": 4, "max_cached_keys": 256}
+
+
+def test_overflow_and_rotation_real_arithmetic(keypool):
+    """Two slots.  Batch A brings three hot keys: the two biggest groups
+    win the slots and stay pinned, so the third key's build spills and
+    its signatures take KP2.  Batch B, enqueued before A is resolved,
+    brings two other keys, which evict both of A's slots.  Every verdict
+    equals its label and SW's."""
+    def batch(keys, sizes, seed):
+        items = []
+        for key, n in zip(keys, sizes):
+            items += signed([key], n, seed + n)
+        labels = [i % 4 != 1 for i in range(len(items))]
+        for i, it in enumerate(items):
+            if not labels[i]:
+                items[i] = it._replace(payload=hashlib.sha256(
+                    it.payload).digest())
+        return items, labels
+
+    a, want_a = batch(keypool[:3], (6, 5, 4), seed=1)
+    b, want_b = batch(keypool[3:5], (4, 4), seed=2)
+    prov = CudaProvider(device="cpu", fast_key_threshold=4,
+                        max_cached_keys=2)
+    res_a = prov.batch_verify_async(a)
+    st = prov.key_tables.stats
+    assert st["pinned_spills"] == 1 and prov.stats["fast_key_sigs"] == 11
+    res_b = prov.batch_verify_async(b)
+    assert st["evictions"] == 2 and st["builds"] == 4
+    got_b, got_a = res_b(), res_a()
+    assert got_a.tolist() == want_a and got_b.tolist() == want_b
+    np.testing.assert_array_equal(got_a, SoftwareProvider().batch_verify(a))
+    assert prov.stats["fast_key_sigs"] == 11 + 8
+    assert prov.stats["device_sigs"] == len(a) + len(b)
+    assert prov.stats["dispatches"] == 3
+
+
+@pytest.mark.parametrize("n_keys", [3, 8, 64])
+def test_hot_keys_ride_kp3(n_keys, keypool, stubbed):
+    """Every key that brings >= threshold signatures earns a slot, however
+    many keys there are; the KP3 batch is key-major."""
+    items = signed(keypool[:n_keys], 5, seed=n_keys)
+    prov = CudaProvider(device="cpu", fast_key_threshold=4,
+                        max_cached_keys=64)
+    got = prov.batch_verify(items)
+    assert got.tolist() == even_r(items)
+    assert lanes(stubbed) == (len(items), 0)
+    assert prov.stats["fast_key_sigs"] == len(items)
+    assert prov.key_tables.stats["builds"] == n_keys
+    slots = stubbed[0][1]
+    runs = [s for j, s in enumerate(slots) if j == 0 or s != slots[j - 1]]
+    assert len(runs) == len(set(runs)) == n_keys
+
+
+def test_cold_keys_ride_kp2(keypool, stubbed):
+    """Groups below the threshold earn no build; a resident key rides KP3
+    even for one signature."""
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    items = signed(keypool, 2, seed=3)
+    assert prov.batch_verify(items).tolist() == even_r(items)
+    assert lanes(stubbed) == (0, len(items))
+    assert prov.stats["fast_key_sigs"] == 0
+    assert prov.key_tables.stats["builds"] == 0
+    warm = signed(keypool[:1], 4, seed=9)
+    one = signed(keypool[:1], 1, seed=11) + signed(keypool[1:2], 1, seed=12)
+    prov.batch_verify(warm)
+    assert prov.batch_verify(one).tolist() == even_r(one)
+    assert prov.stats["fast_key_sigs"] == len(warm) + 1
+    assert stubbed[-2:] == [("kp3", [0]), ("kp2", 1)]
+
+
+def test_table_uploaded_once_per_key(keypool, stubbed):
+    """Tables cross to the device once per key; later batches ship only
+    signature words and slots (tests/test_provider_perf.py:76-103)."""
+    prov = CudaProvider(device="cpu", fast_key_threshold=4,
+                        max_cached_keys=8)
+    items = signed(keypool[:8], 10, seed=4)
+    prov.batch_verify(items)
+    assert prov.key_tables.stats["h2d_bytes"] == 8 * TABLE_BYTES
+    base = prov.stats["h2d_bytes"]
+    assert base == len(items) * (3 * 32 + 4)
+    for _ in range(2):
+        prov.batch_verify(items)
+    assert prov.key_tables.stats["h2d_bytes"] == 8 * TABLE_BYTES
+    assert prov.key_tables.stats["builds"] == 8
+    assert prov.stats["h2d_bytes"] == 3 * base
+
+
+def test_capacity_overflow_spills_to_kp2(keypool, stubbed):
+    """More hot keys than slots: per batch the biggest groups win the
+    slots, the rest take KP2 (tests/test_provider_perf.py:138-158)."""
+    prov = CudaProvider(device="cpu", fast_key_threshold=4,
+                        max_cached_keys=4)
+    for rep in range(2):
+        items = []
+        for j, key in enumerate(keypool[:6]):
+            items += signed([key], 5 + (j < 4), seed=20 + rep + j)
+        assert prov.batch_verify(items).tolist() == even_r(items)
+    st = prov.key_tables.stats
+    assert st["builds"] == 4 and st["pinned_spills"] == 4
+    assert prov.stats["fast_key_sigs"] == 2 * 4 * 6
+    assert lanes(stubbed) == (2 * 4 * 6, 2 * 2 * 5)
+    assert not prov.key_tables._pinned
+
+
+def test_kp3_chunks_scatter_back(keypool, stubbed, monkeypatch):
+    monkeypatch.setattr(cudaprov, "MAX_CHUNK", 7)
+    items = signed(keypool[:3], 8, seed=6) + port(
+        [RefItem(REF_P256, b"\x04" + b"\x00" * 10, b"\x30\x00", b"x")])
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    got = prov.batch_verify(items)
+    assert got.tolist() == even_r(items[:-1]) + [False]
+    sizes = [len(s) for kind, s in stubbed if kind == "kp3"]
+    assert sizes == [7, 7, 7, 3]
+    assert prov.stats["dispatches"] == 4 and prov.stats["host_rejects"] == 1
+
+
+def test_failed_launch_releases_pins(keypool, stubbed, monkeypatch):
+    def broken(*args, **kwargs):
+        raise RuntimeError("p256_verify_rows launch failed: CUDA error 700")
+
+    monkeypatch.setattr(cudaprov.p256_fixed, "p256_verify_rows", broken)
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        prov.batch_verify(signed(keypool[:2], 4, seed=8))
+    assert len(prov.key_tables) == 2 and not prov.key_tables._pinned
+    assert prov.stats["fallbacks"] == 0

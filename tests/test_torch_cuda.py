@@ -15,9 +15,10 @@ import torch
 from fabric_tpu_torch import crypto
 from fabric_tpu_torch.bccsp import (FactoryOpts, SCHEME_P256, VerifyItem,
                                     init_factories)
+from fabric_tpu_torch.bccsp.cuda import CudaProvider
 from fabric_tpu_torch.bccsp.sw import SoftwareProvider
 from fabric_tpu_torch.ops import field as F
-from fabric_tpu_torch.ops import p256, p256_tables
+from fabric_tpu_torch.ops import p256, p256_fixed, p256_tables
 
 R = 1 << 256
 
@@ -93,6 +94,128 @@ def test_p256_verify_kernel_matches_plain(cuda_device):
         want = p256.verify_words_plain(*args, table, require_low_s=low_s)
         assert torch.equal(got, want)
     assert got.cpu().tolist()[:24] == [r[5] for r in rows[:24]]
+
+
+def on_curve_rows(rows):
+    return [r for r in rows if p256_tables.on_curve(r[0], r[1])]
+
+
+def bank_for(rows, device):
+    """-> (bank (K, 8192, 16) on device, slot per row) for rows' keys."""
+    keys = {}
+    for r in rows:
+        keys.setdefault((r[0], r[1]), len(keys))
+    bank = torch.stack([torch.from_numpy(p256_tables.comb_table_for_point(*k))
+                        for k in keys]).to(device)
+    return bank, np.asarray([keys[r[0], r[1]] for r in rows], np.int32)
+
+
+@pytest.mark.cuda
+def test_p256_verify_rows_kernel_matches_plain(cuda_device):
+    rows = on_curve_rows(corpus())
+    random.Random(3).shuffle(rows)              # not key-major: any order
+    bank, slot = bank_for(rows, cuda_device)
+    r, s, e = [torch.from_numpy(p256.ints_to_words(list(v))).to(cuda_device)
+               for v in list(zip(*rows))[2:5]]
+    table = p256_tables.g_table(cuda_device)
+    slot_t = torch.from_numpy(slot)
+    for low_s in (True, False):
+        before = p256_fixed.p256_verify_rows.launches
+        got = p256_fixed.p256_verify_rows(r, s, e, slot_t, bank, table,
+                                          require_low_s=low_s)
+        torch.cuda.synchronize()
+        assert p256_fixed.p256_verify_rows.launches == before + 1
+        want = p256_fixed.verify_words_rows_plain(r, s, e, slot_t, bank,
+                                                  table, require_low_s=low_s)
+        assert torch.equal(got, want)
+    low = p256_fixed.p256_verify_rows(r, s, e, slot_t, bank, table)
+    assert low.cpu().tolist() == [bool(row[5]) for row in rows]
+    with pytest.raises(ValueError, match="slot"):
+        p256_fixed.p256_verify_rows(r, s, e, slot_t + 3, bank, table)
+
+
+def hot_key_items(n_keys, per_key, seed):
+    """Signed P-256 items under n_keys keys, every fifth with a wrong
+    digest -> (items, labels)."""
+    rng = random.Random(seed)
+    keys = [crypto.p256_key_from_scalar(rng.randrange(1, F.N))
+            for _ in range(n_keys)]
+    items, labels = [], []
+    for i in range(n_keys * per_key):
+        key = keys[i % n_keys]
+        digest = hashlib.sha256(rng.randbytes(20)).digest()
+        r, s = crypto.p256_sign_digest(key, digest)
+        good = i % 5 != 2
+        if not good:
+            digest = hashlib.sha256(b"other").digest()
+        items.append(VerifyItem(SCHEME_P256, crypto.p256_public_bytes(key),
+                                crypto.encode_dss_signature(r, min(s, F.N - s)),
+                                digest))
+        labels.append(good)
+    return items, labels
+
+
+@pytest.mark.cuda
+def test_cuda_provider_hot_keys_ride_kp3(cuda_device):
+    items, labels = hot_key_items(3, 8, seed=5)
+    prov = CudaProvider(fast_key_threshold=4)
+    before = (p256_fixed.p256_verify_rows.launches,
+              p256.p256_verify.launches)
+    got = prov.batch_verify(items)
+    assert (p256_fixed.p256_verify_rows.launches,
+            p256.p256_verify.launches) == (before[0] + 1, before[1])
+    assert got.tolist() == labels
+    np.testing.assert_array_equal(got, SoftwareProvider().batch_verify(items))
+    assert prov.stats["fast_key_sigs"] == len(items)
+    assert prov.key_tables.stats["builds"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b_stream", ["same", "other"])
+def test_eviction_across_unresolved_batches(b_stream, cuda_device):
+    """Two slots, two batches of two hot keys each: the second batch, on
+    the first one's stream or on another, evicts and rewrites both slots
+    the first batch's KP3 reads while that KP3 still waits behind a
+    ~0.5 s spin on its stream.  The tables come ready-made, so the
+    rewrites are enqueued at once; were they not ordered after the first
+    KP3, it would read the second batch's keys and reject the first
+    batch's good signatures."""
+    a, want_a = hot_key_items(2, 6, seed=7)
+    b, want_b = hot_key_items(2, 6, seed=8)
+    tables = {it.pubkey: p256_tables.table_for_pubkey(it.pubkey)
+              for it in a + b}
+    # builds and loads the C parser and KP3 before the timed part
+    assert CudaProvider(fast_key_threshold=4).batch_verify(a).tolist() \
+        == want_a
+    prov = CudaProvider(fast_key_threshold=4, max_cached_keys=2)
+    prov.key_tables.build_fn = tables.get
+    side = (torch.cuda.Stream() if b_stream == "other"
+            else torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)
+    res_a = prov.batch_verify_async(a)
+    with torch.cuda.stream(side):
+        res_b = prov.batch_verify_async(b)
+    assert prov.key_tables.stats["evictions"] == 2
+    assert res_b().tolist() == want_b
+    assert res_a().tolist() == want_a
+    assert prov.stats["fast_key_sigs"] == len(a) + len(b)
+
+
+@pytest.mark.cuda
+def test_empty_batch_counts_no_launch(cuda_device):
+    table = p256_tables.g_table(cuda_device)
+    w = torch.zeros((8, 0), dtype=torch.uint32, device=cuda_device)
+    bank = torch.zeros((1, 8192, 16), dtype=torch.uint32, device=cuda_device)
+    before = (p256.p256_verify.launches, p256_fixed.p256_verify_rows.launches,
+              F.field_mul_chain.launches)
+    assert p256.p256_verify(w, w, w, w, w, table).shape == (0,)
+    assert p256_fixed.p256_verify_rows(
+        w, w, w, torch.zeros(0, dtype=torch.int32), bank, table).shape == (0,)
+    a = torch.zeros((0, 8), dtype=torch.uint32, device=cuda_device)
+    assert F.field_mul_chain(a, a, 3).shape == (0, 8)
+    assert (p256.p256_verify.launches, p256_fixed.p256_verify_rows.launches,
+            F.field_mul_chain.launches) == before
 
 
 @pytest.mark.cuda

@@ -146,9 +146,9 @@ def test_mont_mul_count_model():
     base = _ops(0, 0)
     # u1 = u2 = 0: no comb add, ladder never leaves infinity, no combine;
     # mod p: to_mont Q, the curve check, Q's table (1 dbl + 13 adds), the
-    # x check; mod n: to_mont s, the Fermat chain, u1 and u2
+    # x check; mod n: to_mont s, s^-1 batched (3 multiplies), u1 and u2
     assert base == (2 + 1 + 4 + 13 * 12 + 4, 2 + 4 + 13 * 4 + 1,
-                    1 + bin(p256.N - 2)[3:].count("1") + 2, 255)
+                    1 + 3 + 2, 0)
     # one comb digit is a copy; a second costs one mixed add
     assert _ops(0x0101, 0) == _plus(base, 8, 3)
     # u2 = 1: the last window copies T[1]; u2 = 0x11 adds 4 dbl + 1 add
@@ -168,6 +168,15 @@ def test_imads_per_verify_weighs_each_op(u1, u2):
     assert p256.imads_per_verify(u1, u2) == (
         128 * c["p", "mul"] + 72 * c["p", "sqr"]
         + 264 * c["n", "mul"] + 208 * c["n", "sqr"])
+
+
+def test_batched_inversion_chain_per_launch():
+    """One Fermat chain s^(n-2) per launch: 255 squares and a multiply
+    for each set bit of n - 2 after the first."""
+    assert p256.INV_N_CHAIN == {("n", "mul"): bin(p256.N - 2).count("1") - 1,
+                                ("n", "sqr"): 255}
+    assert p256.imads_per_launch() == (
+        264 * p256.INV_N_CHAIN["n", "mul"] + 208 * 255)
 
 
 _BANNED = ("jax", "jaxlib", "fabric_tpu")
