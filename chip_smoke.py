@@ -1,38 +1,52 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (fabric_tpu_torch).
 
-Drives the port's main path once at the size of one real block, holds
-every hand-written kernel against its plain PyTorch version, times them,
-and ends with one JSON line.  Phases:
+Drives the port's main paths at the size of real blocks, holds every
+hand-written kernel against its plain PyTorch version, times them, and
+ends with one JSON line.  Phases:
 
 1. device  — the card's name and power limit; aborts without CUDA
-2. build   — nvcc builds every kernel from fabric_tpu_torch/ops/csrc/,
-             cc the C DER parser from fabric_tpu_torch/native/
+2. build   — nvcc builds every kernel from fabric_tpu_torch/ops/csrc/
+             (KP1-KP3, KE5, KE6, one nvcc each, all at once), cc the C
+             DER parser from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
-             ints, mod p and mod n, edge values included
+             ints, mod p, mod n and mod p25519, edge values included
 4. block   — 10,000 txs x (3 endorsements from 3 org keys + 1 creator
              signature from 64 clients) = 40,000 P-256 items, 2% of them
-             corrupted (7 kinds), plus 64 Ed25519 items, through
-             init_factories(FactoryOpts(default="CUDA")) ->
+             corrupted (7 kinds), plus 64 Ed25519 items under one-off
+             keys, through init_factories(FactoryOpts(default="CUDA")) ->
              batch_verify_async -> resolve(), twice: cold (the bank
              builds the 67 keys' tables) and warm (no builds).  Every
              verdict is checked against its label, a subset against the
-             software provider, KP3 and KP2 against their plain versions
-             on 4096-item slices; then a spill drill on a 500-tx block
-             with two bank slots for three hot keys
-5. times   — medians of repeated runs (CUDA events for kernels); each
-             kernel's plain version is timed on the block's own batch for
-             that kernel, after one more comparison with the kernel there
-6. kernels — one JSON line per the port's kernel table, then the result
+             software provider, KP3 and KP2 against their plain versions;
+             then a spill drill on a 500-tx block with two bank slots for
+             three hot keys
+5. ed25519 — BASELINE config 2 (bench.py:1150-1161): 10,000 Ed25519
+             signatures over 64-byte messages under 8 keys, 2% corrupted
+             (7 kinds), cold (8 table builds) and warm; BASELINE config 3
+             (bench.py:1157): the block's first 20,000 P-256 endorsements
+             and those 10,000 items as one batch; a generic load of 4,096
+             Ed25519 items under keys of their own, 2% corrupted (5 kinds,
+             bad encodings of A among them).  Verdicts against labels, a
+             subset against the software provider, KE6 and KE5 against
+             their plain versions on their whole batches
+6. times   — medians of repeated runs (CUDA events for kernels); each
+             kernel's plain version is timed by its one comparison call
+             on the path's own batch for that kernel; one large pinned
+             host-to-device copy gives the link rate that bounds a table
+             upload
+7. kernels — one JSON line per the port's kernel table, then the result
 
-The main path (each block run, counts set to 0 just before it) launches
-KP3 for the signatures under the 67 hot keys and KP2 for the rest (the
-off-curve keys of the corrupted items).  KP1 is the field layer's
-benchmark kernel and is not on it: its count from the main path is 0.
+Each main-path run (block cold and warm, config 2 cold and warm, config
+3, the generic load) sets every launch count to 0 just before it and
+reads the counts just after; the block launches KP3, KP2 (the off-curve
+keys of the corrupted items) and KE5, config 2 only KE6, config 3 KP3,
+KP2 and KE6, the generic load KE5.  KP1 is the field layer's benchmark
+kernel and is not on a main path: its count there is 0.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--txs N] [--trials K]
+    python3 chip_smoke.py [--txs N] [--ed N] [--gen N] [--trials K]
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -51,6 +65,7 @@ import sys
 import time
 
 SEED = 20240611
+P25519 = 2**255 - 19
 N_ORGS = 3
 N_CLIENTS = 64
 N_ED25519 = 64
@@ -58,12 +73,21 @@ CORRUPT_FRAC = 0.02
 CORRUPT_KINDS = ("wrong_digest", "high_s", "r_zero", "s_eq_n",
                  "off_curve", "bad_der", "short_point")
 HOST_REJECTED_KINDS = ("r_zero", "bad_der", "short_point")
+# config 2 keeps every key decodable, so its keys all earn tables and
+# only KE6 runs warm; the bad encodings of A ride the generic load
+ED_CFG2_KINDS = ("ed_wrong_msg", "ed_flip_r_bit", "ed_s_plus_l",
+                 "ed_swap_key", "ed_r_noncanon_y", "ed_r_y1_sign1",
+                 "ed_bad_length")
+ED_GEN_KINDS = ("ed_wrong_msg", "ed_s_plus_l", "ed_a_noncanon_y",
+                "ed_a_y1_sign1", "ed_r_noncanon_y")
+ED_KEYS = 8
 FAST_THRESHOLD = 64             # the provider's default fast_key_threshold
 SLICE = 4096
 SW_SUBSET = 512
 FIELD_LANES = 4096
 CHAIN_K = 256
 SPILL_TXS = 500
+H2D_BYTES = 1 << 28            # the one large copy that gives the link rate
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
 # 64 per SM per clock (CUDA C Programming Guide, arithmetic instruction
@@ -78,6 +102,19 @@ def _sign_job(job):
     d, digests = job
     key = crypto.p256_key_from_scalar(d)
     return [crypto.p256_sign_digest(key, dg) for dg in digests]
+
+
+def _ed_sign_job(job):
+    """Worker: [(seed, message)] -> [(public key, signature)]."""
+    from fabric_tpu_torch import crypto
+    keys, out = {}, []
+    for seed, msg in job:
+        key = keys.get(seed)
+        if key is None:
+            key = keys[seed] = crypto.ed25519_key_from_seed(seed)
+        out.append((crypto.ed25519_public_bytes(key),
+                    crypto.ed25519_sign(key, msg)))
+    return out
 
 
 def phase(tag: str, **kv) -> None:
@@ -231,6 +268,61 @@ def build_block(n_txs: int, pool):
     return items, labels, kinds
 
 
+def build_ed25519(n: int, n_keys: int, kinds, seed: int, pool):
+    """n Ed25519 items over 64-byte messages (bench.py:gen_ed25519_sigs)
+    under n_keys keys in turn (0: a key of its own each), CORRUPT_FRAC of
+    them corrupted in `kinds` -> (items, labels, kinds)."""
+    from fabric_tpu_torch.bccsp import SCHEME_ED25519, VerifyItem
+    from fabric_tpu_torch.ops.ed25519 import L
+    rng = random.Random(seed)
+    seeds = [rng.randbytes(32) for _ in range(n_keys or n)]
+    msgs = [rng.randbytes(64) for _ in range(n)]
+    pairs = [(seeds[i % len(seeds)], msgs[i]) for i in range(n)]
+    signed = []
+    for res in pool.map(_ed_sign_job, [pairs[lo:lo + 500]
+                                       for lo in range(0, n, 500)]):
+        signed += res
+    tags = [None] * n
+    bad = rng.sample(range(n), max(len(kinds), int(n * CORRUPT_FRAC)))
+    for j, i in enumerate(bad):
+        tags[i] = kinds[j % len(kinds)]
+    items, labels = [], []
+    for i in range(n):
+        (pk, sig), msg, kind = signed[i], msgs[i], tags[i]
+        if kind == "ed_wrong_msg":
+            msg = msg[:-1] + bytes([msg[-1] ^ 1])
+        elif kind == "ed_flip_r_bit":
+            sig = bytes([sig[0] ^ 1]) + sig[1:]
+        elif kind == "ed_s_plus_l":
+            s = int.from_bytes(sig[32:], "little") + L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == "ed_swap_key":
+            pk = signed[(i + 1) % n][0]
+        elif kind == "ed_r_noncanon_y":            # y = p + 1, i.e. 1
+            sig = (P25519 + 1).to_bytes(32, "little") + sig[32:]
+        elif kind == "ed_r_y1_sign1":
+            sig = (1 | 1 << 255).to_bytes(32, "little") + sig[32:]
+        elif kind == "ed_a_noncanon_y":
+            pk = (P25519 + 1).to_bytes(32, "little")
+        elif kind == "ed_a_y1_sign1":
+            pk = (1 | 1 << 255).to_bytes(32, "little")
+        elif kind == "ed_bad_length":
+            sig = sig[:63]
+        items.append(VerifyItem(SCHEME_ED25519, pk, sig, msg))
+        labels.append(kind is None)
+    return items, labels, tags
+
+
+def root_neg(y: int) -> bool:
+    """Does decompressing y take the x * sqrt(-1) fix?  (The candidate
+    root squares to -x^2 rather than x^2.)"""
+    from fabric_tpu_torch.ops.edwards import D
+    p = P25519
+    x2 = (y * y - 1) * pow(D * y * y + 1, p - 2, p) % p
+    c = pow(x2, (p + 3) // 8, p)
+    return c * c % p != x2 and c * c % p == (-x2) % p
+
+
 def item_words(items, idxs):
     """Word arrays for P-256 items whose DER decodes and whose key is 65
     bytes, whatever r and s are (the kernel sees r = 0 here, which the
@@ -263,9 +355,10 @@ def fast_lane_items(items, kinds, n_p256, on_curve):
     return [i for i in wf if items[i].pubkey in hot], len(wf), len(hot)
 
 
-def drive(provider, items, fns):
-    """One main-path run: counts set to 0 just before, read just after.
-    -> (verdicts, seconds, launches, stats delta)."""
+def drive(provider, items, fns, total):
+    """One main-path run: counts set to 0 just before, read just after
+    and added to `total`.  -> (verdicts, seconds, launches, stats
+    delta)."""
     before = dict(provider.stats)
     for fn in fns.values():
         fn.launches = 0
@@ -273,14 +366,62 @@ def drive(provider, items, fns):
     verdicts = provider.batch_verify_async(items)()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in fns.items()}
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
     delta = {k: v - before[k] for k, v in provider.stats.items()}
     return verdicts, seconds, launches, delta
+
+
+def check_launches(run: str, launches: dict, on: tuple,
+                   maybe: tuple = ()) -> None:
+    """The kernels in `on` launched in this run, those in `maybe` may
+    have, the others did not."""
+    for name, n in launches.items():
+        if name in on:
+            check(n > 0, f"{run}: {name} was not launched on the main path")
+        elif name not in maybe:
+            check(n == 0, f"{run}: {name} launched {n} times, expected 0")
+
+
+def check_verdicts(run: str, verdicts, want, kinds) -> None:
+    check(verdicts.shape == want.shape, f"{run}: verdict shape")
+    wrong = [int(i) for i in (verdicts != want).nonzero()[0]]
+    check(not wrong, f"{run}: {len(wrong)} verdicts differ from labels, "
+          f"first {[(i, kinds[i]) for i in wrong[:5]]}")
+
+
+def sw_subset(run: str, items, verdicts, kinds, seed: int) -> int:
+    """A random subset plus up to 4 items of each corrupted kind against
+    the software provider -> the subset's size."""
+    from fabric_tpu_torch.bccsp.sw import SoftwareProvider
+    rng = random.Random(seed)
+    subset = set(rng.sample(range(len(items)), min(SW_SUBSET, len(items))))
+    for kind in {k for k in kinds if k is not None}:
+        subset.update([i for i, k in enumerate(kinds) if k == kind][:4])
+    subset = sorted(subset)
+    sw = SoftwareProvider().batch_verify([items[i] for i in subset])
+    check((sw == verdicts[subset]).all(), f"{run}: CUDA provider != SW")
+    return len(subset)
+
+
+def timed_once(torch, fn):
+    """(fn(), its wall ms, synchronised): one timed call of a plain
+    version, which is also the call the kernel is held against."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
                     help="transactions in the block (4 signatures each)")
+    ap.add_argument("--ed", type=int, default=10_000,
+                    help="Ed25519 signatures of BASELINE config 2")
+    ap.add_argument("--gen", type=int, default=4096,
+                    help="Ed25519 items of the generic load")
     ap.add_argument("--trials", type=int, default=5,
                     help="timed repetitions per measurement")
     args = ap.parse_args(argv)
@@ -296,9 +437,8 @@ def main(argv=None) -> int:
     from fabric_tpu_torch import native
     from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
     from fabric_tpu_torch.bccsp import cuda as cudaprov
-    from fabric_tpu_torch.bccsp.sw import SoftwareProvider
-    from fabric_tpu_torch.ops import (_build, field, p256, p256_fixed,
-                                      p256_tables)
+    from fabric_tpu_torch.ops import (_build, ed25519, ed25519_tables,
+                                      field, p256, p256_fixed, p256_tables)
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -327,7 +467,8 @@ def main(argv=None) -> int:
     rng = random.Random(SEED + 1)
     R = 1 << 256
     field_err = 0
-    for mod, m in (("p", field.P), ("n", field.N)):
+    for mod, f in field.MODS.items():
+        m = f.m
         edge = [0, 1, 2, m - 2, m - 1, m, m + 1, R - 1, (1 << 252) - 1,
                 (1 << 252), 0xFFF, int("FFF" * 21, 16), field.P, field.N]
         vals_a = edge + [rng.randrange(R) for _ in range(FIELD_LANES
@@ -358,18 +499,27 @@ def main(argv=None) -> int:
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
         items, labels, kinds = build_block(args.txs, pool)
+        block_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c2_items, c2_labels, c2_kinds = build_ed25519(
+            args.ed, ED_KEYS, ED_CFG2_KINDS, SEED + 3, pool)
+        g_items, g_labels, g_kinds = build_ed25519(
+            args.gen, 0, ED_GEN_KINDS, SEED + 4, pool)
+        ed_build_s = time.perf_counter() - t0
     n_p256 = 4 * args.txs
     fast_idx, well_formed, hot_keys = fast_lane_items(
         items, kinds, n_p256, p256_tables.on_curve)
     phase("block", items=len(items), p256=n_p256, ed25519=N_ED25519,
           corrupted=sum(k is not None for k in kinds),
           well_formed=well_formed, hot_keys=hot_keys,
-          fast_lane_items=len(fast_idx),
-          build_s=round(time.perf_counter() - t0, 2))
+          fast_lane_items=len(fast_idx), build_s=round(block_s, 2))
     want = np.asarray(labels)
     fns = {"p256_verify_rows": p256_fixed.p256_verify_rows,
            "p256_verify": p256.p256_verify,
+           "ed25519_verify_rows": ed25519.ed25519_verify_rows,
+           "ed25519_verify": ed25519.ed25519_verify,
            "field_mul_chain": field.field_mul_chain}
+    total = {}
 
     # the main path: the factory builds the provider, then the block goes
     # through it cold (the bank builds every hot key's table) and warm
@@ -388,11 +538,9 @@ def main(argv=None) -> int:
         return tab
 
     bank.build_fn = timed_build
-    runs = {}
     for run in ("cold", "warm"):
         builds0 = bank.stats["builds"]
-        verdicts, secs, launches, delta = drive(provider, items, fns)
-        runs[run] = launches
+        verdicts, secs, launches, delta = drive(provider, items, fns, total)
         phase("block", run=run,
               main_path_s=round(secs + (init_s if run == "cold" else 0), 4),
               launches=launches, stats=delta,
@@ -400,12 +548,10 @@ def main(argv=None) -> int:
               table_build_s=round(sum(build_s), 3),
               bank_bytes=bank.array().nbytes,
               table_h2d_bytes=bank.stats["h2d_bytes"])
-        check(verdicts.shape == want.shape, "verdict shape")
-        wrong = np.nonzero(verdicts != want)[0]
-        check(wrong.size == 0, f"{run}: {wrong.size} verdicts differ from "
-              f"labels, first {[(int(i), kinds[i]) for i in wrong[:5]]}")
-        check(delta["device_sigs"] == well_formed,
-              f"{run}: device_sigs {delta['device_sigs']} != {well_formed}")
+        check_verdicts(f"block {run}", verdicts, want, kinds)
+        check(delta["device_sigs"] == well_formed + N_ED25519,
+              f"{run}: device_sigs {delta['device_sigs']} != "
+              f"{well_formed + N_ED25519}")
         check(delta["fast_key_sigs"] == len(fast_idx),
               f"{run}: fast_key_sigs {delta['fast_key_sigs']} != "
               f"{len(fast_idx)}")
@@ -413,24 +559,15 @@ def main(argv=None) -> int:
         check(bank.stats["builds"] - builds0
               == (hot_keys if run == "cold" else 0),
               f"{run}: {bank.stats['builds'] - builds0} table builds")
-        for kern in ("p256_verify_rows", "p256_verify"):
-            check(launches[kern] > 0,
-                  f"{run}: {kern} was not launched on the main path")
+        check_launches(f"block {run}", launches,
+                       ("p256_verify_rows", "p256_verify", "ed25519_verify"))
         phase("block", run=run, verdicts_vs_labels="equal",
-              valid=int(want.sum()), device_sigs=well_formed,
+              valid=int(want.sum()), device_sigs=well_formed + N_ED25519,
               fast_key_sigs=len(fast_idx), fallbacks=0)
     bank.build_fn = build_fn
     table_build_s = sum(build_s)
-
-    srng = random.Random(SEED + 2)
-    subset = set(srng.sample(range(len(items)),
-                             min(SW_SUBSET, len(items))))
-    for kind in CORRUPT_KINDS + ("ed25519_wrong_msg",):
-        subset.update([i for i, k in enumerate(kinds) if k == kind][:4])
-    subset = sorted(subset)
-    sw = SoftwareProvider().batch_verify([items[i] for i in subset])
-    check((sw == verdicts[subset]).all(), "CUDA provider != SW on subset")
-    phase("block", sw_subset=len(subset), vs_sw="equal")
+    phase("block", sw_subset=sw_subset("block", items, verdicts, kinds,
+                                       SEED + 2), vs_sw="equal")
 
     # KP3 against its plain version on a slice of the block's own KP3
     # batch that holds every corrupted kind reaching it
@@ -491,7 +628,126 @@ def main(argv=None) -> int:
           device_sigs=drill.stats["device_sigs"], verdicts_vs_labels="equal")
     del drill
 
-    # --- 5. times ----------------------------------------------------------
+    # --- 5. ed25519 ----------------------------------------------------------
+    # BASELINE config 2, cold then warm, through the block's provider
+    ebank = provider.ed_key_tables
+    c2_want = np.asarray(c2_labels)
+    c2_rejected = sum(k == "ed_bad_length" for k in c2_kinds)
+    c2_sigs = args.ed - c2_rejected
+    phase("ed25519", config2_items=args.ed, keys=ED_KEYS,
+          corrupted=sum(k is not None for k in c2_kinds),
+          host_rejected=c2_rejected, generic_load_items=args.gen,
+          generic_corrupted=sum(k is not None for k in g_kinds),
+          sign_s=round(ed_build_s, 2))
+    eb_fn = ebank.build_fn
+    ed_build_s = []
+
+    def timed_ed_build(pk):
+        t = time.perf_counter()
+        tab = eb_fn(pk)
+        ed_build_s.append(time.perf_counter() - t)
+        return tab
+
+    ebank.build_fn = timed_ed_build
+    c2_ms = {}
+    for run in ("cold", "warm"):
+        builds0 = ebank.stats["builds"]
+        verdicts, secs, launches, delta = drive(provider, c2_items, fns,
+                                                total)
+        c2_ms[run] = secs * 1e3
+        phase("ed25519", config2=run, main_path_s=round(secs, 4),
+              launches=launches, stats=delta,
+              table_builds=ebank.stats["builds"] - builds0,
+              table_build_s=round(sum(ed_build_s), 4),
+              table_h2d_bytes=ebank.stats["h2d_bytes"])
+        check_verdicts(f"config 2 {run}", verdicts, c2_want, c2_kinds)
+        check(delta["device_sigs"] == c2_sigs == delta["fast_key_sigs"],
+              f"config 2 {run}: device/fast sigs {delta}")
+        check(delta["host_rejects"] == c2_rejected,
+              f"config 2 {run}: host_rejects {delta['host_rejects']}")
+        check(delta["fallbacks"] == 0, f"config 2 {run}: fallbacks != 0")
+        check(ebank.stats["builds"] - builds0
+              == (ED_KEYS if run == "cold" else 0),
+              f"config 2 {run}: {ebank.stats['builds'] - builds0} builds")
+        check_launches(f"config 2 {run}", launches, ("ed25519_verify_rows",))
+        phase("ed25519", config2=run, verdicts_vs_labels="equal",
+              valid=int(c2_want.sum()), fallbacks=0)
+    ebank.build_fn = eb_fn
+    ed_table_build_s = sum(ed_build_s)
+    phase("ed25519", config2_sw_subset=sw_subset(
+        "config 2", c2_items, verdicts, c2_kinds, SEED + 5), vs_sw="equal")
+
+    # BASELINE config 3: the first 2 x txs endorsements and config 2's
+    # items as one batch, through the warm provider
+    endorse = [i for i in range(n_p256) if i % 4 != N_ORGS][:2 * args.txs]
+    c3_items = [items[i] for i in endorse] + c2_items
+    c3_kinds = [kinds[i] for i in endorse] + c2_kinds
+    c3_want = np.concatenate([want[endorse], c2_want])
+    verdicts, secs, launches, delta = drive(provider, c3_items, fns, total)
+    phase("ed25519", config3_items=len(c3_items), main_path_s=round(secs, 4),
+          launches=launches, stats=delta)
+    check_verdicts("config 3", verdicts, c3_want, c3_kinds)
+    check(delta["fallbacks"] == 0, "config 3: fallbacks != 0")
+    check_launches("config 3", launches,
+                   ("p256_verify_rows", "ed25519_verify_rows"),
+                   maybe=("p256_verify",))
+    phase("ed25519", config3_verdicts_vs_labels="equal",
+          sw_subset=sw_subset("config 3", c3_items, verdicts, c3_kinds,
+                              SEED + 6))
+
+    # the generic load: keys of their own, one KE5 launch
+    g_want = np.asarray(g_labels)
+    verdicts, secs, launches, delta = drive(provider, g_items, fns, total)
+    phase("ed25519", generic_items=len(g_items), main_path_s=round(secs, 4),
+          launches=launches, stats=delta)
+    check_verdicts("generic load", verdicts, g_want, g_kinds)
+    check(delta["device_sigs"] == len(g_items) - delta["fast_key_sigs"]
+          and delta["fast_key_sigs"] == 0, f"generic load: {delta}")
+    check(delta["fallbacks"] == 0, "generic load: fallbacks != 0")
+    check_launches("generic load", launches, ("ed25519_verify",))
+    phase("ed25519", generic_verdicts_vs_labels="equal",
+          sw_subset=sw_subset("generic load", g_items, verdicts, g_kinds,
+                              SEED + 7))
+
+    # KE6 and KE5 against their plain versions on their whole batches:
+    # config 2's KE6 batch and the generic load's KE5 batch, which hold
+    # every corrupted kind that reaches each kernel
+    btab = ed25519_tables.b_table(dev)
+    ebank_t = ebank.array()
+    c2_pass = provider.pass_ed25519(c2_items, range(args.ed))
+    ebank.unpin(c2_pass.pinned)
+    e6_keep, e6_arrays, e6_slot = c2_pass.fast
+    e6_words = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in e6_arrays]
+    e6_slot_t = torch.from_numpy(e6_slot)
+    kern = ed25519.ed25519_verify_rows(*e6_words, e6_slot_t, ebank_t, btab)
+    plain, ke6_plain_ms = timed_once(torch, lambda: (
+        ed25519.verify_words_rows_plain(*e6_words, e6_slot_t, ebank_t,
+                                        btab)))
+    check(torch.equal(kern, plain), "KE6 != verify_words_rows_plain")
+    check((kern.cpu().numpy() == c2_want[e6_keep]).all(), "KE6 != labels")
+    ke6_err = int((kern.to(torch.int8) - plain.to(torch.int8)).abs().max())
+    phase("ed25519", ke6_batch=len(e6_keep), corrupted=len(
+        [i for i in e6_keep if c2_kinds[i] is not None]),
+        ke6_vs_plain="equal")
+
+    g_pass = provider.pass_ed25519(g_items, range(args.gen))
+    provider.ed_key_tables.unpin(g_pass.pinned)
+    check(g_pass.fast is None, "generic load: a key got a table")
+    e5_keep, e5_arrays = g_pass.generic
+    e5_words = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in e5_arrays]
+    kern = ed25519.ed25519_verify(*e5_words, btab)
+    plain, ke5_plain_ms = timed_once(torch, lambda: (
+        ed25519.verify_words_plain(*e5_words, btab)))
+    check(torch.equal(kern, plain), "KE5 != verify_words_plain")
+    check((kern.cpu().numpy() == g_want[e5_keep]).all(), "KE5 != labels")
+    ke5_err = int((kern.to(torch.int8) - plain.to(torch.int8)).abs().max())
+    phase("ed25519", ke5_batch=len(e5_keep), corrupted=len(
+        [i for i in e5_keep if g_kinds[i] is not None]),
+        ke5_vs_plain="equal")
+
+    # --- 6. times ----------------------------------------------------------
     t = args.trials
     e2e_ms = median_ms(lambda: provider.batch_verify(items), t)
     p256_items = items[:n_p256]
@@ -501,6 +757,14 @@ def main(argv=None) -> int:
         bank.unpin(provider.pass_p256(p256_items, range(n_p256)).pinned)
 
     host_ms = median_ms(host_pass, t)
+    c2_e2e_ms = median_ms(lambda: provider.batch_verify(c2_items), t)
+    c3_e2e_ms = median_ms(lambda: provider.batch_verify(c3_items), t)
+    g_e2e_ms = median_ms(lambda: provider.batch_verify(g_items), t)
+
+    def ed_host_pass():
+        ebank.unpin(provider.pass_ed25519(c2_items, range(args.ed)).pinned)
+
+    ed_host_ms = median_ms(ed_host_pass, t)
 
     # KP3 on the block's own KP3 batch
     f_words = [torch.from_numpy(a).to(dev) for a in f_arrays]
@@ -508,17 +772,13 @@ def main(argv=None) -> int:
     kp3_ms = event_ms(torch, lambda: p256_fixed.p256_verify_rows(
         *f_words, f_slot_t, bank_t, table), t)
     kern = p256_fixed.p256_verify_rows(*f_words, f_slot_t, bank_t, table)
-    plain = p256_fixed.verify_words_rows_plain(*f_words, f_slot_t, bank_t,
-                                               table)
-    torch.cuda.synchronize()
+    plain, kp3_plain_ms = timed_once(torch, lambda: (
+        p256_fixed.verify_words_rows_plain(*f_words, f_slot_t, bank_t,
+                                           table)))
     check(torch.equal(kern, plain),
           "KP3 != verify_words_rows_plain on the block's KP3 batch")
     kp3_err = max(kp3_err, int((kern.to(torch.int8)
                                 - plain.to(torch.int8)).abs().max()))
-    kp3_plain_ms = median_ms(
-        lambda: (p256_fixed.verify_words_rows_plain(
-            *f_words, f_slot_t, bank_t, table), torch.cuda.synchronize()),
-        t, warm=False)
 
     # KP2 on the whole block's device-bound words, as in slice 1
     recs, _ = cudaprov.parse_p256(p256_items, range(n_p256))
@@ -526,37 +786,55 @@ def main(argv=None) -> int:
     block_words = [torch.from_numpy(a).to(dev) for a in arrays]
     kp2_ms = event_ms(torch, lambda: p256.p256_verify(*block_words, table), t)
     kern = p256.p256_verify(*block_words, table)
-    plain = p256.verify_words_plain(*block_words, table)
-    torch.cuda.synchronize()
+    plain, plain_ms = timed_once(torch, lambda: (
+        p256.verify_words_plain(*block_words, table)))
     check(torch.equal(kern, plain), "KP2 != verify_words_plain on the block")
     kp2_err = max(kp2_err, int((kern.to(torch.int8)
                                 - plain.to(torch.int8)).abs().max()))
-    plain_ms = median_ms(
-        lambda: (p256.verify_words_plain(*block_words, table),
-                 torch.cuda.synchronize()), t, warm=False)
 
     lanes = len(keep)
     ca = field.ints_to_words_le([rng.randrange(R) for _ in range(lanes)], dev)
     cb = field.ints_to_words_le([rng.randrange(R) for _ in range(lanes)], dev)
     kp1_ms = event_ms(torch, lambda: field.field_mul_chain(ca, cb, CHAIN_K), t)
-    kp1_plain_ms = median_ms(
-        lambda: (field.mul_chain_plain(ca, cb, CHAIN_K),
-                 torch.cuda.synchronize()), t)
+    _, kp1_plain_ms = timed_once(torch, lambda: field.mul_chain_plain(
+        ca, cb, CHAIN_K))
 
-    # one table's upload into a bank slot (K4: a host-to-device copy)
+    # KE6 on config 2's batch, KE5 on the generic load's and on the
+    # block's 64 Ed25519 items
+    ke6_ms = event_ms(torch, lambda: ed25519.ed25519_verify_rows(
+        *e6_words, e6_slot_t, ebank_t, btab), t)
+    ke5_ms = event_ms(torch, lambda: ed25519.ed25519_verify(*e5_words, btab),
+                      t)
+    b_pass = provider.pass_ed25519(items, range(n_p256, len(items)))
+    b_words = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in b_pass.generic[1]]
+    ke5_block_ms = event_ms(torch, lambda: ed25519.ed25519_verify(
+        *b_words, btab), t)
+
+    # one table's upload into a bank slot (K4: a host-to-device copy from
+    # pageable memory, as the bank does), and the link's peak rate from
+    # one large copy from pinned memory
     tab = torch.from_numpy(p256_tables.g_comb_table().copy())
     scratch = torch.empty_like(tab, device=dev)
     upload_ms = event_ms(torch, lambda: scratch.copy_(tab), t)
+    etab = torch.from_numpy(ed25519_tables.basepoint_table().copy())
+    escratch = torch.empty_like(etab, device=dev)
+    ed_upload_ms = event_ms(torch, lambda: escratch.copy_(etab), t)
+    big = torch.empty(H2D_BYTES, dtype=torch.uint8).pin_memory()
+    big_d = torch.empty(H2D_BYTES, dtype=torch.uint8, device=dev)
+    h2d_ms = event_ms(torch, lambda: big_d.copy_(big, non_blocking=True), t)
+    h2d_rate = H2D_BYTES / (h2d_ms * 1e-3)
+    del big, big_d
 
     # bounds: the larger of bytes over HBM rate and the multiply-adds the
     # field work needs (field.IMADS) over the INT32 rate, for this run's
-    # inputs; s^-1 counts as batched, one Fermat chain per launch
+    # inputs; s^-1 and Z^-1 count as batched, one chain per launch
     n = p256.N
     chain_muls = sum(p256.INV_N_CHAIN.values())
 
     def ints(a):
         return field.limbs_to_ints(field.words_be_to_limbs(
-            torch.from_numpy(a)))
+            torch.from_numpy(np.ascontiguousarray(a))))
 
     muls, imads = chain_muls, p256.imads_per_launch()
     for qx_, qy_, r_, s_, e_ in zip(*[ints(a) for a in arrays]):
@@ -583,9 +861,45 @@ def main(argv=None) -> int:
     kp1_ops_s = lanes * CHAIN_K * field.IMADS["p", "mul"] / imad_rate
     kp1_bytes_s = lanes * 3 * 32 / HBM_BYTES_PER_S
     kp1_bound_ms = max(kp1_ops_s, kp1_bytes_s) * 1e3
+    # KE6: a lane with S >= L is decided by the compare alone
+    L = ed25519.L
+    e6_ops = sum(ed25519.INV_CHAIN.values())
+    e6_imads = ed25519.imads_per_launch()
+    for s_, k_ in zip(ints(e6_arrays[2]), ints(e6_arrays[3])):
+        if s_ < L:
+            e6_ops += sum(ed25519.field_ops_per_verify_rows(s_, k_).values())
+            e6_imads += ed25519.imads_per_verify_rows(s_, k_)
+    ke6_lanes = len(e6_keep)
+    ke6_ops_s = e6_imads / imad_rate
+    ke6_bytes_s = (ke6_lanes * (3 * 32 + 4 + 4 + 1)
+                   + (len(np.unique(e6_slot)) + 1) * etab.nbytes
+                   ) / HBM_BYTES_PER_S
+    ke6_bound_ms = max(ke6_ops_s, ke6_bytes_s) * 1e3
+    # KE5: a lane whose A does not decompress needs only the
+    # decompression, one with S >= L nothing
+    e5_ops = sum(ed25519.INV_CHAIN.values())
+    e5_imads = ed25519.imads_per_launch()
+    ay_i, s_i, k_i = ints(e5_arrays[0]), ints(e5_arrays[4]), ints(e5_arrays[5])
+    for j, i in enumerate(e5_keep):
+        if s_i[j] >= L:
+            continue
+        neg = root_neg(ay_i[j]) if ay_i[j] < P25519 else False
+        if ed25519_tables.decompress_int(g_items[i].pubkey) is None:
+            c = ed25519.decompress_ops(neg)
+        else:
+            c = ed25519.field_ops_per_verify(s_i[j], k_i[j], neg)
+        e5_ops += sum(c.values())
+        e5_imads += sum(field.IMADS[key] * v for key, v in c.items())
+    ke5_lanes = len(e5_keep)
+    ke5_ops_s = e5_imads / imad_rate
+    ke5_bytes_s = (ke5_lanes * (4 * 32 + 2 * 4 + 1) + etab.nbytes
+                   ) / HBM_BYTES_PER_S
+    ke5_bound_ms = max(ke5_ops_s, ke5_bytes_s) * 1e3
 
     busy_ms, wall_ms, top = device_busy(torch, lambda: provider.batch_verify(
         items))
+    c2_busy_ms, c2_wall_ms, c2_top = device_busy(
+        torch, lambda: provider.batch_verify(c2_items))
 
     print(name_power, flush=True)
     phase("times", block_items=len(items), warm=True,
@@ -593,7 +907,15 @@ def main(argv=None) -> int:
           provider_sigs_per_s=round(len(items) / e2e_ms * 1e3, 1),
           p256_only_ms=round(p256_ms, 3),
           p256_only_sigs_per_s=round(n_p256 / p256_ms * 1e3, 1),
-          host_pass_ms=round(host_ms, 3))
+          host_pass_ms=round(host_ms, 3), ke5_on_64_ms=round(ke5_block_ms, 4))
+    phase("times", config2_items=args.ed, warm=True,
+          config2_e2e_ms=round(c2_e2e_ms, 3),
+          config2_sigs_per_s=round(args.ed / c2_e2e_ms * 1e3, 1),
+          config2_cold_ms=round(c2_ms["cold"], 3),
+          ed25519_host_pass_ms=round(ed_host_ms, 3),
+          config3_items=len(c3_items), config3_e2e_ms=round(c3_e2e_ms, 3),
+          config3_sigs_per_s=round(len(c3_items) / c3_e2e_ms * 1e3, 1),
+          generic_items=args.gen, generic_e2e_ms=round(g_e2e_ms, 3))
     phase("times", kp3_ms=round(kp3_ms, 4), kp3_sigs=kp3_lanes,
           kp3_tables=kp3_tables, kp3_plain_ms=round(kp3_plain_ms, 2),
           kp3_vs_plain_on_block="equal",
@@ -606,6 +928,16 @@ def main(argv=None) -> int:
           mont_muls_per_verify=round(muls / lanes, 1),
           imads_per_verify=round(imads / lanes, 1),
           kp2_bound_ms=round(kp2_bound_ms, 4))
+    phase("times", ke6_ms=round(ke6_ms, 4), ke6_sigs=ke6_lanes,
+          ke6_plain_ms=round(ke6_plain_ms, 2),
+          mont_muls_per_verify=round(e6_ops / ke6_lanes, 1),
+          imads_per_verify=round(e6_imads / ke6_lanes, 1),
+          ke6_bound_ms=round(ke6_bound_ms, 4))
+    phase("times", ke5_ms=round(ke5_ms, 4), ke5_sigs=ke5_lanes,
+          ke5_plain_ms=round(ke5_plain_ms, 2),
+          mont_muls_per_verify=round(e5_ops / ke5_lanes, 1),
+          imads_per_verify=round(e5_imads / ke5_lanes, 1),
+          ke5_bound_ms=round(ke5_bound_ms, 4))
     phase("times", kp1_ms=round(kp1_ms, 4), kp1_lanes=lanes, kp1_k=CHAIN_K,
           kp1_ns_per_mul=round(kp1_ms * 1e6 / (lanes * CHAIN_K), 4),
           kp1_plain_ms=round(kp1_plain_ms, 2),
@@ -615,41 +947,66 @@ def main(argv=None) -> int:
           table_build_s=round(table_build_s, 3),
           table_build_ms_each=round(table_build_s / max(hot_keys, 1) * 1e3,
                                     1))
-    if busy_ms > 0:
-        phase("times", profiled_block_wall_ms=round(wall_ms, 3),
-              device_busy_ms=round(busy_ms, 3),
-              device_idle_share=round(1 - busy_ms / wall_ms, 4),
-              top_device_ops=top)
-    else:
-        phase("times", device_idle_share="not measured (the profiler "
-              "recorded no device time)")
-    phase("times", library="none: no PyTorch call computes ECDSA verify "
-          "(either lane) or a Montgomery multiply chain")
+    phase("times", ed_table_upload_ms=round(ed_upload_ms, 4),
+          ed_table_bytes=etab.nbytes, ed_uploads_cold=ED_KEYS,
+          ed_table_build_ms_each=round(ed_table_build_s / ED_KEYS * 1e3, 1),
+          h2d_peak_bytes=H2D_BYTES, h2d_peak_ms=round(h2d_ms, 4),
+          h2d_peak_gb_per_s=round(h2d_rate / 1e9, 3),
+          upload_bound_ms=round(tab.nbytes / h2d_rate * 1e3, 4),
+          ed_upload_bound_ms=round(etab.nbytes / h2d_rate * 1e3, 4))
+    for run, (b_ms, w_ms, tp) in (("block", (busy_ms, wall_ms, top)),
+                                  ("config2", (c2_busy_ms, c2_wall_ms,
+                                               c2_top))):
+        if b_ms > 0:
+            phase("times", profiled=run, wall_ms=round(w_ms, 3),
+                  device_busy_ms=round(b_ms, 3),
+                  device_idle_share=round(1 - b_ms / w_ms, 4),
+                  top_device_ops=tp)
+        else:
+            phase("times", profiled=run, device_idle_share="not measured "
+                  "(the profiler recorded no device time)")
+    phase("times", library="none: no PyTorch call computes ECDSA or "
+          "Ed25519 verify (any lane) or a Montgomery multiply chain")
 
-    # --- 6. kernels ----------------------------------------------------------
+    # --- 7. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
         return "operations" if ops_s >= bytes_s else "bytes"
 
-    launches = runs["cold"]
+    phase("kernels", main_path_launches=total,
+          runs="block cold+warm, config 2 cold+warm, config 3, generic load")
     kernels = [
         {"name": "p256_verify_rows", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/p256_verify_rows.cu",
          "replaces": "fabric_tpu/ops/p256_fixed.py:94",
-         "launches": launches["p256_verify_rows"], "max_abs_err": kp3_err,
+         "launches": total["p256_verify_rows"], "max_abs_err": kp3_err,
          "ms": kp3_ms, "plain_ms": kp3_plain_ms, "bound_ms": kp3_bound_ms,
          "bound_by": by(kp3_ops_s, kp3_bytes_s),
          "library_ms": None, "on_main_path": True},
         {"name": "p256_verify", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/p256_verify.cu",
          "replaces": "fabric_tpu/ops/ecp256.py:447",
-         "launches": launches["p256_verify"], "max_abs_err": kp2_err,
+         "launches": total["p256_verify"], "max_abs_err": kp2_err,
          "ms": kp2_ms, "plain_ms": plain_ms, "bound_ms": kp2_bound_ms,
          "bound_by": by(kp2_ops_s, kp2_bytes_s),
+         "library_ms": None, "on_main_path": True},
+        {"name": "ed25519_verify_rows", "route": "cuda",
+         "source": "fabric_tpu_torch/ops/csrc/ed25519_verify_rows.cu",
+         "replaces": "fabric_tpu/ops/ed25519.py:75",
+         "launches": total["ed25519_verify_rows"], "max_abs_err": ke6_err,
+         "ms": ke6_ms, "plain_ms": ke6_plain_ms, "bound_ms": ke6_bound_ms,
+         "bound_by": by(ke6_ops_s, ke6_bytes_s),
+         "library_ms": None, "on_main_path": True},
+        {"name": "ed25519_verify", "route": "cuda",
+         "source": "fabric_tpu_torch/ops/csrc/ed25519_verify.cu",
+         "replaces": "fabric_tpu/ops/ed25519.py:47",
+         "launches": total["ed25519_verify"], "max_abs_err": ke5_err,
+         "ms": ke5_ms, "plain_ms": ke5_plain_ms, "bound_ms": ke5_bound_ms,
+         "bound_by": by(ke5_ops_s, ke5_bytes_s),
          "library_ms": None, "on_main_path": True},
         {"name": "field_mul_chain", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/field_chain.cu",
          "replaces": "experiments/proto_pallas.py:94",
-         "launches": launches["field_mul_chain"], "max_abs_err": field_err,
+         "launches": total["field_mul_chain"], "max_abs_err": field_err,
          "ms": kp1_ms, "plain_ms": kp1_plain_ms, "bound_ms": kp1_bound_ms,
          "bound_by": by(kp1_ops_s, kp1_bytes_s),
          "library_ms": None, "on_main_path": False},

@@ -2,10 +2,9 @@
 
 Counterpart of `fabric_tpu/bccsp`.  Providers:
 - sw   : host provider (cryptography, or the pure-Python fallback) —
-         signing, Ed25519 until its device lane is ported, and the
-         correctness oracle
-- cuda : batched provider whose P-256 lane runs a hand-written CUDA
-         kernel on the GPU
+         signing and the correctness oracle
+- cuda : batched provider whose P-256 and Ed25519 lanes run
+         hand-written CUDA kernels on the GPU
 """
 
 from .provider import (VerifyItem, SCHEME_P256, SCHEME_ED25519,

@@ -1,9 +1,10 @@
-"""CUDA batched BCCSP provider: the two P-256 lanes on the GPU.
+"""CUDA batched BCCSP provider: the two P-256 lanes and the two Ed25519
+lanes on the GPU.
 
-Counterpart of the P-256 half of `fabric_tpu/bccsp/jaxtpu.py`
-(`_verify_p256` with its vectorized lane split, `_dispatch`,
-`batch_verify_async`, `batch_verify`, `ProviderStats`,
-`stats_snapshot`).  Per batch:
+Counterpart of the P-256 and Ed25519 parts of `fabric_tpu/bccsp/
+jaxtpu.py` (`_verify_p256` with its vectorized lane split,
+`_verify_ed25519`, `_dispatch`, `batch_verify_async`, `batch_verify`,
+`ProviderStats`, `stats_snapshot`).  Per batch:
 
 * P-256 items take one host pass: a single C call parses every DER
   signature (`native.parse_der_sigs`); items with a malformed signature,
@@ -11,25 +12,33 @@ Counterpart of the P-256 half of `fabric_tpu/bccsp/jaxtpu.py`
   key groups first, a key whose comb table is resident in the device bank
   (`key_tables`), or that brings at least `fast_key_threshold`
   signatures and so earns a slot, sends its signatures to kernel KP3;
-  the rest go to kernel KP2.  Each lane's words are copied to the device
-  and launched in chunks of at most `MAX_CHUNK` signatures, KP3's batch
+  the rest go to kernel KP2.
+* Ed25519 items with a 32-byte key and a 64-byte signature are packed
+  on the host (`ed25519.pack_verify_inputs`: words, sign bits,
+  k = SHA-512(R || A || M) mod L); the rest stay False and count as
+  `host_rejects`.  Then, as for P-256, a key whose table of -A is
+  resident in the Ed25519 bank (`ed_key_tables`), or that brings at
+  least `fast_key_threshold` signatures, sends its signatures to kernel
+  KE6, key-major; the rest go to kernel KE5, which decompresses A on the
+  device.  A key that does not decompress gets no table and stays on
+  KE5, which rejects it.
+* Each lane's words are copied to the device and launched in chunks of
+  at most `MAX_CHUNK` signatures, the fixed-key lanes' batches
   key-major.  A slot stays pinned from the lane choice until its launch
   is enqueued.  `resolve()` waits for the device and scatters the
-  verdicts.
-* Ed25519 items go to the port's `SoftwareProvider` (their device lane is
-  not ported yet), computed in `resolve()` while the device works.
+  verdicts.  No item goes to the software provider.
 * Unknown schemes are False and count as `host_rejects`.
 * Idemix items raise NotImplementedError (ROADMAP A6).
 
-All device work of one call (KP2, KP3 and the bank's slot writes) runs
-on the current CUDA stream; `resolve()` waits for that stream's work
-whatever stream is current when it is called.  A slot rebuilt for one
+All device work of one call (the four kernels and the banks' slot
+writes) runs on the current CUDA stream; `resolve()` waits for that
+stream's work whatever stream is current when it is called.  A slot rebuilt for one
 batch is written only after every launch of an earlier batch that reads
 it, on any stream (`DeviceBank`).
 
 Unlike the reference, nothing falls back: a failed build of the C parser
 or of a kernel, a failed launch or a failed resolve raises, and
-`stats["fallbacks"]` stays 0.  The reference's (R, C) row grid, its
+`stats["fallbacks"]` stays 0.  The reference's (R, C) row grids, its
 bucket padding and its lane telemetry have no counterpart here (ROADMAP
 C5).  The `stats` keys are the reference's, because the degrading
 wrapper of a later slice reads them.
@@ -46,7 +55,7 @@ import torch
 from .. import native
 from ..crypto import decode_dss_signature
 from ..device import resolve_device
-from ..ops import p256_fixed, p256_tables
+from ..ops import ed25519, ed25519_tables, p256_fixed, p256_tables
 from ..ops import p256 as p256mod
 from ..ops.device_bank import DeviceBank
 from . import provider as prov
@@ -112,21 +121,53 @@ class ProviderStats:
     fast_key_sigs: int = 0        # sigs that rode the fixed-key lane
     h2d_bytes: int = 0
     p256_table_builds: int = 0
-    ed25519_table_builds: int = 0     # 0: Ed25519 stays on SW until A4
+    ed25519_table_builds: int = 0
     tuning: dict = field(default_factory=dict)
 
 
 @dataclass
-class P256Pass:
-    """The host pass over a batch's P-256 items.  fast: (keep, [r, s, e],
-    slot) for KP3, key-major; generic: (keep, [qx, qy, r, s, e]) for KP2;
-    either None when empty.  keep holds item indices, the arrays (8, B)
-    uint32 big-endian words, slot the (B,) int32 bank slots.  pinned: the
-    bank slots this batch holds until its launches are enqueued."""
+class LanePass:
+    """The host pass over a batch's items of one curve.  fast: (keep,
+    arrays, slot) for the fixed-key kernel (KP3: [r, s, e]; KE6: [ry,
+    r_sign, s, k]), key-major; generic: (keep, arrays) for the generic
+    kernel (KP2: [qx, qy, r, s, e]; KE5: [ay, a_sign, ry, r_sign, s, k]);
+    either None when empty.  keep holds item indices; word arrays are
+    (8, B) uint32 big-endian, sign bits and slots (B,) int32.  pinned:
+    the bank slots this batch holds until its launches are enqueued."""
     rejected: int
     fast: tuple = None
     generic: tuple = None
     pinned: list = field(default_factory=list)
+
+
+def _claim_slots(bank, pks, counts, threshold, pinned) -> np.ndarray:
+    """Biggest groups first, a key with a resident table, or with at
+    least `threshold` signatures and so a table built now, gets its
+    bank slot pinned (appended to `pinned`) -> (len(pks),) slots, -1 for
+    none.  Releases what it pinned if it raises."""
+    slots = np.full(len(pks), -1, np.int64)
+    try:
+        # each claimed slot stays pinned until the batch's launch is
+        # enqueued, so a later build (this batch's or a concurrent one's)
+        # cannot evict it
+        for g in np.argsort(-counts, kind="stable"):
+            if not counts[g]:
+                break
+            slot = bank.lookup(pks[g], pin=True)
+            if slot is None and counts[g] >= threshold:
+                slot = bank.get_or_build(pks[g], pin=True)
+            if slot is not None:
+                pinned.append(slot)
+                slots[g] = slot
+    except BaseException:
+        bank.unpin(pinned)
+        raise
+    return slots
+
+
+def _key_major(sel, key_ids):
+    """Indices sel reordered so that each key's run is contiguous."""
+    return sel[np.argsort(key_ids[sel], kind="stable")]
 
 
 class CudaProvider(prov.Provider):
@@ -134,15 +175,16 @@ class CudaProvider(prov.Provider):
 
     def __init__(self, require_low_s: bool = True, device=None,
                  fast_key_threshold: int = 64, max_cached_keys: int = 256):
-        """device: where the P-256 lanes run (default CUDA; raises when
-        there is none).  device="cpu" runs the kernels' plain PyTorch
+        """device: where the lanes run (default CUDA; raises when there
+        is none).  device="cpu" runs the kernels' plain PyTorch
         versions, for tests.
 
           fast_key_threshold  signatures a key must bring to one batch to
-                              earn a table slot (a build costs ~0.15 s of
-                              host time and one 512 KB upload)
-          max_cached_keys     slots of the device-resident table bank
-                              (512 KB each)
+                              earn a table slot (a P-256 build costs
+                              ~0.15 s of host time and one 512 KB upload,
+                              an Ed25519 one ~0.05 s and 230,880 bytes)
+          max_cached_keys     slots of each device-resident table bank,
+                              P-256's and Ed25519's
         """
         self.require_low_s = require_low_s
         self.device = resolve_device(device)
@@ -154,13 +196,18 @@ class CudaProvider(prov.Provider):
         self.key_tables = DeviceBank(
             self.max_cached_keys, (p256_tables.ROWS, p256_tables.ROW_WORDS),
             p256_tables.table_for_pubkey, device=self.device)
+        self.ed_key_tables = DeviceBank(
+            self.max_cached_keys, (ed25519.ROWS, ed25519.ROW_WORDS),
+            ed25519_tables.table_for_pubkey, device=self.device)
         self._g_table = p256_tables.g_table(self.device)
+        self._b_table = ed25519_tables.b_table(self.device)
 
     def stats_snapshot(self) -> ProviderStats:
         """Point-in-time copy of the counters plus the bank's builds."""
         return ProviderStats(
             **self.stats,
             p256_table_builds=self.key_tables.stats["builds"],
+            ed25519_table_builds=self.ed_key_tables.stats["builds"],
             tuning={"fast_key_threshold": self.fast_key_threshold,
                     "max_cached_keys": self.max_cached_keys})
 
@@ -171,7 +218,7 @@ class CudaProvider(prov.Provider):
     def sign(self, private_key, payload: bytes) -> bytes:
         return self.sw.sign(private_key, payload)
 
-    def pass_p256(self, items, idxs) -> P256Pass:
+    def pass_p256(self, items, idxs) -> LanePass:
         """The host pass (no device work but the bank's table uploads):
         one C DER parse over the items, the validity mask, the lane
         choice and the packing of both lanes' words.  The caller launches
@@ -196,34 +243,19 @@ class CudaProvider(prov.Provider):
         pk_ok = np.fromiter((len(pk) == 65 and pk[0] == 0x04 for pk in pks),
                             bool, len(pks))
         valid = ok & pay_ok & pk_ok[key_ids]
-        out = P256Pass(rejected=n - int(valid.sum()))
+        out = LanePass(rejected=n - int(valid.sum()))
         if not valid.any():
             return out
         rsw = _be_words(rs)                                    # (n, 16)
         ew = _be_words(np.frombuffer(b"".join(pays), np.uint8).reshape(n, 32))
         idxs_np = np.asarray(idxs, np.int64)
         counts = np.bincount(key_ids[valid], minlength=len(pks))
-        slots = np.full(len(pks), -1, np.int64)
-        try:
-            # biggest groups claim slots first; each claimed slot stays
-            # pinned until this batch's KP3 launch is enqueued, so a later
-            # build (this batch's or a concurrent one's) cannot evict it
-            for g in np.argsort(-counts, kind="stable"):
-                if not counts[g]:
-                    break
-                slot = self.key_tables.lookup(pks[g], pin=True)
-                if slot is None and counts[g] >= self.fast_key_threshold:
-                    slot = self.key_tables.get_or_build(pks[g], pin=True)
-                if slot is not None:
-                    out.pinned.append(slot)
-                    slots[g] = slot
-        except BaseException:
-            self.key_tables.unpin(out.pinned)
-            raise
+        slots = _claim_slots(self.key_tables, pks, counts,
+                             self.fast_key_threshold, out.pinned)
         fast = valid & (slots[key_ids] >= 0)
         fsel = np.nonzero(fast)[0]
         if fsel.size:
-            fsel = fsel[np.argsort(key_ids[fsel], kind="stable")]
+            fsel = _key_major(fsel, key_ids)
             out.fast = (idxs_np[fsel],
                         [np.ascontiguousarray(rsw[fsel, :8].T),
                          np.ascontiguousarray(rsw[fsel, 8:].T),
@@ -242,8 +274,55 @@ class CudaProvider(prov.Provider):
                             np.ascontiguousarray(ew[gsel].T)])
         return out
 
+    def pass_ed25519(self, items, idxs) -> LanePass:
+        """The host pass over the Ed25519 items (no device work but the
+        bank's table uploads): the length screen, the packing of words,
+        sign bits and k = SHA-512(R || A || M) mod L, and the lane choice.
+        The caller launches and then releases `pinned` with
+        `ed_key_tables.unpin`."""
+        keep, pks, sigs, msgs, key_ids = [], [], [], [], []
+        pk_map, keys = {}, []
+        for i in idxs:
+            it = items[i]
+            if len(it.pubkey) != 32 or len(it.signature) != 64:
+                continue
+            keep.append(i)
+            pks.append(it.pubkey)
+            sigs.append(it.signature)
+            msgs.append(it.payload)
+            gid = pk_map.get(it.pubkey)
+            if gid is None:
+                gid = pk_map[it.pubkey] = len(keys)
+                keys.append(it.pubkey)
+            key_ids.append(gid)
+        out = LanePass(rejected=len(idxs) - len(keep))
+        if not keep:
+            return out
+        ay, a_sign, ry, r_sign, s, k = ed25519.pack_verify_inputs(
+            pks, sigs, msgs)
+        keep = np.asarray(keep, np.int64)
+        key_ids = np.asarray(key_ids, np.int64)
+        counts = np.bincount(key_ids, minlength=len(keys))
+        slots = _claim_slots(self.ed_key_tables, keys, counts,
+                             self.fast_key_threshold, out.pinned)
+        fast = slots[key_ids] >= 0
+        fsel = np.nonzero(fast)[0]
+        if fsel.size:
+            fsel = _key_major(fsel, key_ids)
+            out.fast = (keep[fsel],
+                        [ry[:, fsel], r_sign[fsel], s[:, fsel], k[:, fsel]],
+                        slots[key_ids[fsel]].astype(np.int32))
+        gsel = np.nonzero(~fast)[0]
+        if gsel.size:
+            out.generic = (keep[gsel],
+                           [ay[:, gsel], a_sign[gsel], ry[:, gsel],
+                            r_sign[gsel], s[:, gsel], k[:, gsel]])
+        return out
+
     def _upload(self, arrays, lo, hi):
-        words = [torch.from_numpy(np.ascontiguousarray(a[:, lo:hi]))
+        """Columns lo:hi of each host array (the last axis indexes the
+        signatures) -> tensors on the device."""
+        words = [torch.from_numpy(np.ascontiguousarray(a[..., lo:hi]))
                  for a in arrays]
         self.stats["h2d_bytes"] += sum(w.nbytes for w in words)
         if self.device.type == "cuda":
@@ -251,37 +330,55 @@ class CudaProvider(prov.Provider):
                      for w in words]
         return words
 
-    def _verify_p256(self, items, idxs, pending) -> None:
-        batch = self.pass_p256(items, idxs)
+    def _launch_lane(self, lane, launch, pending) -> None:
+        """Upload and launch one lane in chunks of at most MAX_CHUNK
+        signatures.  lane: (keep, arrays) or, for a fixed-key lane,
+        (keep, arrays, slot); launch(*words[, slot]) -> (B,) bool."""
+        keep, arrays = lane[0], lane[1]
+        slot = lane[2] if len(lane) > 2 else None
+        for lo in range(0, len(keep), MAX_CHUNK):
+            hi = min(lo + MAX_CHUNK, len(keep))
+            args = self._upload(arrays, lo, hi)
+            if slot is not None:
+                args.append(torch.from_numpy(slot[lo:hi]))
+                self.stats["h2d_bytes"] += args[-1].nbytes
+                self.stats["fast_key_sigs"] += hi - lo
+            out = launch(*args)
+            self.stats["dispatches"] += 1
+            self.stats["device_sigs"] += hi - lo
+            pending.append((keep[lo:hi], out))
+
+    def _run_lanes(self, batch, bank, fast, generic, pending) -> None:
+        """Launch a host pass's two lanes: fast(*words, slot, bank array)
+        for the fixed-key lane, generic(*words) for the other.  The
+        batch's bank pins are released once the fixed-key launches are
+        enqueued, or when one raises."""
         self.stats["host_rejects"] += batch.rejected
         try:
             if batch.fast is not None:
-                keep, arrays, slot = batch.fast
-                bank = self.key_tables.array()
-                for lo in range(0, len(keep), MAX_CHUNK):
-                    hi = min(lo + MAX_CHUNK, len(keep))
-                    words = self._upload(arrays, lo, hi)
-                    slot_t = torch.from_numpy(slot[lo:hi])
-                    out = p256_fixed.p256_verify_rows(
-                        *words, slot_t, bank, self._g_table,
-                        require_low_s=self.require_low_s)
-                    self.stats["h2d_bytes"] += slot_t.nbytes
-                    self.stats["dispatches"] += 1
-                    self.stats["device_sigs"] += hi - lo
-                    self.stats["fast_key_sigs"] += hi - lo
-                    pending.append((keep[lo:hi], out))
+                arr = bank.array()
+                self._launch_lane(batch.fast, lambda *a: fast(*a, arr),
+                                  pending)
         finally:
-            self.key_tables.unpin(batch.pinned)
+            bank.unpin(batch.pinned)
         if batch.generic is not None:
-            keep, arrays = batch.generic
-            for lo in range(0, len(keep), MAX_CHUNK):
-                hi = min(lo + MAX_CHUNK, len(keep))
-                out = p256mod.p256_verify(*self._upload(arrays, lo, hi),
-                                          self._g_table,
-                                          require_low_s=self.require_low_s)
-                self.stats["dispatches"] += 1
-                self.stats["device_sigs"] += hi - lo
-                pending.append((keep[lo:hi], out))
+            self._launch_lane(batch.generic, generic, pending)
+
+    def _verify_p256(self, items, idxs, pending) -> None:
+        low_s = self.require_low_s
+        self._run_lanes(
+            self.pass_p256(items, idxs), self.key_tables,
+            lambda r, s, e, slot, bank: p256_fixed.p256_verify_rows(
+                r, s, e, slot, bank, self._g_table, require_low_s=low_s),
+            lambda *w: p256mod.p256_verify(*w, self._g_table,
+                                           require_low_s=low_s), pending)
+
+    def _verify_ed25519(self, items, idxs, pending) -> None:
+        self._run_lanes(
+            self.pass_ed25519(items, idxs), self.ed_key_tables,
+            lambda ry, r_sign, s, k, slot, bank: ed25519.ed25519_verify_rows(
+                ry, r_sign, s, k, slot, bank, self._b_table),
+            lambda *w: ed25519.ed25519_verify(*w, self._b_table), pending)
 
     def batch_verify_async(self, items: Sequence[VerifyItem]):
         """Enqueue the device work and return resolve() -> bool[N]."""
@@ -297,9 +394,7 @@ class CudaProvider(prov.Provider):
             if scheme == SCHEME_P256:
                 self._verify_p256(items, idxs, pending)
             elif scheme == SCHEME_ED25519:
-                sub = [items[i] for i in idxs]
-                pending.append((idxs, lambda sub=sub:
-                                self.sw.batch_verify(sub)))
+                self._verify_ed25519(items, idxs, pending)
             else:
                 self.stats["host_rejects"] += len(idxs)
         done = None
@@ -308,16 +403,10 @@ class CudaProvider(prov.Provider):
             done.record(torch.cuda.current_stream(self.device))
 
         def resolve():
-            # host work first, so it overlaps the device's
-            for keep, out in sorted(pending,
-                                    key=lambda kv: not callable(kv[1])):
-                if callable(out):
-                    out = out()
-                else:
-                    if done is not None:
-                        done.synchronize()
-                    out = out.cpu().numpy()
-                verdicts[np.asarray(keep)] = out
+            if done is not None:
+                done.synchronize()
+            for keep, out in pending:
+                verdicts[np.asarray(keep)] = out.cpu().numpy()
             return verdicts
 
         return resolve

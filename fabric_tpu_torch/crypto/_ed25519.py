@@ -3,7 +3,8 @@
 Extended homogeneous coordinates, a lazily-built 4-bit fixed-comb table
 for the base point, and a per-verify window for the public-key point.
 Same performance envelope as _p256: ~1 ms/op, dev-topology grade (the
-port verifies Ed25519 on the host until its device lane is ported).
+port's software provider, and so the oracle of the Ed25519 kernels, on
+hosts without `cryptography`).
 """
 
 from __future__ import annotations

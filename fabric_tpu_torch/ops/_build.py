@@ -41,6 +41,13 @@ SIGNATURES = {
     "p256_verify_rows": {
         "p256_verify_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     },
+    "ed25519_verify": {
+        "ed25519_verify_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    },
+    "ed25519_verify_rows": {
+        "ed25519_verify_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                       _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-// KP1: a chain of k Montgomery multiplications per lane, mod p or mod n.
+// KP1: a chain of k Montgomery multiplications per lane, mod P-256's p
+// or n, or mod p25519.
 //
 // Replaces: the Pallas field-multiply microbenchmark of the JAX package,
 // experiments/proto_pallas.py:run (a CIOS chain on (22, B) 12-bit int32
@@ -14,9 +15,9 @@
 // thread per lane.
 //
 // Bound on the H100: the least work of a Montgomery multiply, 128 32-bit
-// multiply-adds mod p and 264 mod n (see p256_field.cuh), against 64 per
-// SM per clock; 96 bytes of traffic per lane,
-// so the kernel is bound by operations for any k >= 1.  The chain is
+// multiply-adds mod p, 264 mod n, 146 mod p25519 (see p256_field.cuh),
+// against 64 per SM per clock; 96 bytes of traffic per lane, so the
+// kernel is bound by operations for any k >= 1.  The chain is
 // serial in each lane; the card hides its latency only with enough lanes
 // in flight (B >= 132 SMs x 16 warps x 32 for full occupancy).
 
@@ -42,7 +43,7 @@ __global__ void __launch_bounds__(128)
     field_mul_chain_kernel(const uint32_t* __restrict__ a,
                            const uint32_t* __restrict__ b,
                            uint32_t* __restrict__ out, int n, int k,
-                           int mod_n) {
+                           int mod) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t t[8], bb[8];
@@ -51,8 +52,10 @@ __global__ void __launch_bounds__(128)
     t[j] = a[(size_t)i * 8 + j];
     bb[j] = b[(size_t)i * 8 + j];
   }
-  if (mod_n)
+  if (mod == MOD_N)
     chain<MOD_N>(t, bb, k);
+  else if (mod == MOD_25519)
+    chain<MOD_25519>(t, bb, k);
   else
     chain<MOD_P>(t, bb, k);
 #pragma unroll
@@ -60,12 +63,12 @@ __global__ void __launch_bounds__(128)
 }
 
 extern "C" int field_mul_chain_launch(const void* a, const void* b,
-                                      void* out, int n, int k, int mod_n,
+                                      void* out, int n, int k, int mod,
                                       void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   field_mul_chain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, k, mod_n);
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, k, mod);
   return (int)cudaGetLastError();
 }

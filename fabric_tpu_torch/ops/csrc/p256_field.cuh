@@ -1,5 +1,6 @@
-// P-256 field layer for Hopper (sm_90a): 256-bit Montgomery arithmetic
-// mod p and mod n, one value per thread.
+// Field layer for Hopper (sm_90a): 256-bit Montgomery arithmetic mod
+// P-256's p and n and mod p25519 = 2^255 - 19 (Ed25519), one value per
+// thread.
 //
 // Replaces: fabric_tpu/ops/flatfield.py:FlatMod (mul, sqr, mod_add,
 // mod_sub, canon, is_zero_k, eq_k, inv/pow_const, lt_const) and the limb
@@ -18,23 +19,26 @@
 // field.py:IMADS): mod p a multiply needs its 64 limb products (128
 // multiply-adds) and a square 36 (72), and the reduction none, since
 // p's limbs are 0, 1 and 2^32 - 1; mod n the reduction adds 64 products
-// and 8 low ones (264 for a multiply, 208 for a square).  Loads and
-// stores are a few bytes per value, so memory is not the limit.
+// and 8 low ones (264 for a multiply, 208 for a square); mod p25519 the
+// least reduction is the fold 2^256 = 38, 9 products (146 and 90).
+// Loads and stores are a few bytes per value, so memory is not the limit.
 //
 // Design: mont_mul is one generic CIOS for both moduli, a real
 // (non-inlined) call on operands in local memory.  That keeps the code
 // small and the build to seconds; the operand traffic is L1-resident.
 // Mod p it issues 2 to 3.5 times the least work: the q*p products, and
 // the full product for a square.  Inlining, PTX carry chains
-// (mad.lo.cc / madc.hi), a dedicated square and a Solinas reduction for
-// p are later work.
+// (mad.lo.cc / madc.hi), a dedicated square, a Solinas reduction for p
+// and the x38 fold for p25519 are later work.  Mod p25519 (m < 2^255)
+// every value stays fully reduced all the same; only canon, which takes
+// any 256-bit value, may subtract m twice.
 
 #pragma once
 #include <stdint.h>
 
 namespace p256 {
 
-enum { MOD_P = 0, MOD_N = 1 };
+enum { MOD_P = 0, MOD_N = 1, MOD_25519 = 2 };
 
 // little-endian 32-bit limbs
 static __constant__ uint32_t C_P[8] = {
@@ -43,6 +47,9 @@ static __constant__ uint32_t C_P[8] = {
 static __constant__ uint32_t C_N[8] = {
     0xFC632551u, 0xF3B9CAC2u, 0xA7179E84u, 0xBCE6FAADu,
     0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000000u, 0xFFFFFFFFu};
+static __constant__ uint32_t C_F25519[8] = {
+    0xFFFFFFEDu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+    0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu};
 // R^2 mod m: to_mont(a) = mont_mul(a, R2)
 static __constant__ uint32_t C_P_R2[8] = {
     0x00000003u, 0x00000000u, 0xFFFFFFFFu, 0xFFFFFFFBu,
@@ -50,10 +57,16 @@ static __constant__ uint32_t C_P_R2[8] = {
 static __constant__ uint32_t C_N_R2[8] = {
     0xBE79EEA2u, 0x83244C95u, 0x49BD6FA6u, 0x4699799Cu,
     0x2B6BEC59u, 0x2845B239u, 0xF3D95620u, 0x66E12D94u};
+static __constant__ uint32_t C_F25519_R2[8] = {
+    0x000005A4u, 0x00000000u, 0x00000000u, 0x00000000u,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
 // R mod p: Montgomery one
 static __constant__ uint32_t C_P_ONE[8] = {
     0x00000001u, 0x00000000u, 0x00000000u, 0xFFFFFFFFu,
     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFEu, 0x00000000u};
+static __constant__ uint32_t C_F25519_ONE[8] = {
+    0x00000026u, 0x00000000u, 0x00000000u, 0x00000000u,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
 // curve coefficients a = p - 3 and b, Montgomery form mod p
 static __constant__ uint32_t C_A_MONT[8] = {
     0xFFFFFFFCu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000003u,
@@ -69,15 +82,16 @@ static __constant__ uint32_t C_HALF_N_PLUS_1[8] = {
 // -m^-1 mod 2^32
 #define P256_P_MINV 0x00000001u
 #define P256_N_MINV 0xEE00BC4Fu
+#define F25519_MINV 0x286BCA1Bu
 
 template <int M>
 __device__ __forceinline__ uint32_t mword(int j) {
-  return M == MOD_P ? C_P[j] : C_N[j];
+  return M == MOD_P ? C_P[j] : M == MOD_N ? C_N[j] : C_F25519[j];
 }
 
 template <int M>
 __device__ __forceinline__ uint32_t minv() {
-  return M == MOD_P ? P256_P_MINV : P256_N_MINV;
+  return M == MOD_P ? P256_P_MINV : M == MOD_N ? P256_N_MINV : F25519_MINV;
 }
 
 // ---------------------------------------------------------------------------
@@ -147,10 +161,11 @@ __device__ __forceinline__ void reduce_once(uint32_t r[8], const uint32_t t[8],
   for (int j = 0; j < 8; ++j) r[j] = use_d ? d[j] : t[j];
 }
 
-// any 256-bit value (< 2m, since m > 2^255) -> [0, m)
+// any 256-bit value (< 2m for P-256's p and n; < 3m for p25519) -> [0, m)
 template <int M>
 __device__ __forceinline__ void fe_canon(uint32_t r[8], const uint32_t a[8]) {
   reduce_once<M>(r, a, 0u);
+  if (M == MOD_25519) reduce_once<M>(r, r, 0u);
 }
 
 // ---------------------------------------------------------------------------
@@ -235,19 +250,20 @@ __device__ __forceinline__ void mod_sub(uint32_t r[8], const uint32_t a[8],
 template <int M>
 __device__ __forceinline__ void to_mont(uint32_t* r, const uint32_t* a) {
   uint32_t r2[8];
-  fe_copy(r2, M == MOD_P ? C_P_R2 : C_N_R2);
+  fe_copy(r2, M == MOD_P ? C_P_R2 : M == MOD_N ? C_N_R2 : C_F25519_R2);
   mont_mul<M>(r, a, r2);
 }
 
 // r = a^(m-2) for Montgomery a (Fermat inverse; inv(0) = 0):
-// left-to-right binary square-and-multiply over the 255 bits below the
-// top bit of m - 2 (m's low limb is >= 2, so m - 2 borrows nothing)
+// left-to-right binary square-and-multiply over the bits below the top
+// bit of m - 2, bit 255 for P-256's p and n and 254 for p25519 (m's low
+// limb is >= 2, so m - 2 borrows nothing)
 template <int M>
 __device__ __noinline__ void mont_inv(uint32_t* r, const uint32_t* a) {
   uint32_t acc[8];
   fe_copy(acc, a);
 #pragma unroll 1
-  for (int i = 254; i >= 0; --i) {
+  for (int i = M == MOD_25519 ? 253 : 254; i >= 0; --i) {
     mont_sqr<M>(acc, acc);
     const uint32_t w = mword<M>(i >> 5) - (i < 32 ? 2u : 0u);
     if ((w >> (i & 31)) & 1u) mont_mul<M>(acc, acc, a);

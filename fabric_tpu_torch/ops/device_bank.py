@@ -2,9 +2,11 @@
 
 Counterpart of `fabric_tpu/ops/device_bank.py` (`DeviceBank`), with the
 same API, LRU over whole slots, refcounted pins, `RLock` and `stats`
-keys.  Each key's table is uploaded once, when it is built (or rebuilt
-after an eviction), into one fixed-shape uint32 tensor on the device;
-the fixed-key lane then carries only an int32 slot per signature.
+keys.  The provider keeps two: P-256's of (8192, 16) comb tables and
+Ed25519's of (2405, 24) niels tables of -A.  Each key's table is
+uploaded once, when it is built (or rebuilt after an eviction), into
+one fixed-shape uint32 tensor on the device; a fixed-key lane then
+carries only an int32 slot per signature.
 
 What differs from the reference: the bank is mutable.  JAX arrays are
 immutable, so the reference copies the whole bank to set one slot

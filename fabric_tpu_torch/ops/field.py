@@ -1,4 +1,5 @@
-"""K1: 256-bit Montgomery arithmetic mod p and mod n (P-256), in PyTorch.
+"""K1: 256-bit Montgomery arithmetic mod P-256's p and n and mod
+p25519 = 2^255 - 19 (Ed25519), in PyTorch.
 
 Counterpart of `fabric_tpu/ops/flatfield.py` (`FlatMod`) and the limb
 codecs of `fabric_tpu/ops/bignum.py`.  The reference works on (22, B)
@@ -7,7 +8,8 @@ a layout chosen so that products stay exact in int32 and f32 on the TPU.
 The port changes the representation and keeps the values:
 
 * The CUDA kernels (`csrc/p256_field.cuh`) hold 8 x 32-bit limbs per
-  value with R = 2^256 and 64-bit products.
+  value with R = 2^256 and 64-bit products, one CIOS multiply for all
+  three moduli.
 * The plain PyTorch version here holds (16, B) int64 tensors of 16-bit
   little-endian limbs, also with R = 2^256, so a 16 x 16-bit product plus
   its carries stays exact in int64.  It runs the same CIOS Montgomery
@@ -42,6 +44,7 @@ R_BITS = 256
 
 P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
 N = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
+P25519 = 2**255 - 19
 
 
 # ---------------------------------------------------------------------------
@@ -155,9 +158,9 @@ class Mod:
     def __init__(self, modulus: int, name: str = ""):
         if modulus % 2 == 0 or modulus >> R_BITS:
             raise ValueError("modulus must be odd and < 2^256")
-        if (1 << R_BITS) >= 2 * modulus:
-            # canon() and the add/sub reductions subtract m at most once
-            raise ValueError("modulus must exceed 2^255")
+        if 3 * modulus <= (1 << R_BITS):
+            # canon() subtracts m at most twice
+            raise ValueError("modulus must exceed 2^256 / 3")
         self.m = modulus
         self.name = name
         self.R = 1 << R_BITS
@@ -187,8 +190,12 @@ class Mod:
         return torch.where(d[LIMBS - 1] < 0, t, d)
 
     def canon(self, a: torch.Tensor) -> torch.Tensor:
-        """Any 256-bit value (< 2m, since m > 2^255) -> [0, m)."""
-        return self._reduce_once(a.clone())
+        """Any 256-bit value (< 3m) -> [0, m): one subtraction when
+        m > 2^255, two for p25519, where 2^256 - 1 = 2m + 37."""
+        t = self._reduce_once(a.clone())
+        if 2 * self.m < self.R:
+            t = self._reduce_once(t)
+        return t
 
     # -- core multiply: CIOS, one 16-bit limb of a per step --------------------
 
@@ -257,7 +264,10 @@ class Mod:
 
 fp = Mod(P, "p256.p")
 fn = Mod(N, "p256.n")
-MODS = {"p": fp, "n": fn}
+f25519 = Mod(P25519, "ed25519.p")
+MODS = {"p": fp, "n": fn, "p25519": f25519}
+# the modulus index the CUDA field layer takes (p256_field.cuh MOD_*)
+MOD_INDEX = {"p": 0, "n": 1, "p25519": 2}
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +306,8 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
     lane); CPU tensors take `mul_chain_plain`.  Raises on anything the
     kernel does not take, and when the launch fails."""
     if modulus not in MODS:
-        raise ValueError(f"modulus must be 'p' or 'n', got {modulus!r}")
+        raise ValueError(f"modulus must be one of {sorted(MODS)}, "
+                         f"got {modulus!r}")
     if a.dim() != 2 or a.shape[1] != 8:
         raise ValueError("a must have shape (B, 8)")
     _check_words("a", a, a.shape)
@@ -318,7 +329,7 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
         rc = lib.field_mul_chain_launch(
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_int(a.shape[0]),
-            ctypes.c_int(k), ctypes.c_int(modulus == "n"),
+            ctypes.c_int(k), ctypes.c_int(MOD_INDEX[modulus]),
             ctypes.c_void_p(stream))
     if rc:
         raise RuntimeError(f"field_mul_chain launch failed: CUDA error {rc}")
@@ -339,8 +350,12 @@ field_mul_chain.launches = 0
 # and 28 doubled cross products).  Mod p the reduction needs no
 # multiplies: p's limbs are 0, 1 and 2^32 - 1, so q * p is shifts, adds
 # and subtractions.  Mod n it needs 64 products q * n_j and 8 low
-# products q = t_0 * (-n^-1 mod 2^32).  This is the least work, not what
-# the kernels issue: their CIOS multiply runs the generic reduction mod p
-# as well and does not special-case squares.
+# products q = t_0 * (-n^-1 mod 2^32).  Mod p25519 = 2^255 - 19 the least
+# reduction is not Montgomery's but the fold 2^256 = 38: the product's 8
+# high limbs times 38 (8 products) and the fold of the last carry (1).
+# This is the least work, not what the kernels issue: their CIOS multiply
+# runs the generic reduction for every modulus and does not special-case
+# squares.
 IMADS = {("p", "mul"): 2 * 64, ("p", "sqr"): 2 * 36,
-         ("n", "mul"): 2 * (64 + 64) + 8, ("n", "sqr"): 2 * (36 + 64) + 8}
+         ("n", "mul"): 2 * (64 + 64) + 8, ("n", "sqr"): 2 * (36 + 64) + 8,
+         ("p25519", "mul"): 2 * (64 + 9), ("p25519", "sqr"): 2 * (36 + 9)}

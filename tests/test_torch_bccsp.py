@@ -13,7 +13,10 @@ fast_key_threshold signatures, go to KP3; the rest to KP2) mirrors
 tests/test_provider_perf.py:76-186 and tests/test_p256.py:129-174: the
 many-keys differential and the overflow / rotation test run the real
 arithmetic; the tests of lane choice, uploads and chunking stub the
-kernels and the table build."""
+kernels and the table build.  The Ed25519 items take the same two-lane
+choice between KE6 and KE5 (fabric_tpu/bccsp/jaxtpu.py:764-808): a
+mixed-curve batch runs the real arithmetic of all four lanes against
+SW, the lane choice, pins and build counts run on stubs."""
 import hashlib
 import random
 
@@ -39,7 +42,7 @@ from fabric_tpu_torch.bccsp import factory
 from fabric_tpu_torch.bccsp import cuda as cudaprov
 from fabric_tpu_torch.bccsp.cuda import CudaProvider
 from fabric_tpu_torch.bccsp.sw import P256_N, SoftwareProvider
-from fabric_tpu_torch.ops import p256_tables
+from fabric_tpu_torch.ops import ed25519_tables, p256_tables
 
 N = P256_N
 P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
@@ -212,7 +215,7 @@ def test_stats_keys_match_reference_and_no_fallback(verdicts):
     ref = JaxTpuProvider(fast_key_threshold=GENERIC_ONLY).stats
     assert set(stats) == set(ref)
     assert stats["fallbacks"] == 0
-    assert stats["dispatches"] == 1
+    assert stats["dispatches"] == 2             # one KP2, one KE5 launch
     assert stats["device_sigs"] > 0 and stats["host_rejects"] > 0
 
 
@@ -365,10 +368,29 @@ def even_r(items):
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """Stubs KP3, KP2 and the table build.  Each kernel answers "r is
-    even" per signature, so a verdict scattered to the wrong item shows;
-    -> the list of launches, ("kp3", slots) or ("kp2", size)."""
+    """Stubs KP3, KP2, KE6, KE5 and both table builds.  Each kernel
+    answers "r (R's y for Ed25519) is even" per signature, so a verdict
+    scattered to the wrong item shows; -> the list of launches,
+    ("kp3", slots), ("kp2", size), ("ke6", slots) or ("ke5", size)."""
     calls = []
+
+    def ke6(ry, r_sign, s, k, slot, bank, table):
+        assert bank.shape == (bank.shape[0], 2405, 24)
+        calls.append(("ke6", slot.tolist()))
+        return (ry[7].to(torch.int64) & 1) == 0
+
+    def ke5(ay, a_sign, ry, r_sign, s, k, table):
+        calls.append(("ke5", ry.shape[1]))
+        return (ry[7].to(torch.int64) & 1) == 0
+
+    def ed_table(pk):
+        return (None if ed25519_tables.decompress_int(pk) is None
+                else np.zeros((2405, 24), np.uint32))
+
+    monkeypatch.setattr(cudaprov.ed25519, "ed25519_verify_rows", ke6)
+    monkeypatch.setattr(cudaprov.ed25519, "ed25519_verify", ke5)
+    monkeypatch.setattr(cudaprov.ed25519_tables, "table_for_pubkey",
+                        ed_table)
 
     def kp3(r, s, e, slot, bank, table, require_low_s=True):
         assert bank.shape == (bank.shape[0], p256_tables.ROWS,
@@ -570,3 +592,146 @@ def test_failed_launch_releases_pins(keypool, stubbed, monkeypatch):
         prov.batch_verify(signed(keypool[:2], 4, seed=8))
     assert len(prov.key_tables) == 2 and not prov.key_tables._pinned
     assert prov.stats["fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The two Ed25519 lanes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ed_keys():
+    rng = random.Random(43)
+    return [crypto.ed25519_key_from_seed(rng.randbytes(32))
+            for _ in range(12)]
+
+
+def ed_signed(keys, per_key, seed, bad_every=0):
+    """per_key Ed25519 signatures under each key, every bad_every-th
+    with a wrong message, shuffled -> (port items, labels)."""
+    rng = random.Random(seed)
+    items, labels = [], []
+    for key in keys:
+        pub = crypto.ed25519_public_bytes(key)
+        for _ in range(per_key):
+            msg = rng.randbytes(rng.randrange(0, 80))
+            sig = crypto.ed25519_sign(key, msg)
+            good = not bad_every or len(items) % bad_every != 1
+            items.append(VerifyItem(SCHEME_ED25519, pub, sig,
+                                    msg if good else msg + b"!"))
+            labels.append(good)
+    order = list(range(len(items)))
+    rng.shuffle(order)
+    return [items[i] for i in order], [labels[i] for i in order]
+
+
+def even_ry(items):
+    """What the stubbed Ed25519 kernels answer: R's y is even."""
+    return [it.signature[0] % 2 == 0 for it in items]
+
+
+def ed_lanes(calls):
+    ke6 = [s for kind, s in calls if kind == "ke6"]
+    return sum(map(len, ke6)), sum(n for kind, n in calls if kind == "ke5")
+
+
+def test_mixed_curve_batch_real_arithmetic_matches_sw(keypool, ed_keys,
+                                                      monkeypatch):
+    """P-256 and Ed25519 items in one batch, each curve with a hot key
+    (its fixed-key lane) and one-off keys (its generic lane), corrupted
+    items and malformed lengths among them: every verdict equals its
+    label and SW's, all four lanes launch once, and no item reaches the
+    provider's software half."""
+    p_items = signed(keypool[:1], 5, seed=31) + signed(keypool[1:3], 1,
+                                                        seed=32)
+    p_items[2] = p_items[2]._replace(payload=hashlib.sha256(b"x").digest())
+    e_hot, e_hot_labels = ed_signed(ed_keys[:1], 5, seed=33, bad_every=3)
+    e_cold, e_cold_labels = ed_signed(ed_keys[1:4], 1, seed=34, bad_every=2)
+    bad_len = VerifyItem(SCHEME_ED25519, b"\x01" * 31, b"\x00" * 64, b"m")
+    items = p_items + e_hot + [bad_len] + e_cold
+    labels = ([i != 2 for i in range(len(p_items))] + e_hot_labels
+              + [False] + e_cold_labels)
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+
+    def no_sw(*args, **kwargs):
+        raise AssertionError("an item reached the software provider")
+
+    monkeypatch.setattr(prov.sw, "batch_verify", no_sw)
+    monkeypatch.setattr(prov.sw, "_verify_one", no_sw)
+    got = prov.batch_verify(items)
+    assert got.tolist() == labels
+    np.testing.assert_array_equal(got, SoftwareProvider().batch_verify(items))
+    assert prov.stats["dispatches"] == 4 and prov.stats["fallbacks"] == 0
+    assert prov.stats["fast_key_sigs"] == 5 + 5
+    assert prov.stats["host_rejects"] == 1
+    snap = prov.stats_snapshot()
+    assert snap.p256_table_builds == 1 and snap.ed25519_table_builds == 1
+    assert not prov.key_tables._pinned and not prov.ed_key_tables._pinned
+
+
+def test_ed25519_lane_choice(ed_keys, stubbed):
+    """Keys that bring >= threshold signatures ride KE6 key-major; the
+    rest ride KE5; a key that does not decompress gets no table, however
+    many signatures it brings; a resident key rides KE6 for one."""
+    hot, _ = ed_signed(ed_keys[:3], 5, seed=41)
+    cold, _ = ed_signed(ed_keys[3:9], 1, seed=42)
+    bogus_pk = (2**255 - 19 + 1).to_bytes(32, "little")   # y >= p
+    bogus = [VerifyItem(SCHEME_ED25519, bogus_pk, it.signature, it.payload)
+             for it in cold[:5]]
+    items = hot + cold + bogus
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    assert prov.batch_verify(items).tolist() == even_ry(items)
+    assert ed_lanes(stubbed) == (15, 6 + 5)
+    st = prov.ed_key_tables.stats
+    assert st["builds"] == 3 and st["rejects"] == 1
+    assert prov.stats_snapshot().ed25519_table_builds == 3
+    assert prov.stats["fast_key_sigs"] == 15
+    slots = stubbed[0][1]
+    runs = [s for j, s in enumerate(slots) if j == 0 or s != slots[j - 1]]
+    assert len(runs) == len(set(runs)) == 3
+    one = ed_signed(ed_keys[:1], 1, seed=43)[0] + cold[:1]
+    slot0 = prov.ed_key_tables._slots[one[0].pubkey]
+    assert prov.batch_verify(one).tolist() == even_ry(one)
+    assert stubbed[-2:] == [("ke6", [slot0]), ("ke5", 1)]
+    assert st["builds"] == 3 and not prov.ed_key_tables._pinned
+    # h2d: 104 bytes per KE6 signature (ry, r_sign, s, k, slot), 136 per
+    # KE5 signature (ay, a_sign, ry, r_sign, s, k)
+    assert prov.stats["h2d_bytes"] == (15 + 1) * 104 + (11 + 1) * 136
+    assert prov.ed_key_tables.stats["h2d_bytes"] == 3 * 230_880
+
+
+def test_ed25519_failed_launch_releases_pins(ed_keys, stubbed, monkeypatch):
+    def broken(*args, **kwargs):
+        raise RuntimeError("ed25519_verify_rows launch failed: CUDA error 700")
+
+    monkeypatch.setattr(cudaprov.ed25519, "ed25519_verify_rows", broken)
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    items, _ = ed_signed(ed_keys[:2], 4, seed=44)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        prov.batch_verify(items)
+    assert len(prov.ed_key_tables) == 2 and not prov.ed_key_tables._pinned
+    assert prov.stats["fallbacks"] == 0
+
+
+def test_ed25519_chunks_scatter_back(ed_keys, stubbed, monkeypatch):
+    monkeypatch.setattr(cudaprov, "MAX_CHUNK", 4)
+    hot, _ = ed_signed(ed_keys[:2], 5, seed=45)
+    cold, _ = ed_signed(ed_keys[2:7], 1, seed=46)
+    items = cold[:2] + hot + cold[2:]
+    prov = CudaProvider(device="cpu", fast_key_threshold=4)
+    assert prov.batch_verify(items).tolist() == even_ry(items)
+    assert [len(s) for kind, s in stubbed if kind == "ke6"] == [4, 4, 2]
+    assert [n for kind, n in stubbed if kind == "ke5"] == [4, 1]
+    assert prov.stats["dispatches"] == 5
+
+
+def test_ed25519_spill_when_slots_pinned(ed_keys, stubbed):
+    """Two slots, three hot keys: the third key's build finds both slots
+    pinned by this batch and its signatures ride KE5."""
+    items = []
+    for j, key in enumerate(ed_keys[:3]):
+        items += ed_signed([key], 6 - j, seed=47 + j)[0]
+    prov = CudaProvider(device="cpu", fast_key_threshold=4,
+                        max_cached_keys=2)
+    assert prov.batch_verify(items).tolist() == even_ry(items)
+    assert ed_lanes(stubbed) == (6 + 5, 4)
+    assert prov.ed_key_tables.stats["pinned_spills"] == 1

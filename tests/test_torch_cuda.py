@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from fabric_tpu_torch import crypto
-from fabric_tpu_torch.bccsp import (FactoryOpts, SCHEME_P256, VerifyItem,
-                                    init_factories)
+from fabric_tpu_torch.bccsp import (FactoryOpts, SCHEME_ED25519,
+                                    SCHEME_P256, VerifyItem, init_factories)
 from fabric_tpu_torch.bccsp.cuda import CudaProvider
 from fabric_tpu_torch.bccsp.sw import SoftwareProvider
 from fabric_tpu_torch.ops import field as F
+from fabric_tpu_torch.ops import ed25519 as E
+from fabric_tpu_torch.ops import ed25519_tables as T
 from fabric_tpu_torch.ops import p256, p256_fixed, p256_tables
 
 R = 1 << 256
@@ -36,7 +38,7 @@ def edge_values(m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("modulus", ["p", "n"])
+@pytest.mark.parametrize("modulus", ["p", "n", "p25519"])
 def test_field_mul_chain_kernel_matches_plain_and_ints(modulus, cuda_device):
     rng = random.Random(9)
     m = F.MODS[modulus].m
@@ -235,3 +237,120 @@ def test_cuda_provider_matches_sw(cuda_device):
     np.testing.assert_array_equal(got, SoftwareProvider().batch_verify(items))
     assert prov.stats["fallbacks"] == 0
     assert prov.stats["host_rejects"] == 3      # r = 0, s = 0, short point
+
+
+# ---------------------------------------------------------------------------
+# Ed25519: KE5 and KE6
+# ---------------------------------------------------------------------------
+
+ED_P = 2**255 - 19
+
+
+def ed_corpus():
+    """Ed25519 items under 4 keys with the corrupted kinds of
+    tests/test_torch_ed25519.py (wrong message, flipped R bit, swapped
+    key, S + L, non-canonical y in A and in R, y = 1 with sign 1) and
+    their labels."""
+    rng = random.Random(55)
+    keys = [crypto.ed25519_key_from_seed(rng.randbytes(32)) for _ in range(4)]
+    pubs = [crypto.ed25519_public_bytes(k) for k in keys]
+    items, labels = [], []
+    for i in range(40):
+        j = i % 4
+        msg = rng.randbytes(rng.randrange(0, 300))
+        sig = crypto.ed25519_sign(keys[j], msg)
+        pk, kind = pubs[j], i % 10
+        if kind == 1:
+            msg = msg + b"x"
+        elif kind == 3:
+            sig = bytes([sig[0] ^ 1]) + sig[1:]
+        elif kind == 4:
+            pk = pubs[(j + 1) % 4]
+        elif kind == 6:
+            s = int.from_bytes(sig[32:], "little") + E.L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == 7:
+            sig = (ED_P + 1).to_bytes(32, "little") + sig[32:]
+        elif kind == 8:
+            sig = (1 | 1 << 255).to_bytes(32, "little") + sig[32:]
+        items.append(VerifyItem(SCHEME_ED25519, pk, sig, msg))
+        labels.append(kind not in (1, 3, 4, 6, 7, 8))
+    return items, labels
+
+
+@pytest.mark.cuda
+def test_ed25519_kernels_match_plain(cuda_device):
+    items, labels = ed_corpus()
+    bad_a = [VerifyItem(SCHEME_ED25519, (ED_P + 1).to_bytes(32, "little"),
+                        items[0].signature, items[0].payload),
+             VerifyItem(SCHEME_ED25519, (1 | 1 << 255).to_bytes(32, "little"),
+                        items[0].signature, items[0].payload)]
+    args = E.pack_verify_inputs(*zip(*[it[1:] for it in items + bad_a]))
+    dev = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+           for a in args]
+    table = T.b_table(cuda_device)
+    before = E.ed25519_verify.launches
+    got = E.ed25519_verify(*dev, table)
+    torch.cuda.synchronize()
+    assert E.ed25519_verify.launches == before + 1
+    assert torch.equal(got, E.verify_words_plain(*dev, table))
+    assert got.cpu().tolist() == labels + [False, False]
+    # KE6 over the four keys' tables of -A, not key-major
+    n = len(items)
+    slots = {}
+    for it in items:
+        slots.setdefault(it.pubkey, len(slots))
+    bank = torch.stack([torch.from_numpy(T.table_for_pubkey(pk))
+                        for pk in slots]).to(cuda_device)
+    slot = torch.tensor([slots[it.pubkey] for it in items], dtype=torch.int32)
+    rows = [x[..., :n].contiguous() for x in dev[2:]]
+    before = E.ed25519_verify_rows.launches
+    got = E.ed25519_verify_rows(*rows, slot, bank, table)
+    torch.cuda.synchronize()
+    assert E.ed25519_verify_rows.launches == before + 1
+    assert torch.equal(got, E.verify_words_rows_plain(*rows, slot, bank,
+                                                      table))
+    assert got.cpu().tolist() == labels
+    with pytest.raises(ValueError, match="slot"):
+        E.ed25519_verify_rows(*rows, slot + 4, bank, table)
+
+
+@pytest.mark.cuda
+def test_ed25519_empty_batch_counts_no_launch(cuda_device):
+    table = T.b_table(cuda_device)
+    w = torch.zeros((8, 0), dtype=torch.uint32, device=cuda_device)
+    sg = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    bank = torch.zeros((1, 2405, 24), dtype=torch.uint32, device=cuda_device)
+    before = (E.ed25519_verify.launches, E.ed25519_verify_rows.launches)
+    assert E.ed25519_verify(w, sg, w, sg, w, w, table).shape == (0,)
+    assert E.ed25519_verify_rows(w, sg, w, w, sg.cpu(), bank,
+                                 table).shape == (0,)
+    assert (E.ed25519_verify.launches,
+            E.ed25519_verify_rows.launches) == before
+
+
+@pytest.mark.cuda
+def test_cuda_provider_mixed_curves_match_sw(cuda_device):
+    """P-256 and Ed25519 items in one batch: a hot key of each curve
+    rides its fixed-key kernel, the rest the generic ones; every verdict
+    equals SW's and all four kernels launch once."""
+    p_items, p_labels = hot_key_items(2, 5, seed=12)
+    rows = corpus()[:6]
+    p_items += [VerifyItem(SCHEME_P256, b"\x04" + qx.to_bytes(32, "big")
+                           + qy.to_bytes(32, "big"),
+                           crypto.encode_dss_signature(r, s),
+                           e.to_bytes(32, "big"))
+                for qx, qy, r, s, e, _ in rows]
+    e_items, e_labels = ed_corpus()
+    items = p_items + e_items[:13] + [VerifyItem(
+        SCHEME_ED25519, b"\x00" * 31, b"\x00" * 64, b"")]
+    prov = CudaProvider(fast_key_threshold=4)
+    fns = (p256_fixed.p256_verify_rows, p256.p256_verify,
+           E.ed25519_verify_rows, E.ed25519_verify)
+    before = [f.launches for f in fns]
+    got = prov.batch_verify(items)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1]
+    np.testing.assert_array_equal(got, SoftwareProvider().batch_verify(items))
+    assert got.tolist()[len(p_items):] == e_labels[:13] + [False]
+    assert prov.stats["fallbacks"] == 0
+    assert prov.stats_snapshot().ed25519_table_builds == 1

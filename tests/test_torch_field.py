@@ -1,7 +1,8 @@
 """The port's field layer (fabric_tpu_torch.ops.field) against Python ints
 and against the reference's FlatMod, on the adversarial values of
-tests/test_ecp256.py, plus the KP1 plain version, the limb codecs and the
-constants the CUDA header hard-codes."""
+tests/test_ecp256.py, mod P-256's p and n and mod p25519, plus the KP1
+plain version, the limb codecs and the constants the CUDA header
+hard-codes."""
 import random
 import re
 from pathlib import Path
@@ -14,11 +15,14 @@ import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
 
 from fabric_tpu.ops import bignum as bn
 from fabric_tpu.ops import ecp256 as ec
+from fabric_tpu.ops import edwards as ed
 from fabric_tpu.ops import flatfield as ff
 from fabric_tpu_torch.ops import field as F
 
 R = 1 << 256
-MODS = [("p", F.P, F.fp, ec.fp), ("n", F.N, F.fn, ec.fn)]
+MODS = [("p", F.P, F.fp, ec.fp), ("n", F.N, F.fn, ec.fn),
+        ("p25519", F.P25519, F.f25519, ed.fp)]
+IDS = [m[0] for m in MODS]
 
 
 def adversarial(m, seed):
@@ -38,7 +42,7 @@ def jints(a, m):
     return [v % m for v in bn.limbs_to_ints(np.asarray(a))]
 
 
-@pytest.mark.parametrize("name,m,port,ref", MODS, ids=["p", "n"])
+@pytest.mark.parametrize("name,m,port,ref", MODS, ids=IDS)
 def test_mul_sqr_match_ints_and_flatmod(name, m, port, ref):
     va = adversarial(m, 11)
     vb = list(reversed(va))
@@ -58,7 +62,7 @@ def test_mul_sqr_match_ints_and_flatmod(name, m, port, ref):
     assert sq == jints(ref.from_mont(ref.sqr(ja)), m)
 
 
-@pytest.mark.parametrize("name,m,port,ref", MODS, ids=["p", "n"])
+@pytest.mark.parametrize("name,m,port,ref", MODS, ids=IDS)
 def test_add_sub_canon_match_ints_and_flatmod(name, m, port, ref):
     va = [v % m for v in adversarial(m, 5)]
     vb = list(reversed(va))
@@ -75,7 +79,7 @@ def test_add_sub_canon_match_ints_and_flatmod(name, m, port, ref):
     assert canon == jints(ref.canon(jl(raw)), m)
 
 
-@pytest.mark.parametrize("name,m,port,ref", MODS, ids=["p", "n"])
+@pytest.mark.parametrize("name,m,port,ref", MODS, ids=IDS)
 def test_inv_matches_ints_and_flatmod(name, m, port, ref):
     va = [v % m for v in adversarial(m, 7)]
     got = F.limbs_to_ints(port.from_mont(port.inv(port.to_mont(
@@ -86,7 +90,7 @@ def test_inv_matches_ints_and_flatmod(name, m, port, ref):
     assert got == jref
 
 
-@pytest.mark.parametrize("name,m,port,ref", MODS, ids=["p", "n"])
+@pytest.mark.parametrize("name,m,port,ref", MODS, ids=IDS)
 def test_predicates_match_flatfield(name, m, port, ref):
     vals = [0, 1, m - 1, m, m + 1, F.P - 1, F.P, R - 1, 1 << 255]
     x = F.ints_to_limbs(vals)
@@ -111,7 +115,7 @@ def test_add_const_carry():
     assert carry.tolist() == [v + F.N >= R for v in vals]
 
 
-@pytest.mark.parametrize("modulus", ["p", "n"])
+@pytest.mark.parametrize("modulus", IDS)
 @pytest.mark.parametrize("k", [0, 1, 5])
 def test_mul_chain_plain_matches_ints(modulus, k):
     m = F.MODS[modulus].m
@@ -164,7 +168,7 @@ def _cuh_constants():
         words = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
         arrays[name] = sum(w << (32 * i) for i, w in enumerate(words))
     defines = {k: int(v, 16) for k, v in re.findall(
-        r"#define (P256_\w+) (0x[0-9A-Fa-f]+)u", src)}
+        r"#define (\w+_MINV) (0x[0-9A-Fa-f]+)u", src)}
     return arrays, defines
 
 
@@ -172,13 +176,16 @@ def test_cuda_header_constants():
     """The kernels' hard-coded constants equal the values computed here."""
     arrays, defines = _cuh_constants()
     P, N = F.P, F.N
+    Q = F.P25519
     assert arrays == {
-        "C_P": P, "C_N": N,
-        "C_P_R2": R * R % P, "C_N_R2": R * R % N,
-        "C_P_ONE": R % P,
+        "C_P": P, "C_N": N, "C_F25519": Q,
+        "C_P_R2": R * R % P, "C_N_R2": R * R % N, "C_F25519_R2": R * R % Q,
+        "C_P_ONE": R % P, "C_F25519_ONE": R % Q,
         "C_A_MONT": (P - 3) * R % P,
         "C_B_MONT": ec.B * R % P,
         "C_HALF_N_PLUS_1": (N - 1) // 2 + 1,
     }
     assert defines == {"P256_P_MINV": F.fp.n0inv32,
-                       "P256_N_MINV": F.fn.n0inv32}
+                       "P256_N_MINV": F.fn.n0inv32,
+                       "F25519_MINV": F.f25519.n0inv32}
+    assert F.MOD_INDEX == {"p": 0, "n": 1, "p25519": 2}

@@ -163,8 +163,9 @@ def test_imads_per_verify_weighs_each_op(u1, u2):
     """Mod p a multiply needs 64 products and a square 36, with no
     reduction products; mod n the reduction adds 64 + 8 low ones."""
     c = p256.field_ops_per_verify(u1, u2)
-    assert p256.IMADS == {("p", "mul"): 128, ("p", "sqr"): 72,
-                       ("n", "mul"): 264, ("n", "sqr"): 208}
+    assert {k: v for k, v in p256.IMADS.items() if k[0] in ("p", "n")} \
+        == {("p", "mul"): 128, ("p", "sqr"): 72,
+            ("n", "mul"): 264, ("n", "sqr"): 208}
     assert p256.imads_per_verify(u1, u2) == (
         128 * c["p", "mul"] + 72 * c["p", "sqr"]
         + 264 * c["n", "mul"] + 208 * c["n", "sqr"])
