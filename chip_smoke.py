@@ -7,11 +7,12 @@ ends with one JSON line.  Phases:
 
 1. device  — the card's name and power limit; aborts without CUDA
 2. build   — nvcc builds every kernel from fabric_tpu_torch/ops/csrc/
-             (KP1-KP3, KE5, KE6, KV7, one nvcc each, all at once), cc
+             (KP1-KP3, KE5, KE6, KV7, KB8, one nvcc each, all at once), cc
              the C DER parser and the three CPython extensions (ftlv,
              fastparse, fastcollect) from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
-             ints, mod p, mod n and mod p25519, edge values included
+             ints, mod p, mod n, mod p25519 and mod BN254's p, edge values
+             included
 4. block   — 10,000 txs x (3 endorsements from 3 org keys + 1 creator
              signature from 64 clients) = 40,000 P-256 items, 2% of them
              corrupted (7 kinds), plus 64 Ed25519 items under one-off
@@ -56,15 +57,31 @@ ends with one JSON line.  Phases:
              on the path's own batch for that kernel; one large pinned
              host-to-device copy gives the link rate that bounds a table
              upload
+9. idemix  — (run after 7, before the kernels line) BASELINE config 4:
+             the provider's idemix_pair_probe(128), green and red; a
+             seeded load of 4,096 pairing checks under 2 issuers, 2%
+             corrupted (3 kinds), KB8 against its plain version and the
+             labels, timed; a block of 32 txs whose creators are idemix
+             signers of two issuers (the port's idemixgen; a presentation
+             over another payload, a forged credential and garbage among
+             them), endorsed by Org1 under OR('Org1.member'), committed
+             by two port stacks (the factory's CUDA provider and the SW
+             provider, KV7 on in both): flags, state, history and commit
+             hash equal, flags equal to the labels; KB8 against its plain
+             version at the block's shape; the creators' items and two
+             cross-issuer swaps through batch_verify against SW; the host
+             collect, the enqueue, KB8 and one profiled block timed
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
-3, the generic load, the commit stream through the KV7 stack) sets every
-launch count to 0 just before it and reads the counts just after; the
-block launches KP3, KP2 (the off-curve keys of the corrupted items) and
-KE5, config 2 only KE6, config 3 KP3, KP2 and KE6, the generic load KE5,
-the commit stream KP3 and KV7 (KP2 for clients below the fast-lane
-threshold at small sizes).  KP1 is the field layer's benchmark kernel
+3, the generic load, the commit stream through the KV7 stack, the idemix
+probe, the idemix block through each stack, the idemix batch_verify) sets
+every launch count to 0 just before it and reads the counts just after;
+the block launches KP3, KP2 (the off-curve keys of the corrupted items)
+and KE5, config 2 only KE6, config 3 KP3, KP2 and KE6, the generic load
+KE5, the commit stream KP3 and KV7 (KP2 for clients below the fast-lane
+threshold at small sizes), the idemix runs KB8 (and KV7 and the Org1
+endorsements' P-256 lane in the block).  KP1 is the field layer's benchmark kernel
 and is not on a main path: its count there is 0.
 
 Run from the repository root on a machine with one NVIDIA GPU:
@@ -122,6 +139,16 @@ COMMIT_POLICY = "AND('Org1.member', 'Org2.member', 'Org3.member')"
 COMMIT_WINDOW = 16384
 COMMIT_TS = 1_760_000_000
 SHMEM_CYCLES = 30              # one shared-memory round trip, the walk's step
+# the idemix phase: BASELINE config 4's probe batch (bench.py:1172-1183),
+# the seeded load of pairing checks and its corrupted kinds, and the
+# block of idemix creators (its corrupted txs by position)
+IDEMIX_PROBE = 128
+IDEMIX_CHECKS = 4096
+PAIR_KINDS = ("x_plus_1", "other_slot", "swapped")
+IDEMIX_TXS = 32
+IDEMIX_SIGNERS = 2             # per issuer, two issuers
+IDEMIX_BAD = {5: "nonce", 13: "forged", 21: "garbage"}
+IDEMIX_POLICY = "OR('Org1.member')"
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
 # 64 per SM per clock (CUDA C Programming Guide, arithmetic instruction
@@ -175,6 +202,24 @@ class _Signer:
 
 
 _KEYS: dict = {}
+
+
+class _IdemixCreator:
+    """A picklable idemix creator for the spawn pool: a signing identity
+    and how its signature is corrupted (None; "nonce": a presentation
+    over another payload; "garbage": bytes that do not decode)."""
+
+    def __init__(self, signer, corrupt: str = None):
+        self.signer, self.corrupt = signer, corrupt
+
+    def serialize(self) -> bytes:
+        return self.signer.serialize()
+
+    def sign(self, msg: bytes) -> bytes:
+        if self.corrupt == "garbage":
+            return b"\x01\x02\x03"
+        return self.signer.sign(msg + (b"!" if self.corrupt == "nonce"
+                                       else b""))
 
 
 def _envelope_job(job):
@@ -633,19 +678,22 @@ def chain_blocks(env_blocks):
     return raws
 
 
-def commit_stack(provider, orgs, device_validate: bool, dev):
+def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
+                 policy: str = COMMIT_POLICY):
     """Committer -> TxValidator (deep path) -> DeviceValidator
     (window=16384) or the host gate -> KVLedger (in memory, 8 state
-    shards) -> (committer, device validator or None)."""
+    shards) -> (committer, device validator or None).  msps: the orgs'
+    MSPs unless given."""
     from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
                                             TxValidator)
     from fabric_tpu_torch.committer.device_validate import DeviceValidator
     from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
     from fabric_tpu_torch.msp import CachedMSP
     from fabric_tpu_torch.policy import parse_policy
-    msps = {o.mspid: CachedMSP(o.msp()) for o in orgs}
+    if msps is None:
+        msps = {o.mspid: CachedMSP(o.msp()) for o in orgs}
     policies = PolicyRegistry()
-    policies.set_policy("cc", parse_policy(COMMIT_POLICY))
+    policies.set_policy("cc", parse_policy(policy))
     ledger = KVLedger("ch", LedgerConfig(device_validate=device_validate,
                                          state_shards=8))
     dv = None
@@ -847,6 +895,342 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
             "library_ms": None, "on_main_path": True}, launches
 
 
+# ---------------------------------------------------------------------------
+# the idemix lane
+# ---------------------------------------------------------------------------
+
+def idemix_world():
+    """Two issuers by the port's idemixgen, IDEMIX_SIGNERS members each,
+    and a forged signer of the first issuer (a random A: every host check
+    of its presentations passes, only the pairing equation fails) ->
+    (MSP configs, signers, forged signer)."""
+    import os
+    import tempfile
+    from fabric_tpu_torch.idemix import bn254 as hb
+    from fabric_tpu_torch.idemix import gen
+    from fabric_tpu_torch.idemix.msp import IdemixSigningIdentity
+    configs, signers = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(2):
+            d = os.path.join(tmp, f"IdemixOrg{k + 1}")
+            out = gen.generate(d, f"IdemixOrg{k + 1}", [
+                f"user{j}:engineering:member" for j in range(IDEMIX_SIGNERS)])
+            configs.append(out["config"])
+            signers += [gen.load_signer(path, os.path.join(
+                d, "msp_config.bin")) for path in out["signers"].values()]
+    s = signers[0]
+    c = s._cred
+    forged = IdemixSigningIdentity(
+        s.mspid, s._config,
+        type(c)(hb.g1_mul(12345, hb.G1_GEN), c.e, c.s, list(c.attrs)),
+        s.ou, s.role, handle_sig=s._handle_sig)
+    return configs, signers, forged
+
+
+def build_idemix_block(signers, forged, endorser, pool):
+    """IDEMIX_TXS endorser txs whose creators are the idemix signers in
+    turn, endorsed by Org1's peer, each writing one key; the txs of
+    IDEMIX_BAD carry a presentation over another payload, the forged
+    credential's or garbage -> (block bytes, labels: 0 valid, 4 bad
+    creator signature)."""
+    rng = random.Random(SEED + 12)
+    creators = [endorser] + [_IdemixCreator(s) for s in signers]
+    bad = {"nonce": len(creators), "forged": len(creators) + 1,
+           "garbage": len(creators) + 2}
+    creators += [_IdemixCreator(signers[0], "nonce"),
+                 _IdemixCreator(forged), _IdemixCreator(signers[0],
+                                                        "garbage")]
+    specs, labels = [], []
+    for t in range(IDEMIX_TXS):
+        kind = IDEMIX_BAD.get(t)
+        who = bad[kind] if kind else 1 + t % len(signers)
+        specs.append((who, [0], rng.randbytes(24), [],
+                      [(f"idemix{t:03d}", b"v%d" % t, False)], [], None))
+        labels.append(4 if kind else 0)
+    jobs = [(creators, specs[lo:lo + 4]) for lo in range(0, len(specs), 4)]
+    envs = [e for part in pool.map(_envelope_job, jobs) for e in part]
+    return chain_blocks([envs])[0], labels
+
+
+def seeded_checks(n: int, seed: int) -> dict:
+    """n pairing checks e(A'_i, w_j) * e(-Abar_i, g2) == 1 under two
+    issuers (w_j = x_j g2, slots 1 and 2), with no presentations: A'_i
+    chained by additions of G1, Abar_i = x_j A'_i chained by additions of
+    x_j G1.  CORRUPT_FRAC of them in PAIR_KINDS: Abar made with x_j + 1,
+    the other issuer's slot, P1 and P2 swapped."""
+    import numpy as np
+    from fabric_tpu_torch.idemix import bn254 as hb
+    from fabric_tpu_torch.ops import bn254 as kb8
+    rng = random.Random(seed)
+    xs = [rng.randrange(2, hb.R) for _ in range(2)]
+    flags, lines = kb8.stack_lines(
+        [kb8.pack_steps(hb.ate_precompute(q)) for q in
+         [hb.G2_GEN] + [hb.g2_mul(x, hb.G2_GEN) for x in xs]])
+    kinds = [None] * n
+    for j, i in enumerate(rng.sample(range(n), max(len(PAIR_KINDS),
+                                                    int(n * CORRUPT_FRAC)))):
+        kinds[i] = PAIR_KINDS[j % len(PAIR_KINDS)]
+    a = hb.g1_mul(rng.randrange(1, hb.R), hb.G1_GEN)
+    steps = [hb.g1_mul(x, hb.G1_GEN) for x in xs]
+    abar = [hb.g1_mul(x, a) for x in xs]
+    cols, slot = [[], [], [], []], []
+    for i in range(n):
+        j = rng.randrange(2)
+        p1, p2, s = a, hb.g1_neg(abar[j]), j + 1
+        if kinds[i] == "x_plus_1":
+            p2 = hb.g1_neg(hb.g1_add(abar[j], a))
+        elif kinds[i] == "other_slot":
+            s = 2 - j
+        elif kinds[i] == "swapped":
+            p1, p2 = p2, p1
+        for c, v in zip(cols, (*p1, *p2)):
+            c.append(v)
+        slot.append(s)
+        a = hb.g1_add(a, hb.G1_GEN)
+        abar = [hb.g1_add(b, st) for b, st in zip(abar, steps)]
+    return {"flags": flags, "lines": lines,
+            "slot": np.asarray(slot, np.int32), "cols": cols,
+            "kinds": kinds, "labels": [k is None for k in kinds]}
+
+
+def item_checks(parts) -> dict:
+    """KB8's inputs for the items whose host checks passed (`parts`, the
+    results of `collect_item_parts`), laid out as the provider lays them
+    out: slot 0 g2's lines, then one slot per issuer's w in order of
+    first sight; P1 = A', P2 = -Abar.  `keep`: the items checked."""
+    import numpy as np
+    from fabric_tpu_torch.idemix import bn254 as hb
+    from fabric_tpu_torch.idemix.msp import deserialize_ipk
+    from fabric_tpu_torch.ops import bn254 as kb8
+    issuers, keep, slot, cols = {}, [], [], [[], [], [], []]
+    for i, (ok, ipk_bytes, pair) in enumerate(parts):
+        if not ok:
+            continue
+        keep.append(i)
+        slot.append(issuers.setdefault(ipk_bytes, len(issuers) + 1))
+        (x1, y1), (x2, y2) = pair
+        for c, v in zip(cols, (x1, y1, x2, (hb.P - y2) % hb.P)):
+            c.append(v)
+    flags, lines = kb8.stack_lines([kb8.g2_packed()] + [
+        kb8.pack_steps(hb.ate_precompute(deserialize_ipk(k).w))
+        for k in issuers])
+    return {"flags": flags, "lines": lines, "keep": keep,
+            "slot": np.asarray(slot, np.int32), "cols": cols}
+
+
+def kb8_args(torch, dev, checks: dict) -> tuple:
+    """(flags, lines, slot, x1, y1, x2, y2) of `checks` for KB8's
+    wrapper: the slot on the host, the rest on `dev`."""
+    from fabric_tpu_torch.ops import bn254 as kb8
+    return (torch.from_numpy(checks["flags"]).to(dev),
+            torch.from_numpy(checks["lines"]).to(dev),
+            torch.from_numpy(checks["slot"]),
+            *[torch.from_numpy(kb8.ints_to_words(c)).to(dev)
+              for c in checks["cols"]])
+
+
+def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
+                 imad_rate: float):
+    """Phase 9: the config-4 probe, KB8 against its plain version and the
+    labels on a seeded load, the block of idemix creators through two
+    port stacks (the factory's CUDA provider and the SW provider, KV7 on
+    in both) and the creators' items through batch_verify.  -> (KB8's
+    row of the kernels line, the main-path launches of KB8 and KV7)."""
+    import numpy as np
+    from fabric_tpu_torch.bccsp import VerifyItem
+    from fabric_tpu_torch.bccsp.sw import SoftwareProvider
+    from fabric_tpu_torch.idemix.msp import IdemixMSP, collect_item_parts
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.ops import bn254 as kb8
+    from fabric_tpu_torch.protocol import Block, Envelope
+    dev = torch.device("cuda")
+    counted = {**fns, "block_validate": kv7.block_validate_kernel}
+    main = {"bn254_pairing": 0, "block_validate": 0}
+
+    def main_run(run: str, fn, on: tuple, maybe: tuple = ()):
+        """A main-path run: every count to 0 just before, read after."""
+        for f in counted.values():
+            f.launches = 0
+        out = fn()
+        launches = {name: f.launches for name, f in counted.items()}
+        check_launches(f"idemix {run}", launches, on, maybe)
+        for name in main:
+            main[name] += launches[name]
+        return out, launches
+
+    # part 1: BASELINE config 4's probe through the factory's provider
+    def probe():
+        fn, green, red = provider.idemix_pair_probe(IDEMIX_PROBE)
+        return fn(*green).cpu(), fn(*red).cpu()
+
+    (green, red), launches = main_run("probe", probe, ("bn254_pairing",))
+    check(bool(green.all()) and not bool(red.any()),
+          "config-4 probe: green must be all True, red all False")
+    phase("idemix", probe=IDEMIX_PROBE, green="all True", red="all False",
+          launches=launches["bn254_pairing"])
+
+    # part 2: a seeded load, KB8 against its plain version and the labels
+    t0 = time.perf_counter()
+    load = seeded_checks(IDEMIX_CHECKS, SEED + 11)
+    load_s = time.perf_counter() - t0
+    args9 = kb8_args(torch, dev, load)
+    kern = kb8.bn254_pairing_check(*args9)
+    plain, plain_ms = timed_once(torch, lambda: kb8.pairing_check_batch(
+        *args9))
+    check(torch.equal(kern, plain), "KB8 != pairing_check_batch on the "
+          "seeded load")
+    wrong = [i for i, (g, w) in enumerate(zip(kern.cpu().tolist(),
+                                              load["labels"])) if g != w]
+    check(not wrong, f"KB8 != labels, first {[(i, load['kinds'][i]) for i in wrong[:5]]}")
+    err = int((kern.to(torch.int8) - plain.to(torch.int8)).abs().max())
+    kb8_ms = event_ms(torch, lambda: kb8.bn254_pairing_check(*args9),
+                      args.trials)
+    n = IDEMIX_CHECKS
+    ops = kb8.fp_ops_per_check(load["flags"])
+
+    def bound(args) -> tuple:
+        """(ms, by) of KB8's bound on these inputs: the least multiply-
+        adds over the card's rate, or the bytes over its memory rate."""
+        b = args[-1].shape[1]
+        ops_s = (b * kb8.imads_per_check(args[0].cpu().tolist())
+                 + kb8.imads_per_launch()) / imad_rate
+        bytes_s = (b * (4 * 32 + 4 + 1) + args[1].nbytes + args[0].nbytes
+                   ) / HBM_BYTES_PER_S
+        return (max(ops_s, bytes_s) * 1e3,
+                "operations" if ops_s >= bytes_s else "bytes")
+
+    bound_ms, bound_by = bound(args9)
+    phase("idemix", checks=n, issuers=2, lines=tuple(args9[1].shape),
+          corrupted={k: load["kinds"].count(k) for k in PAIR_KINDS},
+          build_s=round(load_s, 2), kb8_vs_plain="equal",
+          verdicts_vs_labels="equal", valid=sum(load["labels"]))
+    phase("idemix", kb8_ms=round(kb8_ms, 4), kb8_plain_ms=round(plain_ms, 2),
+          kb8_bound_ms=round(bound_ms, 4), kb8_bound_by=bound_by,
+          fp_mults_per_check=sum(ops.values()),
+          fp_mults_issued=kb8.fp_ops_issued(load["flags"]),
+          imads_per_check=kb8.imads_per_check(load["flags"]),
+          us_per_check=round(kb8_ms * 1e3 / n, 3))
+
+    # part 3: the block of idemix creators through two port stacks
+    msps = {org1.mspid: CachedMSP(org1.msp()),
+            **{c.mspid: IdemixMSP(c) for c in configs}}
+
+    def stack(prov):
+        return commit_stack(prov, [org1], True, dev, msps=msps,
+                            policy=IDEMIX_POLICY)
+
+    sw = SoftwareProvider()
+    outs, secs = {}, {}
+    before = dict(provider.stats)
+    for name, prov in (("cuda", provider), ("sw", sw)):
+        committer, _ = stack(prov)
+        (res, _meta, secs[name], rows), launches = main_run(
+            f"block {name}", lambda: commit_stream(committer, [raw],
+                                                   rows=True)[0],
+            ("bn254_pairing", "block_validate") if name == "cuda"
+            else ("block_validate",),
+            # Org1's endorsements: KP3 when its key holds a bank slot
+            maybe=("p256_verify_rows", "p256_verify"))
+        outs[name] = (res.final_flags.codes(), rows)
+        phase("idemix", block_stack=name, launches=launches,
+              validate_commit_s=round(secs[name], 3))
+    delta = {k: v - before[k] for k, v in provider.stats.items()}
+    codes, rows = outs["cuda"]
+    check(codes == outs["sw"][0], "idemix block: CUDA flags != SW flags")
+    check(rows == outs["sw"][1],
+          "idemix block: state, history or commit hash differ")
+    check(codes == labels, f"idemix block: flags {codes} != labels {labels}")
+    check(delta["fallbacks"] == 0, "idemix block: fallbacks != 0")
+
+    # the creators' items: their host checks give KB8's inputs at the
+    # block's own shape, held against the plain version and the labels
+    items = []
+    for data in Block.deserialize(raw).data:
+        env = Envelope.deserialize(data)
+        ident = msps_ident(msps, env.header().signature_header.creator)
+        items.append(ident.verify_item(env.payload, env.signature))
+    t0 = time.perf_counter()
+    parts = [collect_item_parts(it) for it in items]
+    collect_ms = (time.perf_counter() - t0) * 1e3 / len(items)
+    blk_checks = item_checks(parts)
+    blk = kb8_args(torch, dev, blk_checks)
+    kern = kb8.bn254_pairing_check(*blk)
+    plain, block_plain_ms = timed_once(torch, lambda: (
+        kb8.pairing_check_batch(*blk)))
+    check(torch.equal(kern, plain), "KB8 != pairing_check_batch on the "
+          "block's checks")
+    check(kern.cpu().tolist() == [labels[i] == 0
+                                  for i in blk_checks["keep"]],
+          "KB8 != labels on the block's checks")
+    block_kb8_ms = event_ms(torch, lambda: kb8.bn254_pairing_check(*blk),
+                            args.trials)
+    block_bound_ms, block_bound_by = bound(blk)
+    phase("idemix", block_txs=len(codes), valid=codes.count(0),
+          bad_creator=codes.count(4), kb8_checks=len(blk_checks["keep"]),
+          flags_vs_labels="equal", cuda_vs_sw="equal (flags, state, "
+          "history, commit hash)", commit_hash=rows[2].hex()[:16],
+          fallbacks=0, cut=f"{IDEMIX_TXS} txs: the host checks of each "
+          "presentation (collect_item_parts) run serially in pure Python "
+          "inside the provider's enqueue, as in the reference")
+
+    # the creators' items and two cross-issuer swaps through batch_verify
+    a, b = items[0], items[2]            # one creator of each issuer
+    check(a.pubkey != b.pubkey, "swap: the creators share an issuer")
+    items += [VerifyItem(b.scheme, b.pubkey, a.signature, b.payload),
+              VerifyItem(a.scheme, a.pubkey, b.signature, a.payload)]
+    want = np.asarray([c == 0 for c in labels] + [False, False])
+
+    def verify():
+        t = time.perf_counter()
+        resolve = provider.batch_verify_async(items)
+        enq = time.perf_counter() - t
+        return resolve(), enq, time.perf_counter() - t
+
+    (got, enqueue_s, total_s), launches = main_run(
+        "batch_verify", verify, ("bn254_pairing",))
+    sw_got = sw.batch_verify(items)
+    check((got == sw_got).all(), "idemix items: CUDA verdicts != SW")
+    check((got == want).all(), "idemix items: verdicts != labels")
+    phase("idemix", items=len(items), swaps=2, verdicts_vs_sw="equal",
+          verdicts_vs_labels="equal", launches=launches["bn254_pairing"],
+          collect_ms_per_item=round(collect_ms, 2),
+          enqueue_ms=round(enqueue_s * 1e3, 2),
+          batch_verify_ms=round(total_s * 1e3, 2),
+          block_kb8_ms=round(block_kb8_ms, 4),
+          block_kb8_plain_ms=round(block_plain_ms, 2),
+          block_kb8_bound_ms=round(block_bound_ms, 6),
+          block_kb8_bound_by=block_bound_by)
+
+    # one profiled block on a fresh CUDA stack
+    committer, _ = stack(provider)
+    busy_ms, wall_ms, top = device_busy(
+        torch, lambda: commit_stream(committer, [raw]))
+    if busy_ms > 0:
+        phase("idemix", profiled="idemix block", wall_ms=round(wall_ms, 3),
+              device_busy_ms=round(busy_ms, 3),
+              device_idle_share=round(1 - busy_ms / wall_ms, 4),
+              top_device_ops=top)
+    else:
+        phase("idemix", profiled="idemix block", device_idle_share="not "
+              "measured (the profiler recorded no device time)")
+    phase("idemix", library="none: no PyTorch call computes a pairing")
+    return {"name": "bn254_pairing", "route": "cuda",
+            "source": "fabric_tpu_torch/ops/csrc/bn254_pairing.cu",
+            "replaces": "fabric_tpu/ops/bn254_batch.py:304",
+            "launches": main["bn254_pairing"], "max_abs_err": err,
+            "ms": kb8_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "on_main_path": True}, main
+
+
+def msps_ident(msps, creator: bytes):
+    from fabric_tpu_torch.msp import deserialize_from_msps
+    ident = deserialize_from_msps(msps, creator)
+    check(ident is not None, "idemix block: a creator does not deserialize")
+    return ident
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -874,8 +1258,9 @@ def main(argv=None) -> int:
     from fabric_tpu_torch import native
     from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
     from fabric_tpu_torch.bccsp import cuda as cudaprov
-    from fabric_tpu_torch.ops import (_build, ed25519, ed25519_tables,
-                                      field, p256, p256_fixed, p256_tables)
+    from fabric_tpu_torch.ops import (_build, bn254, ed25519,
+                                      ed25519_tables, field, p256,
+                                      p256_fixed, p256_tables)
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -940,6 +1325,9 @@ def main(argv=None) -> int:
 
     # --- 4. block ----------------------------------------------------------
     t0 = time.perf_counter()
+    id_configs, id_signers, id_forged = idemix_world()
+    idemix_gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
         items, labels, kinds = build_block(args.txs, pool)
@@ -958,6 +1346,10 @@ def main(argv=None) -> int:
         commit_raws = chain_blocks(env_blocks)
         del env_blocks
         stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idemix_raw, idemix_labels = build_idemix_block(
+            id_signers, id_forged, signers[0], pool)
+        idemix_sign_s = time.perf_counter() - t0
     n_p256 = 4 * args.txs
     fast_idx, well_formed, hot_keys = fast_lane_items(
         items, kinds, n_p256, p256_tables.on_curve)
@@ -970,6 +1362,7 @@ def main(argv=None) -> int:
            "p256_verify": p256.p256_verify,
            "ed25519_verify_rows": ed25519.ed25519_verify_rows,
            "ed25519_verify": ed25519.ed25519_verify,
+           "bn254_pairing": bn254.bn254_pairing_check,
            "field_mul_chain": field.field_mul_chain}
     total = {}
 
@@ -1432,14 +1825,28 @@ def main(argv=None) -> int:
     phase("times", library="none: no PyTorch call computes ECDSA or "
           "Ed25519 verify (any lane) or a Montgomery multiply chain")
 
+    # --- 9. idemix (before the kernels line, which it feeds) ---------------
+    phase("idemix", issuers=len(id_configs), signers=len(id_signers),
+          gen_s=round(idemix_gen_s, 2), block_txs=len(idemix_labels),
+          corrupted=IDEMIX_BAD, sign_s=round(idemix_sign_s, 2),
+          policy=IDEMIX_POLICY)
+    kb8_row, idemix_launches = idemix_phase(
+        torch, args, provider, orgs[0], id_configs, idemix_raw,
+        idemix_labels, fns, imad_rate)
+    for kname, n in idemix_launches.items():
+        total[kname] = total.get(kname, 0) + n
+    kv7_row["launches"] += idemix_launches["block_validate"]
+
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
         return "operations" if ops_s >= bytes_s else "bytes"
 
     phase("kernels", main_path_launches=total,
           runs="block cold+warm, config 2 cold+warm, config 3, generic load,"
-          " commit stream")
+          " commit stream, idemix probe, idemix block (CUDA and SW stacks),"
+          " idemix batch_verify")
     kernels = [
+        kb8_row,
         kv7_row,
         {"name": "p256_verify_rows", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/p256_verify_rows.cu",

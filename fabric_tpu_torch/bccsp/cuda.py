@@ -1,10 +1,12 @@
-"""CUDA batched BCCSP provider: the two P-256 lanes and the two Ed25519
-lanes on the GPU.
+"""CUDA batched BCCSP provider: the two P-256 lanes, the two Ed25519
+lanes and the idemix pairing lane on the GPU.
 
 Counterpart of the P-256 and Ed25519 parts of `fabric_tpu/bccsp/
 jaxtpu.py` (`_verify_p256` with its vectorized lane split,
-`_verify_ed25519`, `_dispatch`, `batch_verify_async`, `batch_verify`,
-`ProviderStats`, `stats_snapshot`).  Per batch:
+`_verify_ed25519`, `_verify_idemix`, `_idemix_packed`,
+`_idemix_g2_packed`, `idemix_pair_probe`, `_dispatch`,
+`batch_verify_async`, `batch_verify`, `ProviderStats`,
+`stats_snapshot`).  Per batch:
 
 * P-256 items take one host pass: a single C call parses every DER
   signature (`native.parse_der_sigs`); items with a malformed signature,
@@ -27,25 +29,34 @@ jaxtpu.py` (`_verify_p256` with its vectorized lane split,
   key-major.  A slot stays pinned from the lane choice until its launch
   is enqueued.  `resolve()` waits for the device and scatters the
   verdicts.  No item goes to the software provider.
+* Idemix items run the host checks of `idemix.msp.collect_item_parts`
+  (decoding, the disclosed attributes, the zero-knowledge proofs, the
+  revocation epoch; serially, as the reference does); an item they
+  refuse stays False without reaching the card.  The rest become one
+  pairing check each, e(A', w) * e(-Abar, g2) == 1, launched together
+  in kernel KB8 whatever their issuers: each check names the slot of its
+  issuer's w lines in a device-resident line tensor whose slot 0 holds
+  g2's (`_idemix_packed`; an issuer's lines are precomputed on the host
+  once, ~0.2 s, and uploaded, 35,072 bytes).
 * Unknown schemes are False and count as `host_rejects`.
-* Idemix items raise NotImplementedError (ROADMAP A6).
 
-All device work of one call (the four kernels and the banks' slot
-writes) runs on the current CUDA stream; `resolve()` waits for that
-stream's work whatever stream is current when it is called.  A slot rebuilt for one
-batch is written only after every launch of an earlier batch that reads
-it, on any stream (`DeviceBank`).
+All device work of one call (the five kernels, the banks' slot writes
+and the idemix line uploads) runs on the current CUDA stream;
+`resolve()` waits for that stream's work whatever stream is current when
+it is called.  A slot rebuilt for one batch is written only after every
+launch of an earlier batch that reads it, on any stream (`DeviceBank`).
 
 Unlike the reference, nothing falls back: a failed build of the C parser
 or of a kernel, a failed launch or a failed resolve raises, and
 `stats["fallbacks"]` stays 0.  The reference's (R, C) row grids, its
-bucket padding and its lane telemetry have no counterpart here (ROADMAP
-C5).  The `stats` keys are the reference's, because the degrading
-wrapper of a later slice reads them.
+bucket padding, its per-issuer idemix dispatches and its lane telemetry
+have no counterpart here (ROADMAP C5, C9).  The `stats` keys are the
+reference's, because the degrading wrapper of a later slice reads them.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
 from typing import Sequence
 
@@ -55,13 +66,15 @@ import torch
 from .. import native
 from ..crypto import decode_dss_signature
 from ..device import resolve_device
+from ..idemix import bn254 as hbn
+from ..ops import bn254 as kb8
 from ..ops import ed25519, ed25519_tables, p256_fixed, p256_tables
 from ..ops import p256 as p256mod
 from ..ops.device_bank import DeviceBank
 from . import provider as prov
 from .provider import (VerifyItem, SCHEME_P256, SCHEME_ED25519,
                        SCHEME_IDEMIX)
-from .sw import IDEMIX_NOT_PORTED, SoftwareProvider
+from .sw import SoftwareProvider
 
 MAX_CHUNK = 1 << 17
 _ZERO32 = b"\x00" * 32
@@ -201,6 +214,14 @@ class CudaProvider(prov.Provider):
             ed25519_tables.table_for_pubkey, device=self.device)
         self._g_table = p256_tables.g_table(self.device)
         self._b_table = ed25519_tables.b_table(self.device)
+        # the idemix lane's device lines: slot 0 g2's, then one slot per
+        # issuer's w in order of first sight
+        g2 = self._idemix_g2_packed()
+        self._idemix_lock = threading.Lock()
+        self._idemix_slots: dict = {}
+        self._idemix_flags = torch.from_numpy(g2["flags"]).to(self.device)
+        self._idemix_lines = torch.from_numpy(g2["lines"][None]).to(
+            self.device)
 
     def stats_snapshot(self) -> ProviderStats:
         """Point-in-time copy of the counters plus the bank's builds."""
@@ -380,6 +401,80 @@ class CudaProvider(prov.Provider):
                 ry, r_sign, s, k, slot, bank, self._b_table),
             lambda *w: ed25519.ed25519_verify(*w, self._b_table), pending)
 
+    # -- idemix: batched BN254 pairing checks (BASELINE config 4) -----------
+
+    @staticmethod
+    def _idemix_g2_packed() -> dict:
+        """g2's line constants (`bn254.g2_packed`, built once)."""
+        return kb8.g2_packed()
+
+    def _idemix_packed(self, ipk_bytes: bytes) -> int:
+        """The device slot of an issuer's w lines, precomputed on the
+        host and appended to the device line tensor on first sight."""
+        from ..idemix.msp import deserialize_ipk
+        with self._idemix_lock:
+            slot = self._idemix_slots.get(ipk_bytes)
+            if slot is None:
+                packed = kb8.pack_steps(hbn.ate_precompute(
+                    deserialize_ipk(ipk_bytes).w))
+                kb8.stack_lines([self._idemix_g2_packed(), packed])
+                lines = torch.from_numpy(packed["lines"][None]).to(
+                    self.device)
+                self.stats["h2d_bytes"] += lines.nbytes
+                # a new tensor: launches already enqueued keep the old one
+                self._idemix_lines = torch.cat([self._idemix_lines, lines])
+                slot = self._idemix_slots[ipk_bytes] = \
+                    self._idemix_lines.shape[0] - 1
+            return slot
+
+    def _verify_idemix(self, items, idxs, pending) -> None:
+        """Host checks per item, then every check of the batch in KB8
+        launches of at most MAX_CHUNK: e(A', w) * e(-Abar, g2) == 1."""
+        from ..idemix.msp import collect_item_parts
+        keep, slots, p1, p2 = [], [], [], []
+        for i in idxs:
+            ok, ipk_bytes, pair = collect_item_parts(items[i])
+            if not ok:
+                continue                    # the verdict stays False
+            keep.append(i)
+            slots.append(self._idemix_packed(ipk_bytes))
+            p1.append(pair[0])
+            p2.append(pair[1])
+        if not keep:
+            return
+        keep = np.asarray(keep, np.int64)
+        slots = np.asarray(slots, np.int32)
+        words = [kb8.ints_to_words([p[0] for p in p1]),
+                 kb8.ints_to_words([p[1] for p in p1]),
+                 kb8.ints_to_words([p[0] for p in p2]),
+                 kb8.ints_to_words([(hbn.P - p[1]) % hbn.P for p in p2])]
+        flags, lines = self._idemix_flags, self._idemix_lines
+        for lo in range(0, len(keep), MAX_CHUNK):
+            hi = min(lo + MAX_CHUNK, len(keep))
+            args = self._upload(words, lo, hi)
+            slot = torch.from_numpy(slots[lo:hi])
+            self.stats["h2d_bytes"] += slot.nbytes
+            out = kb8.bn254_pairing_check(flags, lines, slot, *args)
+            self.stats["dispatches"] += 1
+            self.stats["device_sigs"] += hi - lo
+            pending.append((keep[lo:hi], out))
+
+    def idemix_pair_probe(self, batch: int):
+        """(fn, green_args, red_args) for the BN254 pairing lane on this
+        provider's device: green checks e(G1, g2) * e(-G1, g2) == 1, red
+        e(G1, g2)^2 == 1, both at `batch` checks with g2's lines on both
+        sides (slot 0)."""
+        gx, gy = hbn.G1_GEN
+
+        def col(v):
+            return torch.from_numpy(kb8.ints_to_words([v] * batch)).to(
+                self.device)
+
+        x, y, y_neg = col(gx), col(gy), col(hbn.P - gy)
+        base = (self._idemix_flags, self._idemix_lines,
+                torch.zeros(batch, dtype=torch.int32), x, y, x)
+        return kb8.bn254_pairing_check, base + (y_neg,), base + (y,)
+
     def batch_verify_async(self, items: Sequence[VerifyItem]):
         """Enqueue the device work and return resolve() -> bool[N]."""
         items = list(items)
@@ -387,14 +482,14 @@ class CudaProvider(prov.Provider):
         by_scheme = {}
         for i, it in enumerate(items):
             by_scheme.setdefault(it.scheme, []).append(i)
-        if SCHEME_IDEMIX in by_scheme:
-            raise NotImplementedError(IDEMIX_NOT_PORTED)
         pending = []
         for scheme, idxs in by_scheme.items():
             if scheme == SCHEME_P256:
                 self._verify_p256(items, idxs, pending)
             elif scheme == SCHEME_ED25519:
                 self._verify_ed25519(items, idxs, pending)
+            elif scheme == SCHEME_IDEMIX:
+                self._verify_idemix(items, idxs, pending)
             else:
                 self.stats["host_rejects"] += len(idxs)
         done = None

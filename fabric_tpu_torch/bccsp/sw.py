@@ -2,8 +2,8 @@
 
 Counterpart of `fabric_tpu/bccsp/sw.py`: ECDSA-P256 with low-S
 enforcement on sign and verify, plus Ed25519, backed by the port's crypto
-shim (`cryptography` when installed, else the pure-Python engines).
-Idemix is not ported yet (ROADMAP A6): an idemix item raises.
+shim (`cryptography` when installed, else the pure-Python engines), and
+idemix presentations verified on the host (`idemix.msp.verify_item_host`).
 """
 
 from __future__ import annotations
@@ -19,9 +19,6 @@ from .provider import (VerifyItem, SCHEME_P256, SCHEME_ED25519,
 
 P256_N = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
 P256_HALF_N = (P256_N - 1) // 2
-
-IDEMIX_NOT_PORTED = ("idemix verification is not ported to fabric_tpu_torch "
-                     "yet (ROADMAP A6)")
 
 
 class SigningKey:
@@ -72,8 +69,6 @@ class SoftwareProvider(prov.Provider):
         raise ValueError(f"unsupported scheme {private_key.scheme!r}")
 
     def _verify_one(self, it: VerifyItem) -> bool:
-        if it.scheme == SCHEME_IDEMIX:
-            raise NotImplementedError(IDEMIX_NOT_PORTED)
         try:
             if it.scheme == SCHEME_P256:
                 # the same wire checks as the CUDA provider's packer, so
@@ -90,6 +85,9 @@ class SoftwareProvider(prov.Provider):
             if it.scheme == SCHEME_ED25519:
                 return crypto.ed25519_verify(
                     it.pubkey, it.signature, it.payload)
+            if it.scheme == SCHEME_IDEMIX:
+                from ..idemix.msp import verify_item_host
+                return verify_item_host(it)
             return False
         except (crypto.InvalidSignature, ValueError, TypeError):
             return False

@@ -48,6 +48,9 @@ SIGNATURES = {
         "ed25519_verify_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _P],
     },
+    "bn254_pairing": {
+        "bn254_pairing_launch": [*[_P] * 8, _I, _I, _I, _I, _P],
+    },
     "block_validate": {
         "block_validate_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
         "block_validate_smem_slots": [],

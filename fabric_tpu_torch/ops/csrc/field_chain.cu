@@ -1,5 +1,5 @@
 // KP1: a chain of k Montgomery multiplications per lane, mod P-256's p
-// or n, or mod p25519.
+// or n, mod p25519 or mod BN254's p.
 //
 // Replaces: the Pallas field-multiply microbenchmark of the JAX package,
 // experiments/proto_pallas.py:run (a CIOS chain on (22, B) 12-bit int32
@@ -15,7 +15,8 @@
 // thread per lane.
 //
 // Bound on the H100: the least work of a Montgomery multiply, 128 32-bit
-// multiply-adds mod p, 264 mod n, 146 mod p25519 (see p256_field.cuh),
+// multiply-adds mod p, 264 mod n and BN254's p, 146 mod p25519 (see
+// p256_field.cuh),
 // against 64 per SM per clock; 96 bytes of traffic per lane, so the
 // kernel is bound by operations for any k >= 1.  The chain is
 // serial in each lane; the card hides its latency only with enough lanes
@@ -56,6 +57,8 @@ __global__ void __launch_bounds__(128)
     chain<MOD_N>(t, bb, k);
   else if (mod == MOD_25519)
     chain<MOD_25519>(t, bb, k);
+  else if (mod == MOD_BN254)
+    chain<MOD_BN254>(t, bb, k);
   else
     chain<MOD_P>(t, bb, k);
 #pragma unroll

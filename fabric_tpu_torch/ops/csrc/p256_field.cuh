@@ -1,6 +1,6 @@
 // Field layer for Hopper (sm_90a): 256-bit Montgomery arithmetic mod
-// P-256's p and n and mod p25519 = 2^255 - 19 (Ed25519), one value per
-// thread.
+// P-256's p and n, mod p25519 = 2^255 - 19 (Ed25519) and mod BN254's p
+// (idemix, ~2^253.2), one value per thread.
 //
 // Replaces: fabric_tpu/ops/flatfield.py:FlatMod (mul, sqr, mod_add,
 // mod_sub, canon, is_zero_k, eq_k, inv/pow_const, lt_const) and the limb
@@ -20,25 +20,27 @@
 // multiply-adds) and a square 36 (72), and the reduction none, since
 // p's limbs are 0, 1 and 2^32 - 1; mod n the reduction adds 64 products
 // and 8 low ones (264 for a multiply, 208 for a square); mod p25519 the
-// least reduction is the fold 2^256 = 38, 9 products (146 and 90).
+// least reduction is the fold 2^256 = 38, 9 products (146 and 90); mod
+// BN254's p, a generic prime, as mod n.
 // Loads and stores are a few bytes per value, so memory is not the limit.
 //
-// Design: mont_mul is one generic CIOS for both moduli, a real
+// Design: mont_mul is one generic CIOS for every modulus, a real
 // (non-inlined) call on operands in local memory.  That keeps the code
 // small and the build to seconds; the operand traffic is L1-resident.
 // Mod p it issues 2 to 3.5 times the least work: the q*p products, and
 // the full product for a square.  Inlining, PTX carry chains
 // (mad.lo.cc / madc.hi), a dedicated square, a Solinas reduction for p
 // and the x38 fold for p25519 are later work.  Mod p25519 (m < 2^255)
-// every value stays fully reduced all the same; only canon, which takes
-// any 256-bit value, may subtract m twice.
+// and BN254's p (m < 2^254) every value stays fully reduced all the
+// same; only canon, which takes any 256-bit value, subtracts m up to
+// twice (p25519) or six times (BN254: 2^256 - 1 < 7m).
 
 #pragma once
 #include <stdint.h>
 
 namespace p256 {
 
-enum { MOD_P = 0, MOD_N = 1, MOD_25519 = 2 };
+enum { MOD_P = 0, MOD_N = 1, MOD_25519 = 2, MOD_BN254 = 3 };
 
 // little-endian 32-bit limbs
 static __constant__ uint32_t C_P[8] = {
@@ -50,6 +52,9 @@ static __constant__ uint32_t C_N[8] = {
 static __constant__ uint32_t C_F25519[8] = {
     0xFFFFFFEDu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
     0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu};
+static __constant__ uint32_t C_BN254[8] = {
+    0x00000013u, 0xA7000000u, 0x00000013u, 0x61210000u,
+    0x00000008u, 0xBA344D80u, 0x40000001u, 0x25236482u};
 // R^2 mod m: to_mont(a) = mont_mul(a, R2)
 static __constant__ uint32_t C_P_R2[8] = {
     0x00000003u, 0x00000000u, 0xFFFFFFFFu, 0xFFFFFFFBu,
@@ -60,6 +65,9 @@ static __constant__ uint32_t C_N_R2[8] = {
 static __constant__ uint32_t C_F25519_R2[8] = {
     0x000005A4u, 0x00000000u, 0x00000000u, 0x00000000u,
     0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
+static __constant__ uint32_t C_BN254_R2[8] = {
+    0x5370473Du, 0xB3E88674u, 0x8C1CC3F1u, 0x55EFBF6Eu,
+    0x7F86954Fu, 0x281E3A1Bu, 0xF6403A3Du, 0x1B0A32FDu};
 // R mod p: Montgomery one
 static __constant__ uint32_t C_P_ONE[8] = {
     0x00000001u, 0x00000000u, 0x00000000u, 0xFFFFFFFFu,
@@ -67,6 +75,9 @@ static __constant__ uint32_t C_P_ONE[8] = {
 static __constant__ uint32_t C_F25519_ONE[8] = {
     0x00000026u, 0x00000000u, 0x00000000u, 0x00000000u,
     0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
+static __constant__ uint32_t C_BN254_ONE[8] = {
+    0xFFFFFF8Eu, 0x15FFFFFFu, 0xFFFFFF8Au, 0xB939FFFFu,
+    0xFFFFFFCDu, 0xA2C62EFFu, 0x7FFFFFF5u, 0x212BA4F2u};
 // curve coefficients a = p - 3 and b, Montgomery form mod p
 static __constant__ uint32_t C_A_MONT[8] = {
     0xFFFFFFFCu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x00000003u,
@@ -83,15 +94,22 @@ static __constant__ uint32_t C_HALF_N_PLUS_1[8] = {
 #define P256_P_MINV 0x00000001u
 #define P256_N_MINV 0xEE00BC4Fu
 #define F25519_MINV 0x286BCA1Bu
+#define BN254_MINV 0xD79435E5u
 
 template <int M>
 __device__ __forceinline__ uint32_t mword(int j) {
-  return M == MOD_P ? C_P[j] : M == MOD_N ? C_N[j] : C_F25519[j];
+  return M == MOD_P ? C_P[j]
+         : M == MOD_N ? C_N[j]
+         : M == MOD_25519 ? C_F25519[j]
+                          : C_BN254[j];
 }
 
 template <int M>
 __device__ __forceinline__ uint32_t minv() {
-  return M == MOD_P ? P256_P_MINV : M == MOD_N ? P256_N_MINV : F25519_MINV;
+  return M == MOD_P ? P256_P_MINV
+         : M == MOD_N ? P256_N_MINV
+         : M == MOD_25519 ? F25519_MINV
+                          : BN254_MINV;
 }
 
 // ---------------------------------------------------------------------------
@@ -161,11 +179,16 @@ __device__ __forceinline__ void reduce_once(uint32_t r[8], const uint32_t t[8],
   for (int j = 0; j < 8; ++j) r[j] = use_d ? d[j] : t[j];
 }
 
-// any 256-bit value (< 2m for P-256's p and n; < 3m for p25519) -> [0, m)
+// any 256-bit value (< 2m for P-256's p and n; < 3m for p25519; < 7m
+// for BN254's p) -> [0, m)
 template <int M>
 __device__ __forceinline__ void fe_canon(uint32_t r[8], const uint32_t a[8]) {
   reduce_once<M>(r, a, 0u);
   if (M == MOD_25519) reduce_once<M>(r, r, 0u);
+  if (M == MOD_BN254) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) reduce_once<M>(r, r, 0u);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -250,20 +273,24 @@ __device__ __forceinline__ void mod_sub(uint32_t r[8], const uint32_t a[8],
 template <int M>
 __device__ __forceinline__ void to_mont(uint32_t* r, const uint32_t* a) {
   uint32_t r2[8];
-  fe_copy(r2, M == MOD_P ? C_P_R2 : M == MOD_N ? C_N_R2 : C_F25519_R2);
+  fe_copy(r2, M == MOD_P       ? C_P_R2
+              : M == MOD_N     ? C_N_R2
+              : M == MOD_25519 ? C_F25519_R2
+                               : C_BN254_R2);
   mont_mul<M>(r, a, r2);
 }
 
 // r = a^(m-2) for Montgomery a (Fermat inverse; inv(0) = 0):
 // left-to-right binary square-and-multiply over the bits below the top
-// bit of m - 2, bit 255 for P-256's p and n and 254 for p25519 (m's low
-// limb is >= 2, so m - 2 borrows nothing)
+// bit of m - 2, bit 255 for P-256's p and n, 254 for p25519 and 253 for
+// BN254's p (m's low limb is >= 2, so m - 2 borrows nothing)
 template <int M>
 __device__ __noinline__ void mont_inv(uint32_t* r, const uint32_t* a) {
   uint32_t acc[8];
   fe_copy(acc, a);
 #pragma unroll 1
-  for (int i = M == MOD_25519 ? 253 : 254; i >= 0; --i) {
+  for (int i = M == MOD_25519 ? 253 : M == MOD_BN254 ? 252 : 254; i >= 0;
+       --i) {
     mont_sqr<M>(acc, acc);
     const uint32_t w = mword<M>(i >> 5) - (i < 32 ? 2u : 0u);
     if ((w >> (i & 31)) & 1u) mont_mul<M>(acc, acc, a);

@@ -1,5 +1,5 @@
-"""K1: 256-bit Montgomery arithmetic mod P-256's p and n and mod
-p25519 = 2^255 - 19 (Ed25519), in PyTorch.
+"""K1: 256-bit Montgomery arithmetic mod P-256's p and n, mod
+p25519 = 2^255 - 19 (Ed25519) and mod BN254's p (idemix), in PyTorch.
 
 Counterpart of `fabric_tpu/ops/flatfield.py` (`FlatMod`) and the limb
 codecs of `fabric_tpu/ops/bignum.py`.  The reference works on (22, B)
@@ -9,7 +9,7 @@ The port changes the representation and keeps the values:
 
 * The CUDA kernels (`csrc/p256_field.cuh`) hold 8 x 32-bit limbs per
   value with R = 2^256 and 64-bit products, one CIOS multiply for all
-  three moduli.
+  four moduli.
 * The plain PyTorch version here holds (16, B) int64 tensors of 16-bit
   little-endian limbs, also with R = 2^256, so a 16 x 16-bit product plus
   its carries stays exact in int64.  It runs the same CIOS Montgomery
@@ -45,6 +45,9 @@ R_BITS = 256
 P = 0xFFFFFFFF00000001000000000000000000000000FFFFFFFFFFFFFFFFFFFFFFFF
 N = 0xFFFFFFFF00000000FFFFFFFFFFFFFFFFBCE6FAADA7179E84F3B9CAC2FC632551
 P25519 = 2**255 - 19
+# BN254's p (AMCL's BN254, x = -(2^62 + 2^55 + 1)): 36x^4 + 36x^3 + 24x^2
+# + 6x + 1, as fabric_tpu_torch/idemix/bn254.py derives it
+BN254 = 0x2523648240000001BA344D80000000086121000000000013A700000000000013
 
 
 # ---------------------------------------------------------------------------
@@ -158,10 +161,10 @@ class Mod:
     def __init__(self, modulus: int, name: str = ""):
         if modulus % 2 == 0 or modulus >> R_BITS:
             raise ValueError("modulus must be odd and < 2^256")
-        if 3 * modulus <= (1 << R_BITS):
-            # canon() subtracts m at most twice
-            raise ValueError("modulus must exceed 2^256 / 3")
         self.m = modulus
+        # subtractions canon() needs for any 256-bit value: 1 for P-256's
+        # p and n, 2 for p25519, 6 for BN254's p (~2^253.2)
+        self.canon_subs = ((1 << R_BITS) - 1) // modulus
         self.name = name
         self.R = 1 << R_BITS
         self.n0inv = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
@@ -190,10 +193,11 @@ class Mod:
         return torch.where(d[LIMBS - 1] < 0, t, d)
 
     def canon(self, a: torch.Tensor) -> torch.Tensor:
-        """Any 256-bit value (< 3m) -> [0, m): one subtraction when
-        m > 2^255, two for p25519, where 2^256 - 1 = 2m + 37."""
-        t = self._reduce_once(a.clone())
-        if 2 * self.m < self.R:
+        """Any 256-bit value -> [0, m): `canon_subs` conditional
+        subtractions, one when m > 2^255, two for p25519 (2^256 - 1 =
+        2m + 37), six for BN254's p."""
+        t = a.clone()
+        for _ in range(self.canon_subs):
             t = self._reduce_once(t)
         return t
 
@@ -202,7 +206,7 @@ class Mod:
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """a * b * R^-1 mod m.  a may be any value < 2^256, b must be < m
         (then a*b < m*R and the CIOS result is < 2m before the final
-        subtraction)."""
+        subtraction).  Both broadcast over their batch dimensions."""
         shape = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
         b = b.expand((LIMBS,) + shape)
         t = torch.zeros((2 * LIMBS,) + shape, dtype=torch.int64,
@@ -265,9 +269,10 @@ class Mod:
 fp = Mod(P, "p256.p")
 fn = Mod(N, "p256.n")
 f25519 = Mod(P25519, "ed25519.p")
-MODS = {"p": fp, "n": fn, "p25519": f25519}
+fbn = Mod(BN254, "bn254.p")
+MODS = {"p": fp, "n": fn, "p25519": f25519, "bn254": fbn}
 # the modulus index the CUDA field layer takes (p256_field.cuh MOD_*)
-MOD_INDEX = {"p": 0, "n": 1, "p25519": 2}
+MOD_INDEX = {"p": 0, "n": 1, "p25519": 2, "bn254": 3}
 
 
 # ---------------------------------------------------------------------------
@@ -353,9 +358,12 @@ field_mul_chain.launches = 0
 # products q = t_0 * (-n^-1 mod 2^32).  Mod p25519 = 2^255 - 19 the least
 # reduction is not Montgomery's but the fold 2^256 = 38: the product's 8
 # high limbs times 38 (8 products) and the fold of the last carry (1).
+# Mod BN254's p, a generic prime, the reduction costs what it costs mod n.
 # This is the least work, not what the kernels issue: their CIOS multiply
 # runs the generic reduction for every modulus and does not special-case
 # squares.
 IMADS = {("p", "mul"): 2 * 64, ("p", "sqr"): 2 * 36,
          ("n", "mul"): 2 * (64 + 64) + 8, ("n", "sqr"): 2 * (36 + 64) + 8,
-         ("p25519", "mul"): 2 * (64 + 9), ("p25519", "sqr"): 2 * (36 + 9)}
+         ("p25519", "mul"): 2 * (64 + 9), ("p25519", "sqr"): 2 * (36 + 9),
+         ("bn254", "mul"): 2 * (64 + 64) + 8,
+         ("bn254", "sqr"): 2 * (36 + 64) + 8}

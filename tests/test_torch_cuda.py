@@ -17,6 +17,8 @@ from fabric_tpu_torch.bccsp import (FactoryOpts, SCHEME_ED25519,
                                     SCHEME_P256, VerifyItem, init_factories)
 from fabric_tpu_torch.bccsp.cuda import CudaProvider
 from fabric_tpu_torch.bccsp.sw import SoftwareProvider
+from fabric_tpu_torch.idemix import bn254 as HB
+from fabric_tpu_torch.ops import bn254 as KB
 from fabric_tpu_torch.ops import field as F
 from fabric_tpu_torch.ops import ed25519 as E
 from fabric_tpu_torch.ops import ed25519_tables as T
@@ -38,7 +40,7 @@ def edge_values(m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("modulus", ["p", "n", "p25519"])
+@pytest.mark.parametrize("modulus", ["p", "n", "p25519", "bn254"])
 def test_field_mul_chain_kernel_matches_plain_and_ints(modulus, cuda_device):
     rng = random.Random(9)
     m = F.MODS[modulus].m
@@ -588,3 +590,128 @@ def test_kv7_launch_error_propagates(cuda_device, dev_orgs, monkeypatch):
     assert kv7.block_validate_kernel.launches == before
     assert dv.stats["validator_device_demotions_total"]["error"] == 0
     assert committer.ledger.height == 0
+
+
+# ---------------------------------------------------------------------------
+# KB8: the BN254 pairing check of the idemix lane
+# ---------------------------------------------------------------------------
+
+def pairing_load(n, seed):
+    """n checks e(P1, w_j) * e(P2, g2) == 1 under two issuers (slots 1
+    and 2, w_j = x_j g2), with A'_i chained by additions of G1 and
+    P2 = -x_j A'_i; every 11th from the 3rd has Abar made with x_j + 1,
+    from the 7th names the other issuer's slot, from the 9th swaps P1
+    and P2; check 5 carries x1 + p where that fits in 256 bits.  ->
+    (flags, lines, slot, [x1, y1, x2, y2] ints, labels)."""
+    rng = random.Random(seed)
+    xs = [rng.randrange(2, HB.R) for _ in range(2)]
+    flags, lines = KB.stack_lines(
+        [KB.pack_steps(HB.ate_precompute(q)) for q in
+         [HB.G2_GEN] + [HB.g2_mul(x, HB.G2_GEN) for x in xs]])
+    a = HB.g1_mul(rng.randrange(1, HB.R), HB.G1_GEN)
+    steps = [HB.g1_mul(x, HB.G1_GEN) for x in xs]
+    abar = [HB.g1_mul(x, a) for x in xs]
+    slot, cols, labels = [], [[], [], [], []], []
+    for i in range(n):
+        j = i % 2
+        p1, p2, s, ok = a, HB.g1_neg(abar[j]), j + 1, True
+        if i % 11 == 3:
+            p2, ok = HB.g1_neg(HB.g1_add(abar[j], a)), False
+        elif i % 11 == 7:
+            s, ok = 2 - j, False
+        elif i % 11 == 9:
+            p1, p2, ok = p2, p1, False
+        x1 = p1[0] + HB.P if i == 5 and p1[0] + HB.P < R else p1[0]
+        for c, v in zip(cols, (x1, p1[1], p2[0], p2[1])):
+            c.append(v)
+        slot.append(s)
+        labels.append(ok)
+        a = HB.g1_add(a, HB.G1_GEN)
+        abar = [HB.g1_add(b, st) for b, st in zip(abar, steps)]
+    return flags, lines, np.asarray(slot, np.int32), cols, labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 1024])
+def test_bn254_pairing_kernel_matches_plain(n, cuda_device):
+    """KB8 against its plain version and the labels, two issuer slots,
+    corrupted lanes and a coordinate in [p, 2^256)."""
+    flags, lines, slot, cols, labels = pairing_load(n, 50 + n)
+    fl = torch.from_numpy(flags).to(cuda_device)
+    ln = torch.from_numpy(lines).to(cuda_device)
+    sl = torch.from_numpy(slot)
+    words = [torch.from_numpy(KB.ints_to_words(c)).to(cuda_device)
+             for c in cols]
+    before = KB.bn254_pairing_check.launches
+    got = KB.bn254_pairing_check(fl, ln, sl, *words)
+    torch.cuda.synchronize()
+    assert KB.bn254_pairing_check.launches == before + 1
+    assert got.cpu().tolist() == labels
+    assert torch.equal(got, KB.pairing_check_batch(fl, ln, sl, *words))
+
+
+def idemix_items():
+    """Two issuers' presentations (valid), a forged credential that
+    passes every host check, a presentation over another payload, a
+    cross-issuer swap and garbage -> (items, labels)."""
+    import tempfile
+    from fabric_tpu_torch.idemix import gen
+    from fabric_tpu_torch.idemix.msp import IdemixSigningIdentity
+    signers = []
+    for org, user in (("IdemixOrg", "alice"), ("OtherOrg", "carol")):
+        d = tempfile.mkdtemp()
+        gen.generate(d, org, [f"{user}:eng:member"])
+        signers.append(gen.load_signer(f"{d}/{user}.signer",
+                                       f"{d}/msp_config.bin"))
+    alice, carol = signers
+    items = [s.verify_item(b"m%d" % i, s.sign(b"m%d" % i))
+             for i, s in enumerate(signers)]
+    c = alice._cred
+    forged = IdemixSigningIdentity(
+        "IdemixOrg", alice._config,
+        type(c)(HB.g1_mul(12345, HB.G1_GEN), c.e, c.s, list(c.attrs)),
+        alice.ou, alice.role, handle_sig=alice._handle_sig)
+    items += [forged.verify_item(b"f", forged.sign(b"f")),
+              alice.verify_item(b"other", alice.sign(b"x")),
+              VerifyItem(items[1].scheme, items[1].pubkey,
+                         items[0].signature, items[1].payload),
+              VerifyItem(items[0].scheme, items[0].pubkey, b"\x01\x02",
+                         items[0].payload)]
+    return items, [True, True, False, False, False, False]
+
+
+@pytest.mark.cuda
+def test_cuda_provider_idemix_matches_sw(cuda_device):
+    items, labels = idemix_items()
+    prov = CudaProvider()
+    before = KB.bn254_pairing_check.launches
+    got = prov.batch_verify(items)
+    assert KB.bn254_pairing_check.launches == before + 1
+    assert got.tolist() == labels
+    assert SoftwareProvider().batch_verify(items).tolist() == labels
+    # the two valid presentations and the forged credential reach the
+    # card; the other payload, the swap (its non-revocation proof is
+    # bound to the other issuer's epoch key) and garbage stop at the host
+    # checks
+    from fabric_tpu_torch.idemix.msp import collect_item_parts
+    reach = [True] * 3 + [False] * 3
+    assert [collect_item_parts(it)[0] for it in items] == reach
+    assert prov.stats["device_sigs"] == reach.count(True)
+    assert prov.stats["fallbacks"] == 0
+    fn, green, red = prov.idemix_pair_probe(128)
+    assert fn(*green).all() and not fn(*red).any()
+
+
+@pytest.mark.cuda
+def test_idemix_launch_error_propagates(cuda_device, monkeypatch):
+    """A KB8 launch the card refuses (here: more threads per block than
+    a block may have) raises out of batch_verify; nothing falls back to
+    the host verifier or the plain version."""
+    items, _ = idemix_items()
+    prov = CudaProvider()
+    monkeypatch.setattr(KB, "THREADS", 2048)
+    before = KB.bn254_pairing_check.launches
+    with pytest.raises(RuntimeError, match="bn254_pairing launch failed"):
+        prov.batch_verify(items[:2])
+    assert KB.bn254_pairing_check.launches == before
+    assert prov.stats["fallbacks"] == 0

@@ -1,6 +1,7 @@
 """The port's field layer (fabric_tpu_torch.ops.field) against Python ints
 and against the reference's FlatMod, on the adversarial values of
-tests/test_ecp256.py, mod P-256's p and n and mod p25519, plus the KP1
+tests/test_ecp256.py, mod P-256's p and n, mod p25519 and mod BN254's p,
+plus the KP1
 plain version, the limb codecs and the constants the CUDA header
 hard-codes."""
 import random
@@ -14,6 +15,7 @@ import torch
 import jax  # noqa: F401  (JAX on the CPU, as tests/conftest.py sets it)
 
 from fabric_tpu.ops import bignum as bn
+from fabric_tpu.ops import bn254_batch as bb
 from fabric_tpu.ops import ecp256 as ec
 from fabric_tpu.ops import edwards as ed
 from fabric_tpu.ops import flatfield as ff
@@ -21,7 +23,8 @@ from fabric_tpu_torch.ops import field as F
 
 R = 1 << 256
 MODS = [("p", F.P, F.fp, ec.fp), ("n", F.N, F.fn, ec.fn),
-        ("p25519", F.P25519, F.f25519, ed.fp)]
+        ("p25519", F.P25519, F.f25519, ed.fp),
+        ("bn254", F.BN254, F.fbn, bb.fpb)]
 IDS = [m[0] for m in MODS]
 
 
@@ -177,15 +180,20 @@ def test_cuda_header_constants():
     arrays, defines = _cuh_constants()
     P, N = F.P, F.N
     Q = F.P25519
+    B = F.BN254
     assert arrays == {
-        "C_P": P, "C_N": N, "C_F25519": Q,
+        "C_P": P, "C_N": N, "C_F25519": Q, "C_BN254": B,
         "C_P_R2": R * R % P, "C_N_R2": R * R % N, "C_F25519_R2": R * R % Q,
-        "C_P_ONE": R % P, "C_F25519_ONE": R % Q,
+        "C_BN254_R2": R * R % B,
+        "C_P_ONE": R % P, "C_F25519_ONE": R % Q, "C_BN254_ONE": R % B,
         "C_A_MONT": (P - 3) * R % P,
         "C_B_MONT": ec.B * R % P,
         "C_HALF_N_PLUS_1": (N - 1) // 2 + 1,
     }
     assert defines == {"P256_P_MINV": F.fp.n0inv32,
                        "P256_N_MINV": F.fn.n0inv32,
-                       "F25519_MINV": F.f25519.n0inv32}
-    assert F.MOD_INDEX == {"p": 0, "n": 1, "p25519": 2}
+                       "F25519_MINV": F.f25519.n0inv32,
+                       "BN254_MINV": F.fbn.n0inv32}
+    assert F.MOD_INDEX == {"p": 0, "n": 1, "p25519": 2, "bn254": 3}
+    from fabric_tpu.idemix import bn254 as hb
+    assert B == hb.P
