@@ -7,12 +7,24 @@ ends with one JSON line.  Phases:
 
 1. device  — the card's name and power limit; aborts without CUDA
 2. build   — nvcc builds every kernel from fabric_tpu_torch/ops/csrc/
-             (KP1-KP3, KE5, KE6, KV7, KB8, one nvcc each, all at once), cc
+             (KP1-KP3, KE5, KE6, KV7, KB8, KF2, KI3, one nvcc each, all at
+             once), cc
              the C DER parser and the three CPython extensions (ftlv,
              fastparse, fastcollect) from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
              ints, mod p, mod n, mod p25519 and mod BN254's p, edge values
              included
+3b. experiments — the counterparts of the Pallas microbenchmarks in
+             experiments/ (fabric_tpu_torch.experiments, each module's
+             run()): KP1 at the reference's R = 2^264 (proto_pallas.py) and
+             KF2's presets relaxed, stacked (proto_pallas2.py), min
+             (proto_pallas4.py), planes (proto_planes.py) and ilp
+             (proto_ilp.py) on the scripts' data and grids, KI3's eight
+             probes (proto_pallas3.py); at the reference's B = 16,384 and
+             at a card-filling B = SMs x 2,048, each held against its plain
+             version (the first 16,384 lanes) and Python ints (64 lanes),
+             timed, with SM-cycles per multiply, SASS instructions per
+             multiply (cuobjdump) and one warp's clock64 cycles per multiply
 4. block   — 10,000 txs x (3 endorsements from 3 org keys + 1 creator
              signature from 64 clients) = 40,000 P-256 items, 2% of them
              corrupted (7 kinds), plus 64 Ed25519 items under one-off
@@ -81,8 +93,9 @@ the block launches KP3, KP2 (the off-curve keys of the corrupted items)
 and KE5, config 2 only KE6, config 3 KP3, KP2 and KE6, the generic load
 KE5, the commit stream KP3 and KV7 (KP2 for clients below the fast-lane
 threshold at small sizes), the idemix runs KB8 (and KV7 and the Org1
-endorsements' P-256 lane in the block).  KP1 is the field layer's benchmark kernel
-and is not on a main path: its count there is 0.
+endorsements' P-256 lane in the block).  KP1, KF2 and KI3 are
+benchmark kernels, the counterparts of experiments/, and are on no main
+path: their counts there are 0.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -129,6 +142,7 @@ FIELD_LANES = 4096
 CHAIN_K = 256
 SPILL_TXS = 500
 H2D_BYTES = 1 << 28            # the one large copy that gives the link rate
+FILL_THREADS_PER_SM = 2048     # the card-filling size of phase 3b: SMs x this
 # the commit stream: the mix of blocks 1 and 2 (fractions of txs; the
 # rest are plain transfers), its policy, and the validator's window
 COMMIT_MIX = (("hot", 0.01), ("stale", 0.02), ("delete", 0.01),
@@ -1231,6 +1245,92 @@ def msps_ident(msps, creator: bytes):
     return ident
 
 
+# ---------------------------------------------------------------------------
+# the experiments' counterparts (phase 3b)
+# ---------------------------------------------------------------------------
+
+def _fmt(v):
+    return round(v, 4) if isinstance(v, float) else v
+
+
+def experiments_phase(torch, dev, trials: int, sms: int) -> dict:
+    """Each experiments module's run() at the reference's B and at a
+    card-filling B; every check raises inside run().  -> {(module, B):
+    result}."""
+    from fabric_tpu_torch import experiments as X
+    from fabric_tpu_torch.experiments import (proto_ilp, proto_pallas,
+                                              proto_pallas2, proto_pallas3,
+                                              proto_pallas4, proto_planes)
+    out = {}
+    for B in (X.REF_B, sms * FILL_THREADS_PER_SM):
+        for mod in (proto_pallas, proto_pallas2, proto_pallas4, proto_planes,
+                    proto_ilp, proto_pallas3):
+            t0 = time.perf_counter()
+            res = mod.run(device=dev, trials=trials, B=B)
+            name = mod.__name__.rsplit(".", 1)[1]
+            out[name, B] = res
+            for row in res.get("configs", res.get("probes", [])):
+                phase("experiments", script=name, **{
+                    k: _fmt(v) for k, v in row.items() if k != "replaces"})
+            phase("experiments", script=name, B=B,
+                  seconds=round(time.perf_counter() - t0, 2))
+    return out
+
+
+def experiment_rows(results: dict, total: dict, kp1_err: int) -> list:
+    """The kernels line's rows of KP1 (at the reference's shape), KF2's
+    five presets and KI3's two sites, from the B = 16,384 runs: each
+    preset's row is its 128-thread configuration (ilp: K = 4).  run()
+    raised on any difference, so the errors are 0; KP1's is phase 3's
+    largest, over every modulus and both R."""
+    from fabric_tpu_torch import experiments as X
+    from fabric_tpu_torch.ops import field_variants as FV
+
+    def row(name, source, replaces, launches, r, err=0):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "on_main_path": False}
+
+    def config(script, preset, k=None):
+        for r in results[script, X.REF_B]["configs"]:
+            if (r["preset"] == preset and r["threads"] == 128
+                    and (k is None or r["k"] == k)):
+                return r
+        raise KeyError((script, preset, k))
+
+    rows = [row("field_mul_chain", "fabric_tpu_torch/ops/csrc/field_chain.cu",
+                "experiments/proto_pallas.py:94", total["field_mul_chain"],
+                config("proto_pallas", "kp1"), kp1_err)]
+    kf2 = "fabric_tpu_torch/ops/csrc/field_chain_variants.cu"
+    for script, preset, k in (("proto_pallas2", "relaxed", None),
+                              ("proto_pallas2", "stacked", None),
+                              ("proto_pallas4", "min", None),
+                              ("proto_planes", "planes", None),
+                              ("proto_ilp", "ilp", 4)):
+        rows.append(row(f"field_chain_variant:{preset}", kf2,
+                        FV.PRESETS[preset][0], total["field_chain_variant"],
+                        config(script, preset, k)))
+    probes = results["proto_pallas3", X.REF_B]["probes"]
+    for site, group in (("int32", [r for r in probes if r["probe"] != "f32"]),
+                        ("f32", [r for r in probes if r["probe"] == "f32"])):
+        bound = sum(r["bound_ms"] for r in group)
+        by_ops = sum(r["bound_ms"] for r in group
+                     if r["bound_by"] == "operations")
+        rows.append({
+            "name": f"isa_probe:{site}", "route": "cuda",
+            "source": "fabric_tpu_torch/ops/csrc/isa_probe.cu",
+            "replaces": group[0]["replaces"], "launches": total["isa_probe"],
+            "max_abs_err": 0, "ms": sum(r["ms"] for r in group),
+            "plain_ms": sum(r["plain_ms"] for r in group),
+            "bound_ms": bound,
+            "bound_by": "operations" if 2 * by_ops >= bound else "bytes",
+            "library_ms": None, "on_main_path": False,
+            "probes": [r["probe"] for r in group]})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -1259,8 +1359,9 @@ def main(argv=None) -> int:
     from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
     from fabric_tpu_torch.bccsp import cuda as cudaprov
     from fabric_tpu_torch.ops import (_build, bn254, ed25519,
-                                      ed25519_tables, field, p256,
-                                      p256_fixed, p256_tables)
+                                      ed25519_tables, field, field_variants,
+                                      isa_probe, p256, p256_fixed,
+                                      p256_tables)
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1306,22 +1407,28 @@ def main(argv=None) -> int:
             FIELD_LANES - len(edge))]
         a = field.ints_to_words_le(vals_a, dev)
         b = field.ints_to_words_le(vals_b, dev)
-        rinv = pow(R, -1, m)
-        for k in (0, 1, 8):
-            got = field.field_mul_chain(a, b, k, mod)
-            plain = field.mul_chain_plain(a, b, k, mod)
-            torch.cuda.synchronize()
-            got_i = field.words_le_to_ints(got)
-            want = [x * pow(y * rinv, k, m) % m
-                    for x, y in zip(vals_a, vals_b)]
-            check(got_i == want, f"KP1 mod {mod} k={k} != python ints")
-            check(torch.equal(got, plain),
-                  f"KP1 mod {mod} k={k} != mul_chain_plain")
-            field_err = max(field_err, max(
-                abs(g - p) for g, p in zip(got_i,
-                                           field.words_le_to_ints(plain))))
+        for r_log2 in field.R_LOG2S:
+            rinv = pow(1 << r_log2, -1, m)
+            for k in (0, 1, 8):
+                got = field.field_mul_chain(a, b, k, mod, r_log2)
+                plain = field.mul_chain_plain(a, b, k, mod, r_log2)
+                torch.cuda.synchronize()
+                got_i = field.words_le_to_ints(got)
+                want = [x * pow(y * rinv, k, m) % m
+                        for x, y in zip(vals_a, vals_b)]
+                what = f"KP1 mod {mod} k={k} r_log2={r_log2}"
+                check(got_i == want, f"{what} != python ints")
+                check(torch.equal(got, plain), f"{what} != mul_chain_plain")
+                field_err = max(field_err, max(
+                    abs(g - p) for g, p in zip(
+                        got_i, field.words_le_to_ints(plain))))
         phase("field", modulus=mod, lanes=FIELD_LANES, k="0,1,8",
-              vs_ints="equal", vs_plain="equal")
+              r_log2=field.R_LOG2S, vs_ints="equal", vs_plain="equal")
+
+    # --- 3b. experiments ----------------------------------------------------
+    t0 = time.perf_counter()
+    exp_results = experiments_phase(torch, dev, args.trials, sms)
+    phase("experiments", seconds=round(time.perf_counter() - t0, 2))
 
     # --- 4. block ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1363,7 +1470,9 @@ def main(argv=None) -> int:
            "ed25519_verify_rows": ed25519.ed25519_verify_rows,
            "ed25519_verify": ed25519.ed25519_verify,
            "bn254_pairing": bn254.bn254_pairing_check,
-           "field_mul_chain": field.field_mul_chain}
+           "field_mul_chain": field.field_mul_chain,
+           "field_chain_variant": field_variants.field_chain_variant,
+           "isa_probe": isa_probe.isa_probe}
     total = {}
 
     # the main path: the factory builds the provider, then the block goes
@@ -1876,13 +1985,7 @@ def main(argv=None) -> int:
          "ms": ke5_ms, "plain_ms": ke5_plain_ms, "bound_ms": ke5_bound_ms,
          "bound_by": by(ke5_ops_s, ke5_bytes_s),
          "library_ms": None, "on_main_path": True},
-        {"name": "field_mul_chain", "route": "cuda",
-         "source": "fabric_tpu_torch/ops/csrc/field_chain.cu",
-         "replaces": "experiments/proto_pallas.py:94",
-         "launches": total["field_mul_chain"], "max_abs_err": field_err,
-         "ms": kp1_ms, "plain_ms": kp1_plain_ms, "bound_ms": kp1_bound_ms,
-         "bound_by": by(kp1_ops_s, kp1_bytes_s),
-         "library_ms": None, "on_main_path": False},
+        *experiment_rows(exp_results, total, field_err),
     ]
     phase("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,10 @@ KP1 (`field_mul_chain`) is the standalone launch of the device field
 layer that KP2 inlines, and the Hopper counterpart of the Pallas
 field-multiply microbenchmark `experiments/proto_pallas.py:run`.  It is
 a benchmark and a check of the field layer, not part of the provider's
-path.
+path.  With `r_log2=264` it computes that benchmark's own function, a
+chain of `bignum.Mont` multiplies (R = 2^264), on the port's R = 2^256:
+b is scaled once by 2^248 (one multiply, b * 2^248 * 2^-256 = b * 2^-8),
+after which every multiply of the chain equals one with R = 2^264.
 """
 
 from __future__ import annotations
@@ -48,6 +51,11 @@ P25519 = 2**255 - 19
 # BN254's p (AMCL's BN254, x = -(2^62 + 2^55 + 1)): 36x^4 + 36x^3 + 24x^2
 # + 6x + 1, as fabric_tpu_torch/idemix/bn254.py derives it
 BN254 = 0x2523648240000001BA344D80000000086121000000000013A700000000000013
+# the R of the chain functions: the port's own, or the reference's
+# bignum.Mont (22 x 12-bit limbs); R264_SCALE = 2^248 mod m maps one onto
+# the other and is 2^248 itself, since every modulus here exceeds 2^248
+R_LOG2S = (256, 264)
+R264_SCALE = 1 << 248
 
 
 # ---------------------------------------------------------------------------
@@ -280,19 +288,27 @@ MOD_INDEX = {"p": 0, "n": 1, "p25519": 2, "bn254": 3}
 # ---------------------------------------------------------------------------
 
 def mul_chain_plain(a: torch.Tensor, b: torch.Tensor, k: int,
-                    modulus: str = "p") -> torch.Tensor:
+                    modulus: str = "p", r_log2: int = 256) -> torch.Tensor:
     """Plain version of KP1: for each lane, b <- b mod m, then k times
-    t <- t * b * R^-1 mod m starting from t = a.  a, b: (B, 8) uint32
+    t <- t * b * 2^-r_log2 mod m starting from t = a.  a, b: (B, 8) uint32
     little-endian 32-bit limbs (any 256-bit values).  Returns (B, 8)
     uint32, canonical."""
+    _check_r(r_log2)
     f = MODS[modulus]
     t = words_le_to_limbs(a)
     bl = f.canon(words_le_to_limbs(b))
+    if r_log2 == 264:
+        bl = f.mul(bl, f.const(R264_SCALE, bl))
     for _ in range(k):
         t = f.mul(t, bl)
     if k == 0:
         t = f.canon(t)
     return limbs_to_words_le(t)
+
+
+def _check_r(r_log2: int) -> None:
+    if r_log2 not in R_LOG2S:
+        raise ValueError(f"r_log2 must be one of {R_LOG2S}, got {r_log2!r}")
 
 
 def _check_words(name: str, x: torch.Tensor, shape) -> None:
@@ -306,10 +322,11 @@ def _check_words(name: str, x: torch.Tensor, shape) -> None:
 
 
 def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
-                    modulus: str = "p") -> torch.Tensor:
+                    modulus: str = "p", r_log2: int = 256) -> torch.Tensor:
     """KP1 wrapper.  CUDA tensors launch the kernel (one thread per
     lane); CPU tensors take `mul_chain_plain`.  Raises on anything the
     kernel does not take, and when the launch fails."""
+    _check_r(r_log2)
     if modulus not in MODS:
         raise ValueError(f"modulus must be one of {sorted(MODS)}, "
                          f"got {modulus!r}")
@@ -322,7 +339,7 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
     if a.device != b.device:
         raise ValueError("a and b must be on one device")
     if a.device.type == "cpu":
-        return mul_chain_plain(a, b, k, modulus)
+        return mul_chain_plain(a, b, k, modulus, r_log2)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     out = torch.empty_like(a)
@@ -335,7 +352,7 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_int(a.shape[0]),
             ctypes.c_int(k), ctypes.c_int(MOD_INDEX[modulus]),
-            ctypes.c_void_p(stream))
+            ctypes.c_int(r_log2 == 264), ctypes.c_void_p(stream))
     if rc:
         raise RuntimeError(f"field_mul_chain launch failed: CUDA error {rc}")
     field_mul_chain.launches += 1

@@ -13,13 +13,17 @@ import pytest
 import torch
 
 from fabric_tpu_torch import crypto
+from fabric_tpu_torch import experiments as X
 from fabric_tpu_torch.bccsp import (FactoryOpts, SCHEME_ED25519,
                                     SCHEME_P256, VerifyItem, init_factories)
 from fabric_tpu_torch.bccsp.cuda import CudaProvider
 from fabric_tpu_torch.bccsp.sw import SoftwareProvider
 from fabric_tpu_torch.idemix import bn254 as HB
 from fabric_tpu_torch.ops import bn254 as KB
+from fabric_tpu_torch.experiments import proto_ilp, proto_pallas3
 from fabric_tpu_torch.ops import field as F
+from fabric_tpu_torch.ops import field_variants as FV
+from fabric_tpu_torch.ops import isa_probe as IP
 from fabric_tpu_torch.ops import ed25519 as E
 from fabric_tpu_torch.ops import ed25519_tables as T
 from fabric_tpu_torch.ops import p256, p256_fixed, p256_tables
@@ -715,3 +719,133 @@ def test_idemix_launch_error_propagates(cuda_device, monkeypatch):
         prov.batch_verify(items[:2])
     assert KB.bn254_pairing_check.launches == before
     assert prov.stats["fallbacks"] == 0
+
+
+# ---------------------------------------------------------------------------
+# KP1 at the reference's R, KF2 and KI3 (the experiments' counterparts)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_kp1_at_reference_r_matches_ints_and_plain(cuda_device):
+    """KP1 at r_log2=264 on the scripts' data (default_rng(0)) computes
+    experiments/proto_pallas.py's function, a Mont chain with R = 2^264."""
+    B = 4096
+    a, b = X.operands(B, cuda_device)
+    for k in (0, 1, 192):
+        before = F.field_mul_chain.launches
+        got = F.field_mul_chain(a, b, k, "p", r_log2=264)
+        torch.cuda.synchronize()
+        assert F.field_mul_chain.launches == before + 1
+        assert torch.equal(got, F.mul_chain_plain(a, b, k, "p", r_log2=264))
+        assert tuple(F.words_le_to_ints(got[:256])) == X.chain_ints(B, k, 256)
+
+
+PRESET_KS = [(p, k) for p, (_, ks) in FV.PRESETS.items() for k in ks]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,k", PRESET_KS)
+def test_field_chain_variant_kernel_matches_plain(preset, k, cuda_device):
+    """Every KF2 variant against its plain version and Python ints, at
+    every block size it takes, on a ragged batch with edge values; its
+    clock64 build computes the same and reports cycles."""
+    rng = random.Random(17)
+    v = FV.variant_of(preset, k)
+    B = 8 * 257
+    va = edge_values(F.P) + [rng.randrange(R) for _ in range(B - 14)]
+    vb = [rng.randrange(R) for _ in range(B - 14)] + edge_values(F.P)[::-1]
+    a = F.ints_to_words_le(va, cuda_device)
+    b = F.ints_to_words_le(vb, cuda_device)
+    if v.planes:
+        a, b = FV.to_planes(a), FV.to_planes(b)
+    rinv = pow(1 << 264, -1, F.P)
+    for threads in [t for t in FV.THREADS if t <= v.max_threads]:
+        for n in (0, 1, 37):
+            before = FV.field_chain_variant.launches
+            got = FV.field_chain_variant(a, b, n, preset, k, threads)
+            torch.cuda.synchronize()
+            assert FV.field_chain_variant.launches == before + 1
+            assert torch.equal(got, FV.variant_plain(a, b, n, preset, k))
+            lanes = FV.from_planes(got) if v.planes else got
+            assert F.words_le_to_ints(lanes[:300]) == [
+                x * pow(y % F.P * rinv, n, F.P) % F.P
+                for x, y in zip(va[:300], vb[:300])]
+    clk = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    got = FV.field_chain_variant(a, b, 37, preset, k, clock=clk)
+    assert torch.equal(got, FV.variant_plain(a, b, 37, preset, k))
+    cycles, ns = clk.tolist()
+    assert cycles > 0 and ns > 0
+    attrs = FV.kernel_attrs(preset, k)
+    assert attrs["regs"] > 0 and attrs["max_threads"] >= v.max_threads
+
+
+@pytest.mark.cuda
+def test_field_chain_variant_launch_error_propagates(cuda_device,
+                                                     monkeypatch):
+    """A launch the card refuses (more threads a block than the kernel's
+    launch bounds) raises; nothing falls back to the plain version."""
+    a = F.ints_to_words_le(list(range(1, 2049)), cuda_device)
+    wide = tuple(FV.Variant(x.name, x.lazy, x.k, x.planes, x.min, 1024)
+                 for x in FV.VARIANTS)
+    monkeypatch.setattr(FV, "VARIANTS", wide)
+    monkeypatch.setattr(FV, "THREADS", (128, 256, 512, 1024))
+    before = FV.field_chain_variant.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FV.field_chain_variant(a, a, 5, "relaxed", threads=1024)
+    assert FV.field_chain_variant.launches == before
+
+
+def probe_tile(probe, B, device, seed=0):
+    rng = np.random.default_rng(seed)
+    if probe == "f32":
+        x = rng.random((IP.L, B)).astype(np.float32)
+    elif seed == 0:
+        x = rng.integers(0, 4096, (IP.L, B)).astype(np.int32)
+    else:
+        x = rng.integers(-2**31, 2**31, (IP.L, B), dtype=np.int64).astype(
+            np.int32)
+        x[0, :4] = [2**31 - 1, 2**31 - 40, 100, -2**31]
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", IP.PROBES)
+def test_isa_probe_kernel_matches_plain(probe, cuda_device):
+    """Every KI3 probe bit for bit against its plain version, on a ragged
+    batch, at 0, 1 and the script's 4 passes (f32: normal values after
+    one, flushed zeros after four)."""
+    for seed in ((0,) if probe == "f32" else (0, 1)):
+        x = probe_tile(probe, 1000, cuda_device, seed)
+        for iters in (0, 1, IP.ITERS):
+            before = IP.isa_probe.launches
+            got = IP.isa_probe(x, probe, iters)
+            torch.cuda.synchronize()
+            assert IP.isa_probe.launches == before + 1
+            want = IP.probe_plain(x, probe, iters)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert IP.kernel_attrs(probe)["regs"] > 0
+
+
+@pytest.mark.cuda
+def test_isa_probe_launch_error_propagates(cuda_device, monkeypatch):
+    x = probe_tile("mul", 256, cuda_device)
+    monkeypatch.setitem(IP.PROBE_ID, "mul", 99)      # no such kernel
+    before = IP.isa_probe.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        IP.isa_probe(x, "mul")
+    assert IP.isa_probe.launches == before
+
+
+@pytest.mark.cuda
+def test_experiments_on_the_card(cuda_device):
+    """Two counterparts end to end at a small B: every configuration
+    checked, timed, and reported with its clock64 and SASS figures."""
+    res = proto_ilp.run(trials=1, B=2048)
+    assert res["card"]["sms"] > 0
+    for row in res["configs"]:
+        assert row["ms"] > 0 and row["sm_cycles_per_mul"] > 0
+        assert row["clock_cycles_per_mul_alone"] > 0
+        assert row["regs"] > 0
+    res = proto_pallas3.run(trials=1, B=2048)
+    assert all(r["ms"] > 0 and r["lane_ops_per_s"] > 0
+               for r in res["probes"])
