@@ -82,7 +82,10 @@ ends with one JSON line.  Phases:
              hash equal, flags equal to the labels; KB8 against its plain
              version at the block's shape; the creators' items and two
              cross-issuer swaps through batch_verify against SW; the host
-             collect, the enqueue, KB8 and one profiled block timed
+             collect, the enqueue, KB8 and one profiled block timed; KB8's
+             tower probe, each routine (mul, sqr, cyc_sqr, mul_by_lines,
+             pow_u, final_exp) on 4,096 seeded inputs bit for bit against
+             its plain version, timed at 4,096 and at 30 inputs
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -94,8 +97,9 @@ and KE5, config 2 only KE6, config 3 KP3, KP2 and KE6, the generic load
 KE5, the commit stream KP3 and KV7 (KP2 for clients below the fast-lane
 threshold at small sizes), the idemix runs KB8 (and KV7 and the Org1
 endorsements' P-256 lane in the block).  KP1, KF2 and KI3 are
-benchmark kernels, the counterparts of experiments/, and are on no main
-path: their counts there are 0.
+benchmark kernels, the counterparts of experiments/, and KB8's tower
+probe a test of its routines; they are on no main path: their counts
+there are 0.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -1044,7 +1048,7 @@ def kb8_args(torch, dev, checks: dict) -> tuple:
 
 
 def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
-                 imad_rate: float):
+                 imad_rate: float, clock_hz: float):
     """Phase 9: the config-4 probe, KB8 against its plain version and the
     labels on a seeded load, the block of idemix creators through two
     port stacks (the factory's CUDA provider and the SW provider, KV7 on
@@ -1115,6 +1119,16 @@ def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
                 "operations" if ops_s >= bytes_s else "bytes")
 
     bound_ms, bound_by = bound(args9)
+    issued = kb8.fp_ops_issued(load["flags"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def cycles(ms: float, b: int) -> tuple:
+        """(SM-cycles a multiply over every check's multiplies, on the
+        SMs the launch fills; one thread's chain cycles a multiply)."""
+        used = min(sms, -(-b // kb8.THREADS))
+        return (round(ms * 1e-3 * clock_hz * used / (b * issued), 3),
+                round(ms * 1e-3 * clock_hz / issued, 1))
+
     phase("idemix", checks=n, issuers=2, lines=tuple(args9[1].shape),
           corrupted={k: load["kinds"].count(k) for k in PAIR_KINDS},
           build_s=round(load_s, 2), kb8_vs_plain="equal",
@@ -1122,9 +1136,11 @@ def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
     phase("idemix", kb8_ms=round(kb8_ms, 4), kb8_plain_ms=round(plain_ms, 2),
           kb8_bound_ms=round(bound_ms, 4), kb8_bound_by=bound_by,
           fp_mults_per_check=sum(ops.values()),
-          fp_mults_issued=kb8.fp_ops_issued(load["flags"]),
+          fp_mults_issued=issued,
           imads_per_check=kb8.imads_per_check(load["flags"]),
-          us_per_check=round(kb8_ms * 1e3 / n, 3))
+          us_per_check=round(kb8_ms * 1e3 / n, 3),
+          sm_cycles_per_mul=cycles(kb8_ms, n)[0],
+          chain_cycles_per_mul=cycles(kb8_ms, n)[1])
 
     # part 3: the block of idemix creators through two port stacks
     msps = {org1.mspid: CachedMSP(org1.msp()),
@@ -1214,7 +1230,9 @@ def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
           block_kb8_ms=round(block_kb8_ms, 4),
           block_kb8_plain_ms=round(block_plain_ms, 2),
           block_kb8_bound_ms=round(block_bound_ms, 6),
-          block_kb8_bound_by=block_bound_by)
+          block_kb8_bound_by=block_bound_by,
+          block_chain_cycles_per_mul=cycles(block_kb8_ms,
+                                            len(blk_checks["keep"]))[1])
 
     # one profiled block on a fresh CUDA stack
     committer, _ = stack(provider)
@@ -1236,6 +1254,82 @@ def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
             "ms": kb8_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "on_main_path": True}, main
+
+
+def tower_words(dev, n: int, seed: int, cyclotomic: bool = False):
+    """n seeded Fp12 values as the tower probe's (6, 2, 8, n) words; with
+    cyclotomic, each taken through the easy part of the final
+    exponentiation (plain, on the card)."""
+    from fabric_tpu_torch.idemix import bn254 as hb
+    from fabric_tpu_torch.ops import bn254 as kb8
+    rng = random.Random(seed)
+    vals = [tuple((rng.randrange(hb.P), rng.randrange(hb.P))
+                  for _ in range(6)) for _ in range(n)]
+    f = kb8.f12_from_ints(vals, dev)
+    return kb8.f12_to_words(kb8.final_exp_easy(f) if cyclotomic else f)
+
+
+def tower_probe_phase(torch, trials: int, imad_rate: float,
+                      clock_hz: float) -> dict:
+    """Phase 9's tower probe: each of KB8's tower routines on
+    IDEMIX_CHECKS seeded inputs (cyc_sqr and pow_u on cyclotomic ones)
+    bit for bit against its plain version, then timed by CUDA events at
+    IDEMIX_CHECKS and at 30 inputs (the idemix block's batch).  -> the
+    probe's row of the kernels line (its sums over the ops at
+    IDEMIX_CHECKS)."""
+    from fabric_tpu_torch.ops import bn254 as kb8
+    from fabric_tpu_torch.ops.field import IMADS
+    dev = torch.device("cuda")
+    n = IDEMIX_CHECKS
+    per_mul = IMADS[("bn254", "mul")]
+    a_any = tower_words(dev, n, SEED + 20)
+    a_cyc = tower_words(dev, n, SEED + 21, cyclotomic=True)
+    b_any = tower_words(dev, n, SEED + 22)
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by_ops": 0.0}
+    err = 0
+    for op in kb8.PROBE_OPS:
+        a = a_cyc if op in ("cyc_sqr", "pow_u") else a_any
+        b = b_any if op in kb8.BINARY_OPS else None
+        got = kb8.bn254_tower_probe(op, a, b)
+        plain, plain_ms = timed_once(
+            torch, lambda: kb8.tower_probe_plain(op, a, b))
+        check(torch.equal(got, plain),
+              f"tower probe {op} != tower_probe_plain")
+        err = max(err, int((got.to(torch.int64) - plain.to(torch.int64))
+                           .abs().max()))
+        least, issued = kb8.PROBE_FP_OPS[op]
+        out = {}
+        for m in (n, 30):
+            am = a[..., :m].contiguous()
+            bm = None if b is None else b[..., :m].contiguous()
+            ms = event_ms(torch, lambda: kb8.bn254_tower_probe(op, am, bm),
+                          trials)
+            ops_s = (m * least * per_mul + (kb8.imads_per_launch()
+                                            if op == "final_exp" else 0)
+                     ) / imad_rate
+            bytes_s = m * 384 * (3 if b is not None else 2) / HBM_BYTES_PER_S
+            out[m] = (ms, max(ops_s, bytes_s) * 1e3,
+                      "operations" if ops_s >= bytes_s else "bytes")
+        phase("idemix", probe_op=op, vs_plain="equal", inputs=n,
+              fp_mults_least=least, fp_mults_issued=issued,
+              ms=round(out[n][0], 4), ms_30=round(out[30][0], 4),
+              bound_ms=round(out[n][1], 6), bound_by=out[n][2],
+              plain_ms=round(plain_ms, 2),
+              chain_cycles_per_mul=round(out[30][0] * 1e-3 * clock_hz
+                                         / issued, 1))
+        sums["ms"] += out[n][0]
+        sums["plain_ms"] += plain_ms
+        sums["bound_ms"] += out[n][1]
+        sums["by_ops"] += out[n][1] if out[n][2] == "operations" else 0
+    return {"name": "bn254_tower_probe", "route": "cuda",
+            "source": "fabric_tpu_torch/ops/csrc/bn254_pairing.cu",
+            "replaces": "fabric_tpu/ops/bn254_batch.py:93",
+            "launches": 0, "max_abs_err": err, "ms": sums["ms"],
+            "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": "operations" if 2 * sums["by_ops"] >= sums[
+                "bound_ms"] else "bytes",
+            "library_ms": None, "on_main_path": False,
+            "ops": list(kb8.PROBE_OPS)}
 
 
 def msps_ident(msps, creator: bytes):
@@ -1470,6 +1564,7 @@ def main(argv=None) -> int:
            "ed25519_verify_rows": ed25519.ed25519_verify_rows,
            "ed25519_verify": ed25519.ed25519_verify,
            "bn254_pairing": bn254.bn254_pairing_check,
+           "bn254_tower_probe": bn254.bn254_tower_probe,
            "field_mul_chain": field.field_mul_chain,
            "field_chain_variant": field_variants.field_chain_variant,
            "isa_probe": isa_probe.isa_probe}
@@ -1941,10 +2036,13 @@ def main(argv=None) -> int:
           policy=IDEMIX_POLICY)
     kb8_row, idemix_launches = idemix_phase(
         torch, args, provider, orgs[0], id_configs, idemix_raw,
-        idemix_labels, fns, imad_rate)
+        idemix_labels, fns, imad_rate, max_clock_mhz * 1e6)
     for kname, n in idemix_launches.items():
         total[kname] = total.get(kname, 0) + n
     kv7_row["launches"] += idemix_launches["block_validate"]
+    probe_row = tower_probe_phase(torch, args.trials, imad_rate,
+                                  max_clock_mhz * 1e6)
+    probe_row["launches"] = total.get("bn254_tower_probe", 0)
 
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
@@ -1956,6 +2054,7 @@ def main(argv=None) -> int:
           " idemix batch_verify")
     kernels = [
         kb8_row,
+        probe_row,
         kv7_row,
         {"name": "p256_verify_rows", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/p256_verify_rows.cu",

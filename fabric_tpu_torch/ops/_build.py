@@ -59,6 +59,7 @@ SIGNATURES = {
     },
     "bn254_pairing": {
         "bn254_pairing_launch": [*[_P] * 8, _I, _I, _I, _I, _P],
+        "bn254_tower_probe_launch": [_I, _P, _P, _P, _I, _I, _P],
     },
     "block_validate": {
         "block_validate_launch": [_P, *[_I] * 9, _P, _P, _I, _P],

@@ -41,10 +41,13 @@ with R = 2^264 and lazy bounds:
 * slot: (B,) int32, the slot of check i's Q1; Q2 is always slot 0.
 
 `pairing_check_batch` is the plain PyTorch version, on the (16, ...)
-int64 limbs of `field.py` with every value fully reduced; each Fp12
-product runs as one wide call of the field layer (all 36 Fp2 products
-stacked).  `bn254_pairing_check` is the wrapper of the CUDA kernel KB8
-(`csrc/bn254_pairing.cu`); for CPU tensors it runs the plain version.
+int64 limbs of `field.py` with every value fully reduced.  It repeats
+KB8's least-work tower (`f2_sqr`, `f12_mul_karatsuba`,
+`f12_sqr_complex`, `f12_cyc_sqr`, `lines_product`, `f12_mul_by_lines`,
+`f12_frobenius`), each formula's Fp2 products stacked into one wide call
+of the field layer.  `bn254_pairing_check` is the wrapper of the CUDA kernel KB8 (`csrc/bn254_pairing.cu`) and
+`bn254_tower_probe` of its tower probe; for CPU tensors each runs its
+plain version.
 """
 
 from __future__ import annotations
@@ -58,7 +61,8 @@ import torch
 
 from . import _build
 from .field import (BN254 as P, IMADS, LIMBS, LIMB_BITS, MASK, fbn as fp,
-                    int_to_limbs, normalize, words_le_to_limbs)
+                    int_to_limbs, limbs_to_words_le, normalize,
+                    words_le_to_limbs)
 from ..idemix import bn254 as hb
 
 assert P == hb.P
@@ -204,51 +208,185 @@ def f2_inv(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([fp.mul(a0, d), f2_neg(fp.mul(a1, d))], -2)
 
 
-_TERMS: dict = {}
+def f2_sqr(a: torch.Tensor) -> torch.Tensor:
+    """(a0 + a1)(a0 - a1) + 2 a0 a1 i: 2 Fp multiplies, one wide call
+    for every square of a."""
+    a0, a1 = a.select(-2, 0), a.select(-2, 1)
+    t = fp.mul(torch.stack([fp.add(a0, a1), a0], -2),
+               torch.stack([fp.sub(a0, a1), a1], -2))
+    t1 = t.select(-2, 1)
+    return torch.stack([t.select(-2, 0), fp.add(t1, t1)], -2)
 
 
-def _terms(js: tuple, device) -> tuple:
-    """Index tables of a product over b's coefficients js: term (j, k)
-    multiplies a_((k - j) mod 6) by b_j, times xi where j > k (w^6 = xi)."""
-    key = (js, str(device))
-    got = _TERMS.get(key)
-    if got is None:
-        idx = torch.tensor([[(k - j) % 6 for k in range(6)] for j in js],
-                           device=device)
-        wrap = torch.tensor([[j > k for k in range(6)] for j in js],
-                            device=device)
-        got = _TERMS[key] = (idx, wrap[None, :, :, None, None])
-    return got
+def _xi_lazy(x: torch.Tensor) -> torch.Tensor:
+    """x * xi on lazy limbs, no reduction."""
+    x0, x1 = x.select(-2, 0), x.select(-2, 1)
+    return torch.stack([x0 - x1, x0 + x1], -2)
 
 
-def _f12_mul_by(a: torch.Tensor, bj: torch.Tensor, js: tuple) -> torch.Tensor:
-    """a (dense Fp12) times the Fp12 whose nonzero coefficients are
-    bj (16, J, 2, B) at the powers js of w: the 6 J Fp2 products in one
-    wide call, summed per power."""
-    idx, wrap = _terms(js, a.device)
-    bsel = torch.where(wrap, f2_mul_xi(bj)[:, :, None], bj[:, :, None])
-    return _reduce_lazy(_f2_mul_lazy(a[:, idx], bsel).sum(1))
+# -- Fp6 = Fp2[v]/(v^3 - xi), v = w^2: (16, ..., 3, 2, B), v^i on dim -3 ----
+# An Fp12 f is g + h w with g = (c0, c2, c4) and h = (c1, c3, c5) in Fp6.
+
+def _v_lazy(x: torch.Tensor) -> torch.Tensor:
+    """x * v = (xi x2, x0, x1), lazy."""
+    return torch.stack([_xi_lazy(x.select(-3, 2)), x.select(-3, 0),
+                        x.select(-3, 1)], -3)
 
 
-_DENSE = (0, 1, 2, 3, 4, 5)
-_SPARSE = (0, 1, 3)
+def _f6_operands(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """The 6 Fp2 factor pairs of a Karatsuba product over Fp6: (a_i, b_i)
+    and the pair sums (1, 2), (0, 1), (0, 2) -> two (16, ..., 6, 2, B)."""
+    a, b = torch.broadcast_tensors(a, b)
+    i, j = [1, 0, 0], [2, 1, 2]
+    return (torch.cat([a, fp.add(a[..., i, :, :], a[..., j, :, :])], -3),
+            torch.cat([b, fp.add(b[..., i, :, :], b[..., j, :, :])], -3))
 
 
-def f12_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Schoolbook over w^6 = xi: 36 Fp2 products."""
-    return _f12_mul_by(a, b, _DENSE)
+def _f6_combine(t: torch.Tensor) -> torch.Tensor:
+    """The 6 lazy Fp2 products of `_f6_operands` -> the Fp6 product,
+    lazy in (-10p, 10p) (idemix/bn254.py f6_mul)."""
+    t0, t1, t2, t3, t4, t5 = t.unbind(-3)
+    return torch.stack([t0 + _xi_lazy(t3 - t1 - t2),
+                        t4 - t0 - t1 + _xi_lazy(t2),
+                        t5 - t0 - t2 + t1], -3)
 
 
-def f12_sqr(a: torch.Tensor) -> torch.Tensor:
-    return f12_mul(a, a)
+def _f6_01_operands(a: torch.Tensor, b0: torch.Tensor,
+                    b1: torch.Tensor) -> tuple:
+    """The 5 factor pairs of a times b0 + b1 v (b's v^2 coefficient 0):
+    a0 b0, a1 b1, (a1 + a2) b1, (a0 + a1)(b0 + b1), (a0 + a2) b0."""
+    a0, a1, a2 = a.unbind(-3)
+    s = fp.add(torch.stack([a1, a0, a0], -3), torch.stack([a2, a1, a2], -3))
+    x = torch.stack(torch.broadcast_tensors(a0, a1, *s.unbind(-3)), -3)
+    y = torch.stack(torch.broadcast_tensors(b0, b1, b1, fp.add(b0, b1), b0),
+                    -3)
+    return x, y
 
 
-def f12_mul_sparse013(f: torch.Tensor, y: torch.Tensor, l1: torch.Tensor,
-                      l3: torch.Tensor) -> torch.Tensor:
-    """f times the line y (w^0, y in Fp) + l1 (w^1) + l3 (w^3)."""
-    y2 = torch.stack([y, torch.zeros_like(y)], -2)
-    b = torch.stack(torch.broadcast_tensors(y2, l1, l3), 1)
-    return _f12_mul_by(f, b, _SPARSE)
+def _f6_01_combine(t: torch.Tensor) -> torch.Tensor:
+    t0, t1, t2, t3, t4 = t.unbind(-3)
+    return torch.stack([t0 + _xi_lazy(t2 - t1), t3 - t0 - t1,
+                        t4 - t0 + t1], -3)
+
+
+def f6_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Karatsuba over Fp2 (6 products, one wide call)."""
+    return _reduce_lazy(_f6_combine(_f2_mul_lazy(*_f6_operands(a, b))))
+
+
+def f6_inv(a: torch.Tensor) -> torch.Tensor:
+    """(host f6_inv) the cofactors t0 = a0^2 - xi a1 a2, t1 = xi a2^2 -
+    a0 a1, t2 = a1^2 - a0 a2 over the norm a0 t0 + xi (a2 t1 + a1 t2)."""
+    a0, a1, a2 = a.unbind(-3)
+    p = _f2_mul_lazy(torch.stack([a0, a1, a2, a0, a1, a0], -3),
+                     torch.stack([a0, a2, a2, a1, a1, a2], -3))
+    p0, p12, p22, p01, p11, p02 = p.unbind(-3)
+    t = _reduce_lazy(torch.stack([p0 - _xi_lazy(p12), _xi_lazy(p22) - p01,
+                                  p11 - p02], -3))
+    n = _f2_mul_lazy(torch.stack([a0, a2, a1], -3), t)
+    norm = _reduce_lazy(n.select(-3, 0) + _xi_lazy(n.select(-3, 1)
+                                                   + n.select(-3, 2)))
+    return f2_mul(t, f2_inv(norm).unsqueeze(-3))
+
+
+def _gh(a: torch.Tensor) -> torch.Tensor:
+    """Fp12 (16, 6, 2, B) -> (16, 2, 3, 2, B): [0] g, [1] h."""
+    return a.unflatten(1, (3, 2)).transpose(1, 2)
+
+
+def _from_gh(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """g + h w: (16, 3, 2, B) each -> (16, 6, 2, B)."""
+    return torch.stack([g, h], 2).flatten(1, 2)
+
+
+def f12_mul_karatsuba(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Karatsuba over Fp6: g1 g2 + v h1 h2 + ((g1 + h1)(g2 + h2) - g1 g2
+    - h1 h2) w, three Fp6 products (54 Fp multiplies) in one wide call."""
+    x, y = _gh(a), _gh(b)
+    x = torch.cat([x, fp.add(x[:, :1], x[:, 1:])], 1)
+    y = torch.cat([y, fp.add(y[:, :1], y[:, 1:])], 1)
+    gg, hh, ss = _reduce_lazy(_f6_combine(_f2_mul_lazy(
+        *_f6_operands(x, y)))).unbind(1)
+    return _reduce_lazy(_from_gh(gg + _v_lazy(hh), ss - gg - hh))
+
+
+def f12_sqr_complex(a: torch.Tensor) -> torch.Tensor:
+    """Complex squaring: with t = g h, f^2 = (g + h)(g + v h) - t - v t
+    + 2 t w, two Fp6 products (36 Fp multiplies) in one wide call."""
+    g, h = _gh(a).unbind(1)
+    s = _reduce_lazy(torch.stack([g + h, g + _v_lazy(h)], 1))
+    t, pr = _reduce_lazy(_f6_combine(_f2_mul_lazy(*_f6_operands(
+        torch.stack([h, s[:, 0]], 1), torch.stack([g, s[:, 1]], 1))))
+    ).unbind(1)
+    return _reduce_lazy(_from_gh(pr - t - _v_lazy(t), t + t))
+
+
+_CYC_SIGN: dict = {}
+
+
+def f12_cyc_sqr(a: torch.Tensor) -> torch.Tensor:
+    """Granger-Scott square of an element of the cyclotomic subgroup
+    (9 Fp2 squares, 18 Fp multiplies, one wide call).  Over Fp4 =
+    Fp2[s]/(s^2 - xi) with s = w^3, f = a + b w + c w^2 with a = c0 +
+    c3 s, b = c1 + c4 s, c = c2 + c5 s, and f^2 = (3 a^2 - 2 conj a) +
+    (3 s c^2 + 2 conj b) w + (3 b^2 - 2 conj c) w^2, conj the p^6-power
+    (s -> -s).  Wrong outside the subgroup."""
+    x0, x1 = a[:, :3], a[:, 3:]           # (c0, c1, c2), (c3, c4, c5)
+    sq = f2_sqr(torch.cat([x0, x1, fp.add(x0, x1)], 1))
+    s0, s1, s2 = sq[:, :3], sq[:, 3:6], sq[:, 6:]
+    e = s0 + _xi_lazy(s1)                 # the squares of a, b, c at s^0
+    o = s2 - s0 - s1                      # at s^1
+    t = torch.cat([torch.stack([e[:, 0], _xi_lazy(o[:, 2]), e[:, 1]], 1),
+                   torch.stack([o[:, 0], e[:, 2], o[:, 1]], 1)], 1)
+    key = str(a.device)
+    sign = _CYC_SIGN.get(key)
+    if sign is None:                      # -2 at even powers of w, +2 odd
+        sign = _CYC_SIGN[key] = torch.tensor(
+            [-2, 2, -2, 2, -2, 2], device=a.device).reshape(1, 6, 1, 1)
+    return _reduce_lazy(3 * t + sign * a)
+
+
+def lines_product(y1, a1, b1, y2, a2, b2) -> torch.Tensor:
+    """(y1 + a1 w + b1 w^3)(y2 + a2 w + b2 w^3) for y in Fp (16, B), a
+    and b in Fp2 (16, 2, B): y1 y2 + xi b1 b2 + (y1 a2 + y2 a1) w +
+    a1 a2 w^2 + (y1 b2 + y2 b1) w^3 + (a1 b2 + a2 b1) w^4, the last by
+    Karatsuba.  1 + 8 Fp products and 3 Fp2 products (18 Fp multiplies)
+    in one wide call -> Fp12 with c5 = 0."""
+    bs = torch.broadcast_shapes(y1.shape[1:], y2.shape[1:], *(
+        t.shape[2:] for t in (a1, b1, a2, b2)))
+    y1, y2 = (y.unsqueeze(1).expand((LIMBS, 1) + bs) for y in (y1, y2))
+    a1, b1, a2, b2 = (t.expand((LIMBS, 2) + bs) for t in (a1, b1, a2, b2))
+    u = torch.stack([a1, b1, fp.add(a1, b1)], 1)     # (16, 3, 2, ...)
+    v = torch.stack([a2, b2, fp.add(a2, b2)], 1)
+    u0, u1, v0, v1 = u[:, :, 0], u[:, :, 1], v[:, :, 0], v[:, :, 1]
+    y1_2, y2_2 = y1.expand_as(a1), y2.expand_as(a1)
+    t = fp.mul(torch.cat([y1, y1_2, y2_2, y1_2, y2_2, u0, u1,
+                          fp.add(u0, u1)], 1),
+               torch.cat([y2, a2, a1, b2, b1, v0, v1, fp.add(v0, v1)], 1))
+    k0, k1, k2 = t[:, 9:12], t[:, 12:15], t[:, 15:18]
+    pa, pb, ps = torch.stack([k0 - k1, k2 - k0 - k1], 2).unbind(1)
+    c0 = _xi_lazy(pb) + torch.cat([t[:, :1], torch.zeros_like(t[:, :1])], 1)
+    return _reduce_lazy(torch.stack([
+        c0, t[:, 1:3] + t[:, 3:5], pa, t[:, 5:7] + t[:, 7:9], ps - pa - pb,
+        torch.zeros_like(pa)], 1))
+
+
+def f12_mul_by_lines(f: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """f times a product of lines l (c5 = 0): Karatsuba over Fp6 with
+    l's h = (c1, c3, 0) sparse, 6 + 5 + 6 Fp2 products (51 Fp
+    multiplies) in one wide call."""
+    f, l = torch.broadcast_tensors(f, l)
+    fg, fh = _gh(f).unbind(1)
+    lg, lh = _gh(l).unbind(1)
+    xd, yd = _f6_operands(torch.stack([fg, fp.add(fg, fh)], 1),
+                          torch.stack([lg, fp.add(lg, lh)], 1))
+    xs, ys = _f6_01_operands(fh, lh[:, 0], lh[:, 1])
+    t = _f2_mul_lazy(torch.cat([xd.flatten(1, 2), xs], 1),
+                     torch.cat([yd.flatten(1, 2), ys], 1))
+    gg, ss = _reduce_lazy(_f6_combine(t[:, :12].unflatten(1, (2, 6)))
+                          ).unbind(1)
+    hh = _reduce_lazy(_f6_01_combine(t[:, 12:]))
+    return _reduce_lazy(_from_gh(gg + _v_lazy(hh), ss - gg - hh))
 
 
 def f12_one(batch: int, device="cpu") -> torch.Tensor:
@@ -264,69 +402,55 @@ def f12_conj(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gamma_limbs(power: int, device) -> torch.Tensor:
-    vals = [mont(c) for g in hb.GAMMA[power] for c in g]
-    t = torch.tensor([int_to_limbs(v) for v in vals], dtype=torch.int64,
-                     device=device)
-    return t.T.reshape(LIMBS, 6, 2, 1)
+_GAMMA: dict = {}
+
+
+def _gamma(power: int, device) -> tuple:
+    """GAMMA[power][1:] as Montgomery limbs (16, 5, 2, 1), and the
+    powers k >= 1 whose constant lies in Fp (c1 = 0) and those whose
+    does not, cached per device."""
+    key = (power, str(device))
+    got = _GAMMA.get(key)
+    if got is None:
+        vals = [mont(c) for g in hb.GAMMA[power][1:] for c in g]
+        t = torch.tensor([int_to_limbs(v) for v in vals], dtype=torch.int64,
+                         device=device)
+        real = [k for k in range(1, 6) if hb.GAMMA[power][k][1] == 0]
+        cplx = [k for k in range(1, 6) if k not in real]
+        got = _GAMMA[key] = (t.T.reshape(LIMBS, 5, 2, 1), real, cplx)
+    return got
 
 
 def f12_frobenius(a: torch.Tensor, power: int) -> torch.Tensor:
-    """a^(p^power), power 1, 2 or 3: c_k -> conj^power(c_k) * GAMMA[k]."""
+    """a^(p^power), power 1, 2 or 3: c_k -> conj^power(c_k) * GAMMA[k].
+    GAMMA[0] is 1, so c_0 is only conjugated; a constant in Fp (all of
+    p^2's, p and p^3's at k = 4) multiplies as an Fp scalar."""
     c = f2_conj(a) if power % 2 else a
-    return f2_mul(c, _gamma_limbs(power, a.device))
-
-
-def _f6(a, i):
-    return a.select(1, i)
-
-
-def f6_mul(a, b):
-    """Fp6 = Fp2[v]/(v^3 - xi), a and b triples of Fp2 (host f6_mul)."""
-    a0, a1, a2 = a
-    b0, b1, b2 = b
-    t0, t1, t2 = f2_mul(a0, b0), f2_mul(a1, b1), f2_mul(a2, b2)
-    c0 = fp.add(t0, f2_mul_xi(fp.sub(
-        f2_mul(fp.add(a1, a2), fp.add(b1, b2)), fp.add(t1, t2))))
-    c1 = fp.add(fp.sub(f2_mul(fp.add(a0, a1), fp.add(b0, b1)),
-                       fp.add(t0, t1)), f2_mul_xi(t2))
-    c2 = fp.add(fp.sub(f2_mul(fp.add(a0, a2), fp.add(b0, b2)),
-                       fp.add(t0, t2)), t1)
-    return (c0, c1, c2)
-
-
-def f6_inv(a):
-    a0, a1, a2 = a
-    t0 = fp.sub(f2_mul(a0, a0), f2_mul_xi(f2_mul(a1, a2)))
-    t1 = fp.sub(f2_mul_xi(f2_mul(a2, a2)), f2_mul(a0, a1))
-    t2 = fp.sub(f2_mul(a1, a1), f2_mul(a0, a2))
-    norm = fp.add(f2_mul(a0, t0), f2_mul_xi(
-        fp.add(f2_mul(a2, t1), f2_mul(a1, t2))))
-    ninv = f2_inv(norm)
-    return (f2_mul(t0, ninv), f2_mul(t1, ninv), f2_mul(t2, ninv))
+    g, real, cplx = _gamma(power, a.device)
+    out = c.clone()
+    out[:, real] = f2_scale(c[:, real], g[:, [k - 1 for k in real], 0])
+    if cplx:
+        out[:, cplx] = f2_mul(c[:, cplx], g[:, [k - 1 for k in cplx]])
+    return out
 
 
 def f12_inv(a: torch.Tensor) -> torch.Tensor:
     """Tower inversion (host f12_inv): a = g + h w with g, h in Fp6 over
     v = w^2; (g + h w)^-1 = (g - h w) / (g^2 - h^2 v)."""
-    g = (_f6(a, 0), _f6(a, 2), _f6(a, 4))
-    h = (_f6(a, 1), _f6(a, 3), _f6(a, 5))
-    hh = f6_mul(h, h)
-    d = tuple(fp.sub(x, y) for x, y in zip(
-        f6_mul(g, g), (f2_mul_xi(hh[2]), hh[0], hh[1])))
-    dinv = f6_inv(d)
-    gi = f6_mul(g, dinv)
-    hi = f6_mul(h, dinv)
-    return torch.stack([gi[0], f2_neg(hi[0]), gi[1], f2_neg(hi[1]),
-                        gi[2], f2_neg(hi[2])], 1)
+    gh = _gh(a)
+    sq = f6_mul(gh, gh)                    # g^2, h^2
+    d = fp.sub(sq[:, 0], _reduce_lazy(_v_lazy(sq[:, 1])))
+    gi, hi = f6_mul(gh, f6_inv(d).unsqueeze(1)).unbind(1)
+    return _from_gh(gi, f2_neg(hi))
 
 
 def _pow_abs_u(m: torch.Tensor) -> torch.Tensor:
+    """m^|u| by square-and-multiply, the squares cyclotomic."""
     acc = m
     for bit in bin(X_ABS)[3:]:
-        acc = f12_sqr(acc)
+        acc = f12_cyc_sqr(acc)
         if bit == "1":
-            acc = f12_mul(acc, m)
+            acc = f12_mul_karatsuba(acc, m)
     return acc
 
 
@@ -337,33 +461,39 @@ def _pow_u(m: torch.Tensor) -> torch.Tensor:
 
 def final_exp_hard(m: torch.Tensor) -> torch.Tensor:
     """m^((p^4 - p^2 + 1)/r) for m in the cyclotomic subgroup: the
-    Devegili-Scott-Dominguez chain of the host's `final_exp_hard`."""
+    Devegili-Scott-Dominguez chain of the host's `final_exp_hard`, its
+    squares cyclotomic and its products Karatsuba."""
+    mul, sqr = f12_mul_karatsuba, f12_cyc_sqr
     f1 = _pow_u(m)
     f2 = _pow_u(f1)
     f3 = _pow_u(f2)
-    y0 = f12_mul(f12_mul(f12_frobenius(m, 1), f12_frobenius(m, 2)),
-                 f12_frobenius(m, 3))
+    y0 = mul(mul(f12_frobenius(m, 1), f12_frobenius(m, 2)),
+             f12_frobenius(m, 3))
     y1 = f12_conj(m)
     y2 = f12_frobenius(f2, 2)
     y3 = f12_conj(f12_frobenius(f1, 1))
-    y4 = f12_conj(f12_mul(f1, f12_frobenius(f2, 1)))
+    y4 = f12_conj(mul(f1, f12_frobenius(f2, 1)))
     y5 = f12_conj(f2)
-    y6 = f12_conj(f12_mul(f3, f12_frobenius(f3, 1)))
-    t0 = f12_mul(f12_mul(f12_sqr(y6), y4), y5)
-    t1 = f12_mul(f12_mul(y3, y5), t0)
-    t0 = f12_mul(t0, y2)
-    t1 = f12_mul(f12_sqr(t1), t0)
-    t1 = f12_sqr(t1)
-    t0 = f12_sqr(f12_mul(t1, y1))
-    return f12_mul(t0, f12_mul(t1, y0))
+    y6 = f12_conj(mul(f3, f12_frobenius(f3, 1)))
+    t0 = mul(mul(sqr(y6), y4), y5)
+    t1 = mul(mul(y3, y5), t0)
+    t0 = mul(t0, y2)
+    t1 = mul(sqr(t1), t0)
+    t1 = sqr(t1)
+    t0 = sqr(mul(t1, y1))
+    return mul(t0, mul(t1, y0))
+
+
+def final_exp_easy(f: torch.Tensor) -> torch.Tensor:
+    """f^((p^6 - 1)(p^2 + 1)): conj(f) * f^-1, then the p^2 Frobenius
+    times itself; the result lies in the cyclotomic subgroup."""
+    f = f12_mul_karatsuba(f12_conj(f), f12_inv(f))
+    return f12_mul_karatsuba(f12_frobenius(f, 2), f)
 
 
 def final_exp(f: torch.Tensor) -> torch.Tensor:
-    """f^((p^12 - 1)/r): easy part conj(f) * f^-1 and the p^2 + 1
-    Frobenius, then the hard part."""
-    f = f12_mul(f12_conj(f), f12_inv(f))
-    f = f12_mul(f12_frobenius(f, 2), f)
-    return final_exp_hard(f)
+    """f^((p^12 - 1)/r): the easy part, then the hard part."""
+    return final_exp_hard(final_exp_easy(f))
 
 
 def f12_is_one(f: torch.Tensor) -> torch.Tensor:
@@ -395,9 +525,11 @@ def _lane_lines(lines_l: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
         0, 2, 3, 4, 1)
 
 
-def _line_step(f, s, L, xm, ym):
-    A, B = L[:, s, 0], L[:, s, 1]            # (16, 2, B or 1)
-    return f12_mul_sparse013(f, ym, f2_scale(A, xm), B)
+def _line_f12(y, ax, b) -> torch.Tensor:
+    """The line y (w^0, y in Fp) + ax (w^1) + b (w^3) as an Fp12."""
+    z = torch.zeros_like(ax)
+    y2 = torch.stack([y, torch.zeros_like(y)], -2)
+    return torch.stack(torch.broadcast_tensors(y2, ax, z, b, z, z), 1)
 
 
 def miller_loop(flags, L, xm, ym, n_steps: int = None) -> torch.Tensor:
@@ -405,11 +537,12 @@ def miller_loop(flags, L, xm, ym, n_steps: int = None) -> torch.Tensor:
     B or 1) Montgomery line limbs; xm, ym (16, B) Montgomery coordinates;
     n_steps limits the loop (prefix tests)."""
     flags = [int(v) for v in flags][:n_steps]
+    ax = f2_scale(L[:, :, 0], xm[:, None])
     f = f12_one(xm.shape[-1], xm.device)
     for s, flag in enumerate(flags):
         if flag:
-            f = f12_sqr(f)
-        f = _line_step(f, s, L, xm, ym)
+            f = f12_sqr_complex(f)
+        f = f12_mul_by_lines(f, _line_f12(ym, ax[:, s], L[:, s, 1]))
     return f
 
 
@@ -417,14 +550,21 @@ def miller_loop_dual(flags, L1, L2, x1m, y1m, x2m, y2m,
                      n_steps: int = None) -> torch.Tensor:
     """f_{lambda,Q1}(P1) * f_{lambda,Q2}(P2) with shared squarings: the
     two step lists come from one ATE_LAMBDA, so each step squares f once
-    (flag 1) and multiplies both lines in."""
+    (flag 1, complex squaring) and multiplies in the product of its two
+    lines; on the first step f = 1 becomes that product (KB8's loop)."""
     flags = [int(v) for v in flags][:n_steps]
+    ax1 = f2_scale(L1[:, :, 0], x1m[:, None])  # A x of every step at once
+    ax2 = f2_scale(L2[:, :, 0], x2m[:, None])
     f = f12_one(x1m.shape[-1], x1m.device)
     for s, flag in enumerate(flags):
+        lines = lines_product(y1m, ax1[:, s], L1[:, s, 1],
+                              y2m, ax2[:, s], L2[:, s, 1])
+        if s == 0:
+            f = lines
+            continue
         if flag:
-            f = f12_sqr(f)
-        f = _line_step(f, s, L1, x1m, y1m)
-        f = _line_step(f, s, L2, x2m, y2m)
+            f = f12_sqr_complex(f)
+        f = f12_mul_by_lines(f, lines)
     return f
 
 
@@ -543,22 +683,119 @@ bn254_pairing_check.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The tower probe: one of KB8's tower routines per thread
+# ---------------------------------------------------------------------------
+# Inputs and output (6, 2, 8, n) uint32: coefficient k of w, c0 or c1,
+# little-endian word, input; Montgomery form (R = 2^256), fully reduced.
+
+PROBE_OPS = ("mul", "sqr", "cyc_sqr", "mul_by_lines", "pow_u", "final_exp")
+BINARY_OPS = ("mul", "mul_by_lines")
+
+
+def f12_to_words(f: torch.Tensor) -> torch.Tensor:
+    """(16, 6, 2, n) canonical limbs -> (6, 2, 8, n) uint32 words."""
+    n = f.shape[-1]
+    w = limbs_to_words_le(f.reshape(LIMBS, -1))           # (12 n, 8)
+    return w.reshape(6, 2, n, 8).permute(0, 1, 3, 2).contiguous()
+
+
+def words_to_f12(w: torch.Tensor) -> torch.Tensor:
+    """(6, 2, 8, n) uint32 words -> (16, 6, 2, n) limbs."""
+    n = w.shape[-1]
+    flat = words_le_to_limbs(w.permute(0, 1, 3, 2).reshape(-1, 8))
+    return flat.reshape(LIMBS, 6, 2, n)
+
+
+def tower_probe_plain(op: str, a: torch.Tensor,
+                      b: torch.Tensor = None) -> torch.Tensor:
+    """The plain version of the probe: op on (6, 2, 8, n) words."""
+    x = words_to_f12(a)
+    if op == "mul":
+        r = f12_mul_karatsuba(x, words_to_f12(b))
+    elif op == "sqr":
+        r = f12_sqr_complex(x)
+    elif op == "cyc_sqr":
+        r = f12_cyc_sqr(x)
+    elif op == "mul_by_lines":
+        y = words_to_f12(b)
+        r = f12_mul_by_lines(x, lines_product(y[:, 0, 0], y[:, 1], y[:, 3],
+                                              y[:, 0, 1], y[:, 2], y[:, 4]))
+    elif op == "pow_u":
+        r = _pow_u(x)
+    elif op == "final_exp":
+        r = final_exp(x)
+    else:
+        raise ValueError(f"unknown tower op {op!r}; one of {PROBE_OPS}")
+    return f12_to_words(r)
+
+
+def bn254_tower_probe(op: str, a: torch.Tensor,
+                      b: torch.Tensor = None) -> torch.Tensor:
+    """Wrapper of KB8's tower probe (`bn254_tower_probe_launch`, in
+    KB8's library): op (`PROBE_OPS`) on each input, one thread each;
+    `BINARY_OPS` take b of a's shape.  mul_by_lines multiplies a by the
+    product of the lines y1 = b.c0.c0, A x = b.c1, B = b.c3 and y2 =
+    b.c0.c1, A x = b.c2, B = b.c4.  CUDA tensors launch the kernel on
+    the current stream; CPU tensors take `tower_probe_plain`.  Inputs
+    must be fully reduced: the kernel does not check."""
+    if op not in PROBE_OPS:
+        raise ValueError(f"unknown tower op {op!r}; one of {PROBE_OPS}")
+    if a.dim() != 4 or tuple(a.shape[:3]) != (6, 2, 8) \
+            or a.dtype != torch.uint32 or not a.is_contiguous():
+        raise ValueError("a must be a contiguous (6, 2, 8, n) uint32 tensor")
+    if (b is not None) != (op in BINARY_OPS):
+        raise ValueError(f"{op} takes {2 if op in BINARY_OPS else 1} "
+                         "input(s)")
+    if b is not None and (b.shape != a.shape or b.dtype != a.dtype
+                          or not b.is_contiguous() or b.device != a.device):
+        raise ValueError("b must be a contiguous uint32 tensor of a's shape "
+                         "on a's device")
+    dev = a.device
+    if dev.type == "cpu":
+        return tower_probe_plain(op, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty_like(a)
+    n = a.shape[-1]
+    if n == 0:
+        return out
+    lib = _build.load("bn254_pairing")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.bn254_tower_probe_launch(
+            ctypes.c_int(PROBE_OPS.index(op)), ctypes.c_void_p(a.data_ptr()),
+            ctypes.c_void_p((a if b is None else b).data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),
+            ctypes.c_int(THREADS), ctypes.c_void_p(stream))
+    if rc:
+        raise RuntimeError(f"bn254_tower_probe launch failed: CUDA error {rc}")
+    bn254_tower_probe.launches += 1
+    return out
+
+
+bn254_tower_probe.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # Work count for the kernel's bound
 # ---------------------------------------------------------------------------
 
-# Least Fp multiplies of each tower operation (the square of an Fp2
-# coefficient counts as two Fp multiplies; only the Fermat chain's are
-# Fp squares).  This is the least work known, not what KB8 issues
-# (`fp_ops_issued`): KB8 runs every Fp12 square as a schoolbook product.
+# Fp multiplies of each tower operation (the square of an Fp2
+# coefficient counts as two Fp multiplies; only the Fermat chain's are Fp
+# squares).  KB8 issues these, but for two: the least known is
+# Karabina's compressed square in the cyclotomic subgroup (KB8:
+# Granger-Scott's) and a launch-wide batched inversion (KB8: one Fermat
+# chain a thread).
 F2_MUL = 3                      # Karatsuba
 F2_SQR = 2                      # (a + b)(a - b), 2ab
 F6_MUL = 6 * F2_MUL             # Karatsuba over Fp2
 F6_SQR = 2 * F2_MUL + 3 * F2_SQR          # Chung-Hasan SQR2
 F12_MUL = 3 * F6_MUL            # Karatsuba over Fp6: 54
 F12_SQR = 2 * F6_MUL            # complex squaring: 36
-# a square in the cyclotomic subgroup (the hard part): Karabina's
-# compressed squaring; its decompressions are left out, which only
-# lowers the count
+# a square in the cyclotomic subgroup: Granger-Scott's three Fp4 squares
+# of 3 Fp2 squares each (KB8), and Karabina's compressed squaring (the
+# least; its decompressions are left out, which only lowers the count)
+GS_SQR = 9 * F2_SQR
 F12_CYC_SQR = 6 * F2_SQR
 # a Miller step's two lines: A*x for each (2 + 2), their product (the
 # Fp terms 1 + 4 * 2, the Fp2 terms by Karatsuba 3 * 3: 18), then f by a
@@ -566,40 +803,58 @@ F12_CYC_SQR = 6 * F2_SQR
 # (f_0 + f_1)(g + h) dense, f_1 h with h sparse, 6 + 6 + 5 Fp2 products)
 LINES = 2 * 2 + 18
 LINES_INTO_F = LINES + 17 * F2_MUL
-# the Frobenius maps: p and p^3 multiply four coefficients by Fp2
-# constants and one by an Fp constant; p^2's five constants lie in Fp
+# the Frobenius maps: c_0's constant is 1; p and p^3 multiply four
+# coefficients by Fp2 constants and one by an Fp constant; p^2's five
+# constants lie in Fp
 FROBENIUS = {1: 4 * F2_MUL + 2, 2: 5 * 2, 3: 4 * F2_MUL + 2}
-# f12_inv: g^2 and h^2, then f6_inv (its cofactors 3 F2_SQR + 3 F2_MUL,
-# the norm 3 F2_MUL, the Fp2 inverse 2 + 2 around the Fp inverse, the
-# cofactors by it 3 F2_MUL), then g and h by its result
-F6_INV = 3 * F2_SQR + 9 * F2_MUL + 4
-F12_INV = 2 * F6_SQR + F6_INV + 2 * F6_MUL
-# the Fp inverse, batched over a launch by Montgomery's trick: 3
-# multiplies a check and one Fermat chain a launch (`imads_per_launch`)
-INV_BATCH_MULS = 3
+# the Fp inverse: Fermat's chain; batched over a launch by Montgomery's
+# trick it costs 3 multiplies a check and one chain a launch
+# (`imads_per_launch`)
 INV_CHAIN = {("bn254", "mul"): bin(P - 2)[3:].count("1"),
              ("bn254", "sqr"): (P - 2).bit_length() - 1}
+INV_BATCH_MULS = 3
+# f12_inv at least: g^2 and h^2, then f6_inv (its cofactors 3 F2_SQR +
+# 3 F2_MUL, the norm 3 F2_MUL, the Fp2 inverse 2 + 2 around the Fp
+# inverse, the cofactors by it 3 F2_MUL), then g and h by its result
+F6_INV = 3 * F2_SQR + 9 * F2_MUL + 4
+F12_INV = 2 * F6_SQR + F6_INV + 2 * F6_MUL + INV_BATCH_MULS
+# KB8's: four Fp6 products, f6_inv's 12 Fp2 products and 4 around the
+# thread's own Fermat chain
+F12_INV_ISSUED = 4 * F6_MUL + 12 * F2_MUL + 4 + sum(INV_CHAIN.values())
+
+
+def _miller_ops(flags) -> int:
+    """The dual Miller loop: the first step (f = 1) is only its two
+    lines; each later step squares f when flagged and multiplies in both
+    lines."""
+    flags = [int(v) for v in flags]
+    return LINES + sum(flags[1:]) * F12_SQR + \
+        (len(flags) - 1) * LINES_INTO_F
+
+
+def _pow_u_ops(cyc_sqr: int) -> int:
+    return (X_ABS.bit_length() - 1) * cyc_sqr + \
+        (bin(X_ABS).count("1") - 1) * F12_MUL
+
+
+def _final_exp_ops(cyc_sqr: int, inv: int) -> int:
+    """The easy part (an inversion, two products, Frobenius p^2), then
+    the hard part (three |u|-powers, 7 Frobenius maps, 13 products and 4
+    cyclotomic squares)."""
+    easy = inv + 2 * F12_MUL + FROBENIUS[2]
+    hard = 3 * _pow_u_ops(cyc_sqr) + 4 * FROBENIUS[1] + \
+        2 * FROBENIUS[2] + FROBENIUS[3] + 13 * F12_MUL + 4 * cyc_sqr
+    return easy + hard
 
 
 def fp_ops_per_check(flags) -> dict:
     """Fp multiplies one check needs at least, keyed like `field.IMADS`:
-    the coordinates to Montgomery form (4); the dual Miller loop, whose
-    first step (f = 1) is only its two lines and whose later steps square
-    f when flagged and multiply in both lines; the easy part (an
-    inversion, two Fp12 products, Frobenius p^2); the hard part (three
-    |u|-powers of cyclotomic squares and products, 7 Frobenius maps, 13
-    products and 4 cyclotomic squares).  The Fp inverse counts as
-    batched: `INV_CHAIN` is added once per launch.  The work does not
-    depend on the coordinates."""
-    flags = [int(v) for v in flags]
-    miller = LINES + sum(flags[1:]) * F12_SQR + \
-        (len(flags) - 1) * LINES_INTO_F
-    pow_u = (X_ABS.bit_length() - 1) * F12_CYC_SQR + \
-        (bin(X_ABS).count("1") - 1) * F12_MUL
-    easy = F12_INV + INV_BATCH_MULS + 2 * F12_MUL + FROBENIUS[2]
-    hard = 3 * pow_u + 4 * FROBENIUS[1] + 2 * FROBENIUS[2] + \
-        FROBENIUS[3] + 13 * F12_MUL + 4 * F12_CYC_SQR
-    return {("bn254", "mul"): 4 + miller + easy + hard}
+    the coordinates to Montgomery form (4), the dual Miller loop, the
+    final exponentiation with compressed cyclotomic squares and the Fp
+    inverse batched (`INV_CHAIN` is added once per launch).  The work
+    does not depend on the coordinates."""
+    return {("bn254", "mul"): 4 + _miller_ops(flags)
+            + _final_exp_ops(F12_CYC_SQR, F12_INV)}
 
 
 def imads_per_check(flags) -> int:
@@ -614,20 +869,22 @@ def imads_per_launch() -> int:
 
 
 def fp_ops_issued(flags) -> int:
-    """Fp multiplies and squares KB8 issues for one check: each Fp2
-    product by Karatsuba (3), each Fp12 product and square schoolbook
-    (36 Fp2 products), a sparse line product as 6 * (2 + 2 * 3), every
-    Frobenius as 6 Fp2 products, the |u|-powers by square and multiply,
-    the inversion as 4 Fp6 products, 12 Fp2 products and 4, plus its own
-    Fermat chain.  Set beside `fp_ops_per_check`, it is the work a
-    dedicated squaring, cyclotomic squares and Karatsuba Fp12 products
-    would save."""
-    f12 = 36 * F2_MUL
-    frob = 6 * F2_MUL
-    flags = [int(v) for v in flags]
-    miller = sum(flags) * f12 + len(flags) * 2 * (2 + 6 * (2 + 2 * F2_MUL))
-    pow_u = (X_ABS.bit_length() - 1 + bin(X_ABS).count("1") - 1) * f12
-    inv = 4 * F6_MUL + 12 * F2_MUL + 4 + sum(INV_CHAIN.values())
-    easy = inv + 2 * f12 + frob
-    hard = 3 * pow_u + 7 * frob + 17 * f12
-    return 4 + miller + easy + hard
+    """Fp multiplies and squares KB8 issues for one check: the least
+    work (`fp_ops_per_check`) but for Granger-Scott's cyclotomic squares
+    (18 in place of 12) and each thread's own tower inversion and Fermat
+    chain."""
+    return 4 + _miller_ops(flags) + _final_exp_ops(GS_SQR, F12_INV_ISSUED)
+
+
+# The tower probe's ops -> (least, issued) Fp multiplies per input, its
+# Fermat chain counted in final_exp's issued figure only; mul_by_lines
+# takes its lines' A*x as given.
+PROBE_FP_OPS = {
+    "mul": (F12_MUL, F12_MUL),
+    "sqr": (F12_SQR, F12_SQR),
+    "cyc_sqr": (F12_CYC_SQR, GS_SQR),
+    "mul_by_lines": (LINES_INTO_F - 4, LINES_INTO_F - 4),
+    "pow_u": (_pow_u_ops(F12_CYC_SQR), _pow_u_ops(GS_SQR)),
+    "final_exp": (_final_exp_ops(F12_CYC_SQR, F12_INV),
+                  _final_exp_ops(GS_SQR, F12_INV_ISSUED)),
+}

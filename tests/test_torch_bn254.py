@@ -5,8 +5,13 @@ arithmetic of fabric_tpu.idemix.bn254: the tower operations, 6-step
 single and dual Miller-loop prefixes, the line constants carried across
 (`from_jax_packed`), the split final exponentiation against the host's
 split and against the square-and-multiply by (p^12 - 1)/r, and the full
-plain pairing check on red and green checks.  Tolerance: exact equality
-everywhere (field values are compared as canonical integers)."""
+plain pairing check on red and green checks.  KB8's least-work tower
+(Fp2 squares, Karatsuba and complex squaring over Fp6, Granger-Scott
+cyclotomic squares, the lines multiplied together first) op by op
+against the reference's products and squares and the host's, and the
+tower probe's plain version op by op against the host.  Tolerance:
+exact equality everywhere (field values are compared as canonical
+integers)."""
 import random
 
 import numpy as np
@@ -111,18 +116,20 @@ def test_tower_ops_match_reference_and_host():
     pa, pb = K.f12_from_ints(a12), K.f12_from_ints(b12)
     ra = tuple(ref_f2([v[k] for v in a12]) for k in range(6))
     rb = tuple(ref_f2([v[k] for v in b12]) for k in range(6))
-    got = K.f12_to_ints(K.f12_mul(pa, pb))
+    got = K.f12_to_ints(K.f12_mul_karatsuba(pa, pb))
     assert got == [hb.f12_mul(x, y) for x, y in zip(a12, b12)]
     assert got == ref_f12_ints(bb.f12_mul(ra, rb))
-    assert K.f12_to_ints(K.f12_sqr(pa)) == [hb.f12_sqr(x) for x in a12]
+    got = K.f12_to_ints(K.f12_sqr_complex(pa))
+    assert got == [hb.f12_sqr(x) for x in a12]
+    assert got == ref_f12_ints(bb.f12_sqr(ra))
 
-    # the sparse line product against the dense host product of the same
+    # one sparse line into f against the dense host product of the same
     # element and the reference's sparse product
     y = [rng.randrange(P) for _ in range(B)]
     l1 = [rand2(rng) for _ in range(B)]
     l3 = [rand2(rng) for _ in range(B)]
-    got = K.f12_to_ints(K.f12_mul_sparse013(pa, port_fp(y), port_f2(l1),
-                                            port_f2(l3)))
+    got = K.f12_to_ints(K.f12_mul_by_lines(pa, K._line_f12(
+        port_fp(y), port_f2(l1), port_f2(l3))))
     dense = [((y[b], 0), l1[b], (0, 0), l3[b], (0, 0), (0, 0))
              for b in range(B)]
     assert got == [hb.f12_mul(x, d) for x, d in zip(a12, dense)]
@@ -137,6 +144,134 @@ def test_tower_ops_match_reference_and_host():
     assert K.f12_to_ints(K.f12_inv(pa)) == [hb.f12_inv(x) for x in a12]
     assert K.f12_to_ints(K.f12_inv(K.f12_from_ints([hb.F12_ONE]))) == \
         [hb.F12_ONE]
+
+
+def host_easy(f):
+    """The easy part of the final exponentiation on host ints: its
+    result lies in the cyclotomic subgroup."""
+    m = hb.f12_mul(hb.f12_conj(f), hb.f12_inv(f))
+    return hb.f12_mul(hb.f12_frobenius(m, 2), m)
+
+
+def sparse_host(y, a, b):
+    return ((y, 0), a, (0, 0), b, (0, 0), (0, 0))
+
+
+LEAST_WORK_OPS = ["f2_sqr", "f12_cyc_sqr", "lines_product",
+                  "f12_mul_by_lines"]
+
+
+@pytest.mark.parametrize("op", LEAST_WORK_OPS)
+def test_least_work_tower_matches_reference_and_host(op):
+    """The formulas of KB8's least-work tower that the test above does
+    not take, against the host's ints and the reference's (eager)
+    product or square of the same values; f12_cyc_sqr on inputs made
+    cyclotomic by the easy part."""
+    rng = random.Random(40 + LEAST_WORK_OPS.index(op))
+    if op == "f2_sqr":
+        a2 = [rand2(rng) for _ in range(B)]
+        got = f2_ints(K.f2_sqr(port_f2(a2)))
+        assert got == [hb.f2_sqr(x) for x in a2]
+        assert got == ref_f2_ints(bb.f2_mul(ref_f2(a2), ref_f2(a2)))
+        return
+    a12 = [rand12(rng) for _ in range(B)]
+    if op == "f12_cyc_sqr":
+        pa = K.final_exp_easy(K.f12_from_ints(a12))
+        a12 = [host_easy(x) for x in a12]
+        assert K.f12_to_ints(pa) == a12
+    else:
+        pa = K.f12_from_ints(a12)
+    ra = tuple(ref_f2([v[k] for v in a12]) for k in range(6))
+    if op == "f12_cyc_sqr":
+        got = K.f12_to_ints(K.f12_cyc_sqr(pa))
+        want = [hb.f12_sqr(x) for x in a12]
+        ref = bb.f12_sqr(ra)
+    else:
+        ys = [[rng.randrange(P) for _ in range(B)] for _ in range(2)]
+        ab = [[rand2(rng) for _ in range(B)] for _ in range(4)]
+        lines = K.lines_product(port_fp(ys[0]), port_f2(ab[0]),
+                                port_f2(ab[1]), port_fp(ys[1]),
+                                port_f2(ab[2]), port_f2(ab[3]))
+        l1, l2 = ([sparse_host(ys[j][i], ab[2 * j][i], ab[2 * j + 1][i])
+                   for i in range(B)] for j in (0, 1))
+        if op == "lines_product":
+            got = K.f12_to_ints(lines)
+            assert all(v[5] == (0, 0) for v in got)
+            want = [hb.f12_mul(x, y) for x, y in zip(l1, l2)]
+            ra = tuple(ref_f2([v[k] for v in l1]) for k in range(6))
+            ref = bb.f12_mul_sparse013(ra, ref_fp(ys[1]), ref_f2(ab[2]),
+                                       ref_f2(ab[3]))
+        else:
+            got = K.f12_to_ints(K.f12_mul_by_lines(pa, lines))
+            want = [hb.f12_mul(hb.f12_mul(x, y), z)
+                    for x, y, z in zip(a12, l1, l2)]
+            ref = bb.f12_mul_sparse013(
+                bb.f12_mul_sparse013(ra, ref_fp(ys[0]), ref_f2(ab[0]),
+                                     ref_f2(ab[1])),
+                ref_fp(ys[1]), ref_f2(ab[2]), ref_f2(ab[3]))
+    assert got == want
+    assert got == ref_f12_ints(ref)
+
+
+def test_cyc_sqr_is_wrong_outside_the_cyclotomic_subgroup():
+    """Granger-Scott's square holds only in the cyclotomic subgroup, so
+    the cyclotomic test above can tell it from a plain square."""
+    rng = random.Random(47)
+    a12 = [rand12(rng) for _ in range(B)]
+    got = K.f12_to_ints(K.f12_cyc_sqr(K.f12_from_ints(a12)))
+    assert all(g != hb.f12_sqr(x) for g, x in zip(got, a12))
+    assert K.f12_to_ints(K.f12_sqr_complex(K.f12_from_ints(a12))) == [
+        hb.f12_sqr(x) for x in a12]
+
+
+def host_probe(op, a, b):
+    """The host's value of a tower probe op on one input (pair)."""
+    if op == "mul":
+        return hb.f12_mul(a, b)
+    if op in ("sqr", "cyc_sqr"):
+        return hb.f12_sqr(a)
+    if op == "mul_by_lines":
+        l1 = sparse_host(b[0][0], b[1], b[3])
+        l2 = sparse_host(b[0][1], b[2], b[4])
+        return hb.f12_mul(hb.f12_mul(a, l1), l2)
+    if op == "pow_u":
+        return hb._pow_u(a)
+    return hb._final_exp(a)
+
+
+@pytest.mark.parametrize("op", K.PROBE_OPS)
+def test_tower_probe_plain_matches_host(op):
+    """The probe's wrapper on CPU words takes its plain version (no
+    launch) and gives the host's value of each op; the cyclotomic ops
+    (cyc_sqr, pow_u) on inputs made cyclotomic by the easy part."""
+    rng = random.Random(60 + K.PROBE_OPS.index(op))
+    a12 = [rand12(rng) for _ in range(B)]
+    if op in ("cyc_sqr", "pow_u"):
+        a12 = [host_easy(x) for x in a12]
+    b12 = [rand12(rng) for _ in range(B)] if op in K.BINARY_OPS else None
+    words = [None if v is None else K.f12_to_words(K.f12_from_ints(v))
+             for v in (a12, b12)]
+    assert words[0].shape == (6, 2, 8, B) and words[0].dtype == torch.uint32
+    before = K.bn254_tower_probe.launches
+    got = K.bn254_tower_probe(op, *words)
+    assert K.bn254_tower_probe.launches == before
+    assert K.f12_to_ints(K.words_to_f12(got)) == [
+        host_probe(op, a, None if b12 is None else b12[i])
+        for i, a in enumerate(a12)]
+
+
+def test_tower_probe_rejects_what_the_kernel_does_not_take():
+    w = K.f12_to_words(K.f12_one(3))
+    with pytest.raises(ValueError, match="unknown tower op"):
+        K.bn254_tower_probe("div", w)
+    with pytest.raises(ValueError, match="takes 2 input"):
+        K.bn254_tower_probe("mul", w)
+    with pytest.raises(ValueError, match="takes 1 input"):
+        K.bn254_tower_probe("sqr", w, w)
+    with pytest.raises(ValueError, match="a must be"):
+        K.bn254_tower_probe("sqr", w.to(torch.int64))
+    with pytest.raises(ValueError, match="b must be"):
+        K.bn254_tower_probe("mul", w, w[..., :2].contiguous())
 
 
 def test_miller_prefix_matches_reference_and_host():
@@ -290,9 +425,12 @@ def test_work_count():
     """fp_ops_per_check counts the least Fp multiplies of a check: the
     first Miller step only its two lines (22), each later step both
     lines into f (73) and a complex square (36) when flagged; then the
-    split final exponentiation with cyclotomic squares (12) in the
-    |u|-powers and the Fp inverse batched over a launch; ~18,100 in all,
-    against the 50,650 that KB8 issues (fp_ops_issued)."""
+    split final exponentiation with compressed cyclotomic squares (12)
+    in the |u|-powers and the Fp inverse batched over a launch; 18,068
+    in all.  fp_ops_issued counts what KB8 issues: the same but for
+    Granger-Scott's cyclotomic squares (18) and each thread's own tower
+    inversion and Fermat chain, ~19,500 (50,650 on the schoolbook tower
+    it replaced)."""
     flags = K.pack_steps(hb.ate_precompute(hb.G2_GEN))["flags"]
     assert (len(flags), int(flags[0]), int(flags.sum())) == (137, 1, 126)
     ops = K.fp_ops_per_check(flags)
@@ -302,13 +440,17 @@ def test_work_count():
     easy = f12_inv + 3 + 2 * 54 + 10
     hard = 3 * pow_u + 4 * 14 + 2 * 10 + 14 + 13 * 54 + 4 * 12
     assert ops == {("bn254", "mul"): 4 + miller + easy + hard}
-    assert 18_000 < sum(ops.values()) < 18_200
+    assert sum(ops.values()) == 18_068
     assert K.imads_per_check(flags) == 264 * ops[("bn254", "mul")]
     chain = (bin(P - 2)[3:].count("1"), (P - 2).bit_length() - 1)
     assert K.imads_per_launch() == 264 * chain[0] + 208 * chain[1]
-    # what KB8 issues: every Fp12 square a schoolbook product (108), a
-    # sparse line product 48, a Frobenius 18, its own Fermat chain
-    issued = (4 + 126 * 108 + 137 * 2 * (2 + 48)
-              + (4 * 18 + 12 * 3 + 4 + sum(chain)) + 2 * 108 + 18
-              + 3 * 64 * 108 + 7 * 18 + 17 * 108)
-    assert K.fp_ops_issued(flags) == issued == 50_650
+    # what KB8 issues: Granger-Scott squares (9 Fp2 squares) in the
+    # |u|-powers and the hard part; the inversion as 4 Fp6 products, 12
+    # Fp2 products, 4 and its own Fermat chain
+    issued = (4 + miller
+              + (4 * 18 + 12 * 3 + 4 + sum(chain)) + 2 * 54 + 10
+              + 3 * (62 * 18 + 2 * 54) + 4 * 14 + 2 * 10 + 14 + 13 * 54
+              + 4 * 18)
+    assert K.fp_ops_issued(flags) == issued == 19_514
+    assert sum(ops.values()) <= K.fp_ops_issued(flags) <= 20_000
+    assert K.PROBE_FP_OPS["final_exp"][1] == issued - 4 - miller

@@ -654,6 +654,32 @@ def test_bn254_pairing_kernel_matches_plain(n, cuda_device):
     assert torch.equal(got, KB.pairing_check_batch(fl, ln, sl, *words))
 
 
+def tower_words(n, seed, device, cyclotomic=False):
+    """n seeded Fp12 values as the tower probe's (6, 2, 8, n) words; with
+    cyclotomic, each taken through the easy part of the final
+    exponentiation (plain, on the device)."""
+    rng = random.Random(seed)
+    vals = [tuple((rng.randrange(HB.P), rng.randrange(HB.P))
+                  for _ in range(6)) for _ in range(n)]
+    f = KB.f12_from_ints(vals, device)
+    return KB.f12_to_words(KB.final_exp_easy(f) if cyclotomic else f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 1024])
+@pytest.mark.parametrize("op", KB.PROBE_OPS)
+def test_bn254_tower_probe_matches_plain(op, n, cuda_device):
+    """Each of KB8's tower routines through the probe, bit for bit
+    against its plain version; cyc_sqr and pow_u on cyclotomic inputs."""
+    a = tower_words(n, 70 + n, cuda_device, op in ("cyc_sqr", "pow_u"))
+    b = tower_words(n, 71 + n, cuda_device) if op in KB.BINARY_OPS else None
+    before = KB.bn254_tower_probe.launches
+    got = KB.bn254_tower_probe(op, a, b)
+    torch.cuda.synchronize()
+    assert KB.bn254_tower_probe.launches == before + 1
+    assert torch.equal(got, KB.tower_probe_plain(op, a, b))
+
+
 def idemix_items():
     """Two issuers' presentations (valid), a forged credential that
     passes every host check, a presentation over another payload, a
