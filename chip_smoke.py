@@ -13,7 +13,10 @@ ends with one JSON line.  Phases:
              fastparse, fastcollect) from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
              ints, mod p, mod n, mod p25519 and mod BN254's p, edge values
-             included
+             included; KP2's field probe (p256_field_probe: field_ptx.cuh's
+             mul_p, sqr_p and mont_mul_ptx mod n) on 65,536 seeded inputs
+             plus edge values each, bit for bit against the plain field and
+             Python ints, timed
 3b. experiments — the counterparts of the Pallas microbenchmarks in
              experiments/ (fabric_tpu_torch.experiments, each module's
              run()): KP1 at the reference's R = 2^264 (proto_pallas.py) and
@@ -66,9 +69,13 @@ ends with one JSON line.  Phases:
              on fresh stacks, stage by stage, with one profiled run
 7. times   — medians of repeated runs (CUDA events for kernels); each
              kernel's plain version is timed by its one comparison call
-             on the path's own batch for that kernel; one large pinned
-             host-to-device copy gives the link rate that bounds a table
-             upload
+             on the path's own batch for that kernel; KP2 at two sizes,
+             the block's whole device-bound batch and the path's own KP2
+             batch (the lanes the provider sent to KP2 in the block runs),
+             each against its plain version and the labels, with SM-cycles
+             a multiply and registers, frame and spills from the build log;
+             one large pinned host-to-device copy gives the link rate that
+             bounds a table upload
 9. idemix  — (run after 7, before the kernels line) BASELINE config 4:
              the provider's idemix_pair_probe(128), green and red; a
              seeded load of 4,096 pairing checks under 2 issuers, 2%
@@ -98,8 +105,8 @@ KE5, the commit stream KP3 and KV7 (KP2 for clients below the fast-lane
 threshold at small sizes), the idemix runs KB8 (and KV7 and the Org1
 endorsements' P-256 lane in the block).  KP1, KF2 and KI3 are
 benchmark kernels, the counterparts of experiments/, and KB8's tower
-probe a test of its routines; they are on no main path: their counts
-there are 0.
+probe and KP2's field probe tests of their routines; they are on no main
+path: their counts there are 0.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -143,6 +150,7 @@ FAST_THRESHOLD = 64             # the provider's default fast_key_threshold
 SLICE = 4096
 SW_SUBSET = 512
 FIELD_LANES = 4096
+PROBE_LANES = 65536            # inputs of each op of KP2's field probe
 CHAIN_K = 256
 SPILL_TXS = 500
 H2D_BYTES = 1 << 28            # the one large copy that gives the link rate
@@ -1340,6 +1348,93 @@ def msps_ident(msps, creator: bytes):
 
 
 # ---------------------------------------------------------------------------
+# KP2's field probe (phase 3) and KP2's work (phase 7)
+# ---------------------------------------------------------------------------
+
+def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
+    """Phase 3's field probe: each of KP2's field routines (mul_p, sqr_p,
+    mont_mul_ptx mod n, through `p256_field_probe`) on PROBE_LANES inputs,
+    the edge values of `field_probe_edges` first and seeded ones after,
+    bit for bit against the plain field (`field_probe_plain`) and Python
+    ints, then timed by CUDA events.  -> the probe's row of the kernels
+    line (its sums over the ops)."""
+    from fabric_tpu_torch.ops import p256
+    from fabric_tpu_torch.ops.field import (IMADS, ints_to_words_le,
+                                            words_le_to_ints)
+    rng = random.Random(SEED + 30)
+    R = 1 << 256
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by_ops": 0.0}
+    err = 0
+    for op in p256.FIELD_PROBE_OPS:
+        m = p256.N if op == "mul_n" else p256.P
+        ea, eb = p256.field_probe_edges(op)
+        k = PROBE_LANES - len(ea)
+        va = ea + [rng.randrange(m if op == "sqr_p" else R) for _ in range(k)]
+        vb = va if op == "sqr_p" else eb + [rng.randrange(m)
+                                           for _ in range(k)]
+        a = ints_to_words_le(va, dev)
+        b = None if op == "sqr_p" else ints_to_words_le(vb, dev)
+        got = p256.p256_field_probe(op, a, b)
+        plain, plain_ms = timed_once(
+            torch, lambda: p256.field_probe_plain(op, a, b))
+        check(torch.equal(got, plain), f"field probe {op} != "
+              "field_probe_plain")
+        rinv = pow(R, -1, m)
+        check(words_le_to_ints(got) == [x * y * rinv % m
+                                        for x, y in zip(va, vb)],
+              f"field probe {op} != python ints")
+        err = max(err, int((got.to(torch.int64) - plain.to(torch.int64))
+                           .abs().max()))
+        ms = event_ms(torch, lambda: p256.p256_field_probe(op, a, b), trials)
+        key = ("n", "mul") if op == "mul_n" else (
+            "p", "sqr" if op == "sqr_p" else "mul")
+        ops_s = PROBE_LANES * IMADS[key] / imad_rate
+        bytes_s = PROBE_LANES * 32 * (2 if b is None else 3) / HBM_BYTES_PER_S
+        bound = max(ops_s, bytes_s) * 1e3
+        phase("field", probe_op=op, inputs=PROBE_LANES, edges=len(ea),
+              vs_plain="equal", vs_ints="equal", ms=round(ms, 4),
+              ns_per_op=round(ms * 1e6 / PROBE_LANES, 4),
+              plain_ms=round(plain_ms, 2), bound_ms=round(bound, 6),
+              bound_by="operations" if ops_s >= bytes_s else "bytes")
+        sums["ms"] += ms
+        sums["plain_ms"] += plain_ms
+        sums["bound_ms"] += bound
+        sums["by_ops"] += bound if ops_s >= bytes_s else 0
+    return {"name": "p256_field_probe", "route": "cuda",
+            "source": "fabric_tpu_torch/ops/csrc/p256_verify.cu",
+            "replaces": "fabric_tpu/ops/flatfield.py:231",
+            "launches": 0, "max_abs_err": err, "ms": sums["ms"],
+            "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
+            "bound_by": "operations" if 2 * sums["by_ops"] >= sums[
+                "bound_ms"] else "bytes",
+            "library_ms": None, "on_main_path": False,
+            "ops": list(p256.FIELD_PROBE_OPS)}
+
+
+def kp2_work(arrays) -> tuple:
+    """KP2's work on a batch of (8, B) word arrays (qx, qy, r, s, e) ->
+    (least multiplies, least multiply-adds, issued multiplies): the least
+    counts s^-1 as batched (one chain a launch), the issued the kernel's
+    own per-thread Fermat chain."""
+    import numpy as np
+    import torch
+    from fabric_tpu_torch.ops import field, p256
+    n = p256.N
+    rs = [field.limbs_to_ints(field.words_be_to_limbs(
+        torch.from_numpy(np.ascontiguousarray(a)))) for a in arrays[2:]]
+    muls = sum(p256.INV_N_CHAIN.values())
+    imads = p256.imads_per_launch()
+    issued = 0
+    for r_, s_, e_ in zip(*rs):
+        w = pow(s_ % n, n - 2, n)
+        u1, u2 = e_ * w % n, r_ * w % n
+        muls += sum(p256.field_ops_per_verify(u1, u2).values())
+        imads += p256.imads_per_verify(u1, u2)
+        issued += p256.field_ops_issued(u1, u2)
+    return muls, imads, issued
+
+
+# ---------------------------------------------------------------------------
 # the experiments' counterparts (phase 3b)
 # ---------------------------------------------------------------------------
 
@@ -1518,6 +1613,7 @@ def main(argv=None) -> int:
                         got_i, field.words_le_to_ints(plain))))
         phase("field", modulus=mod, lanes=FIELD_LANES, k="0,1,8",
               r_log2=field.R_LOG2S, vs_ints="equal", vs_plain="equal")
+    field_probe_row = field_probe_phase(torch, dev, args.trials, imad_rate)
 
     # --- 3b. experiments ----------------------------------------------------
     t0 = time.perf_counter()
@@ -1565,6 +1661,7 @@ def main(argv=None) -> int:
            "ed25519_verify": ed25519.ed25519_verify,
            "bn254_pairing": bn254.bn254_pairing_check,
            "bn254_tower_probe": bn254.bn254_tower_probe,
+           "p256_field_probe": p256.p256_field_probe,
            "field_mul_chain": field.field_mul_chain,
            "field_chain_variant": field_variants.field_chain_variant,
            "isa_probe": isa_probe.isa_probe}
@@ -1624,6 +1721,8 @@ def main(argv=None) -> int:
     batch = provider.pass_p256(items, range(n_p256))
     bank.unpin(batch.pinned)
     f_keep, f_arrays, f_slot = batch.fast
+    check(batch.generic is not None, "host pass: no KP2 batch")
+    kp2_keep, kp2_arrays = batch.generic
     check(sorted(f_keep.tolist()) == fast_idx, "host pass: KP3 batch")
     f_bad = [j for j, i in enumerate(f_keep) if kinds[i] is not None]
     f_fill = [j for j, i in enumerate(f_keep) if kinds[i] is None]
@@ -1841,7 +1940,8 @@ def main(argv=None) -> int:
     kp3_err = max(kp3_err, int((kern.to(torch.int8)
                                 - plain.to(torch.int8)).abs().max()))
 
-    # KP2 on the whole block's device-bound words, as in slice 1
+    # KP2 on the whole block's device-bound words (every well-formed
+    # P-256 item, whichever lane the provider gives it), as in slice 1
     recs, _ = cudaprov.parse_p256(p256_items, range(n_p256))
     keep, arrays = cudaprov.pack_p256_recs(recs)
     block_words = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -1850,6 +1950,24 @@ def main(argv=None) -> int:
     plain, plain_ms = timed_once(torch, lambda: (
         p256.verify_words_plain(*block_words, table)))
     check(torch.equal(kern, plain), "KP2 != verify_words_plain on the block")
+    check((kern.cpu().numpy() == want[np.asarray(keep)]).all(),
+          "KP2 on the block != labels")
+    kp2_err = max(kp2_err, int((kern.to(torch.int8)
+                                - plain.to(torch.int8)).abs().max()))
+
+    # KP2 on the path's own KP2 batch: the lanes the provider sent to KP2
+    # in the block runs (one block of threads, latency-bound)
+    path_words = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in kp2_arrays]
+    kp2_path_ms = event_ms(torch, lambda: p256.p256_verify(*path_words,
+                                                           table), t)
+    kern = p256.p256_verify(*path_words, table)
+    plain, kp2_path_plain_ms = timed_once(torch, lambda: (
+        p256.verify_words_plain(*path_words, table)))
+    check(torch.equal(kern, plain),
+          "KP2 != verify_words_plain on the path's KP2 batch")
+    check((kern.cpu().numpy() == want[kp2_keep]).all(),
+          "KP2 on the path's KP2 batch != labels")
     kp2_err = max(kp2_err, int((kern.to(torch.int8)
                                 - plain.to(torch.int8)).abs().max()))
 
@@ -1897,15 +2015,20 @@ def main(argv=None) -> int:
         return field.limbs_to_ints(field.words_be_to_limbs(
             torch.from_numpy(np.ascontiguousarray(a))))
 
-    muls, imads = chain_muls, p256.imads_per_launch()
-    for qx_, qy_, r_, s_, e_ in zip(*[ints(a) for a in arrays]):
-        w = pow(s_ % n, n - 2, n)
-        u1, u2 = e_ * w % n, r_ * w % n
-        muls += sum(p256.field_ops_per_verify(u1, u2).values())
-        imads += p256.imads_per_verify(u1, u2)
+    muls, imads, kp2_issued = kp2_work(arrays)
     kp2_ops_s = imads / imad_rate
     kp2_bytes_s = (lanes * (5 * 32 + 1) + table.nbytes) / HBM_BYTES_PER_S
     kp2_bound_ms = max(kp2_ops_s, kp2_bytes_s) * 1e3
+    path_lanes = len(kp2_keep)
+    _, path_imads, path_issued = kp2_work(kp2_arrays)
+    kp2_path_bound_ms = max(
+        path_imads / imad_rate,
+        (path_lanes * (5 * 32 + 1) + table.nbytes) / HBM_BYTES_PER_S) * 1e3
+    clock_hz = max_clock_mhz * 1e6
+    kp2_res = _build.kernel_resources(built["p256_verify"]["log"],
+                                      "p256_verify_kernel")
+    kp3_res = _build.kernel_resources(built["p256_verify_rows"]["log"],
+                                      "p256_verify_rows_kernel")
     kp3_lanes = len(f_keep)
     muls3, imads3 = chain_muls, p256.imads_per_launch()
     for r_, s_, e_ in zip(*[ints(a) for a in f_arrays]):
@@ -1983,12 +2106,23 @@ def main(argv=None) -> int:
           mont_muls_per_verify=round(muls3 / kp3_lanes, 1),
           imads_per_verify=round(imads3 / kp3_lanes, 1),
           kp3_bound_ms=round(kp3_bound_ms, 4),
-          kp3_bound_by="operations" if kp3_ops_s >= kp3_bytes_s else "bytes")
+          kp3_bound_by="operations" if kp3_ops_s >= kp3_bytes_s else "bytes",
+          **kp3_res)
     phase("times", kp2_ms=round(kp2_ms, 4), kp2_sigs=lanes,
-          plain_ms=round(plain_ms, 2), kp2_vs_plain_on_block="equal",
+          plain_ms=round(plain_ms, 2), kp2_vs_plain_and_labels="equal",
           mont_muls_per_verify=round(muls / lanes, 1),
           imads_per_verify=round(imads / lanes, 1),
-          kp2_bound_ms=round(kp2_bound_ms, 4))
+          issued_muls_per_verify=round(kp2_issued / lanes, 1),
+          sm_cycles_per_mul=round(kp2_ms * 1e-3 * clock_hz * sms
+                                  / kp2_issued, 2),
+          kp2_bound_ms=round(kp2_bound_ms, 4), **kp2_res)
+    phase("times", kp2_path_ms=round(kp2_path_ms, 4), kp2_path_sigs=path_lanes,
+          kp2_path_plain_ms=round(kp2_path_plain_ms, 2),
+          kp2_path_vs_plain_and_labels="equal",
+          issued_muls_per_verify=round(path_issued / path_lanes, 1),
+          chain_cycles_per_mul=round(kp2_path_ms * 1e-3 * clock_hz
+                                     * path_lanes / path_issued, 1),
+          kp2_path_bound_ms=round(kp2_path_bound_ms, 6))
     phase("times", ke6_ms=round(ke6_ms, 4), ke6_sigs=ke6_lanes,
           ke6_plain_ms=round(ke6_plain_ms, 2),
           mont_muls_per_verify=round(e6_ops / ke6_lanes, 1),
@@ -2043,6 +2177,7 @@ def main(argv=None) -> int:
     probe_row = tower_probe_phase(torch, args.trials, imad_rate,
                                   max_clock_mhz * 1e6)
     probe_row["launches"] = total.get("bn254_tower_probe", 0)
+    field_probe_row["launches"] = total.get("p256_field_probe", 0)
 
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
@@ -2062,14 +2197,17 @@ def main(argv=None) -> int:
          "launches": total["p256_verify_rows"], "max_abs_err": kp3_err,
          "ms": kp3_ms, "plain_ms": kp3_plain_ms, "bound_ms": kp3_bound_ms,
          "bound_by": by(kp3_ops_s, kp3_bytes_s),
-         "library_ms": None, "on_main_path": True},
+         "library_ms": None, "on_main_path": True, **kp3_res},
         {"name": "p256_verify", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/p256_verify.cu",
          "replaces": "fabric_tpu/ops/ecp256.py:447",
          "launches": total["p256_verify"], "max_abs_err": kp2_err,
          "ms": kp2_ms, "plain_ms": plain_ms, "bound_ms": kp2_bound_ms,
          "bound_by": by(kp2_ops_s, kp2_bytes_s),
-         "library_ms": None, "on_main_path": True},
+         "library_ms": None, "on_main_path": True,
+         "path_lanes": path_lanes, "ms_path": kp2_path_ms,
+         "bound_ms_path": kp2_path_bound_ms, **kp2_res},
+        field_probe_row,
         {"name": "ed25519_verify_rows", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/ed25519_verify_rows.cu",
          "replaces": "fabric_tpu/ops/ed25519.py:75",

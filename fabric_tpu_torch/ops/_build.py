@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,6 +47,7 @@ SIGNATURES = {
     },
     "p256_verify": {
         "p256_verify_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "p256_field_probe_launch": [_I, _P, _P, _P, _I, _P],
     },
     "p256_verify_rows": {
         "p256_verify_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -147,3 +149,31 @@ def load(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _libs[name] = lib
         return lib
+
+
+def kernel_resources(log: str, fragment: str) -> dict:
+    """`nvcc -Xptxas -v`'s figures for the entry function whose mangled
+    name holds `fragment`, from a build log -> {"regs", "frame_bytes",
+    "spill_store_bytes", "spill_load_bytes"}.  Raises if the log has no
+    such function (a build that printed nothing, or a renamed kernel)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or fragment not in cur:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.update(frame_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out["regs"] = int(m.group(1))
+    if len(out) != 4:
+        raise ValueError(f"no ptxas figures for {fragment!r} in the log")
+    return out

@@ -28,9 +28,10 @@
 // (non-inlined) call on operands in local memory.  That keeps the code
 // small and the build to seconds; the operand traffic is L1-resident.
 // Mod p it issues 2 to 3.5 times the least work: the q*p products, and
-// the full product for a square.  Inlining, PTX carry chains
-// (mad.lo.cc / madc.hi), a dedicated square, a Solinas reduction for p
-// and the x38 fold for p25519 are later work.  Mod p25519 (m < 2^255)
+// the full product for a square.  field_ptx.cuh holds the PTX
+// carry-chain multiplies (mad.lo.cc / madc.hi), p's special-form
+// reduction among them, with operands in registers: KP2's field.  A
+// dedicated square and the x38 fold for p25519 are later work.  Mod p25519 (m < 2^255)
 // and BN254's p (m < 2^254) every value stays fully reduced all the
 // same; only canon, which takes any 256-bit value, subtracts m up to
 // twice (p25519) or six times (BN254: 2^256 - 1 < 7m).

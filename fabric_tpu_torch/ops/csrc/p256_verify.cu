@@ -25,17 +25,31 @@
 // launch); the exact count for given u1, u2 is fabric_tpu_torch/ops/
 // p256.py:field_ops_per_verify, weighed by the least work of each
 // (ops/field.py:IMADS, see p256_field.cuh) against 64 multiply-adds per
-// SM per clock; each signature moves 161 bytes.  The design does not yet
-// reach that bound: its per-thread Fermat chain adds ~425 operations mod
-// n, and one thread per signature leaves few warps per SM at
-// block sizes (40k signatures = 313 blocks of 128 on 132 SMs), and the
-// 16-entry table of Q (1.5 KB per thread) lives in local memory.  Later
-// work: comb rows staged through shared memory, a batch inversion pass,
-// a Solinas reduction for p, inlined PTX carry chains.
+// SM per clock; each signature moves 161 bytes.
+//
+// Design: the point routines run on field_ptx.cuh's PtxField, with
+// operands in registers: mod p the PTX carry-chain product with the
+// reduction from p's special form (adds only, no q*p products), one real
+// call shared by every site (its operands and result pass in registers),
+// mod n a carry-chain CIOS inlined; both end fully reduced, so the adds,
+// subtractions and comparisons of the point layer are unchanged.  What still holds
+// it back from the bound:
+//   - the 16-entry table of Q (1.5 KB a thread) lives in local memory,
+//     and the ladder reads one entry a window from it;
+//   - s^-1 is still one Fermat chain per thread (423 multiplies mod n),
+//     not batched across the launch;
+//   - one thread per signature leaves few warps per SM at block sizes
+//     (40k signatures = 313 blocks of 128 on 132 SMs), and a small batch
+//     is one serial chain of ~4,000 multiplies.
+// The field probe (p256_field_probe_launch, below) runs mul_p, sqr_p and
+// mont_mul_ptx<MOD_N> once per thread, through PtxField as KP2 calls
+// them, so that each can be held bit for bit against the plain field on
+// the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "field_ptx.cuh"
 #include "p256_point.cuh"
 
 using namespace p256;
@@ -61,22 +75,22 @@ __global__ void __launch_bounds__(128) p256_verify_kernel(
   bool q_ok = fe_lt(QX, C_P) && fe_lt(QY, C_P);
 
   uint32_t xm[8], ym[8], lhs[8], rhs[8];
-  to_mont<MOD_P>(xm, QX);
-  to_mont<MOD_P>(ym, QY);
-  fp_sqr(lhs, ym);                  // y^2
-  fp_sqr(rhs, xm);
+  PtxField::p_to_mont(xm, QX);
+  PtxField::p_to_mont(ym, QY);
+  PtxField::sqr(lhs, ym);           // y^2
+  PtxField::sqr(rhs, xm);
   fp_add(rhs, rhs, C_A_MONT);
-  fp_mul(rhs, rhs, xm);
+  PtxField::mul(rhs, rhs, xm);
   fp_add(rhs, rhs, C_B_MONT);       // x^3 + a x + b
   q_ok = q_ok && fe_eq(lhs, rhs);
 
   // --- u1 = e / s, u2 = r / s mod n ---
   uint32_t u1[8], u2[8];
-  scalars(u1, u2, R, S, E);
+  scalars<PtxField>(u1, u2, R, S, E);
 
   // --- u1*G: 8-bit comb, windows LSB-first, digit 0 adds nothing ---
   Jac acc_g;
-  pt_comb(acc_g, table, u1);
+  pt_comb<PtxField>(acc_g, table, u1);
 
   // --- u2*Q: 16-entry table, 4-bit digits MSB-first ---
   Jac T[16];
@@ -85,25 +99,25 @@ __global__ void __launch_bounds__(128) p256_verify_kernel(
   fe_copy(T[1].Y, ym);
   fe_copy(T[1].Z, C_P_ONE);
   T[1].inf = 0;
-  pt_dbl(T[2], T[1]);
+  pt_dbl<PtxField>(T[2], T[1]);
 #pragma unroll 1
-  for (int k = 3; k < 16; ++k) pt_add_nodbl(T[k], T[k - 1], T[1]);
+  for (int k = 3; k < 16; ++k) pt_add_nodbl<PtxField>(T[k], T[k - 1], T[1]);
 
   Jac acc;
   pt_set_inf(acc);
 #pragma unroll 1
   for (int win = 63; win >= 0; --win) {
 #pragma unroll 1
-    for (int k = 0; k < 4; ++k) pt_dbl(acc, acc);
+    for (int k = 0; k < 4; ++k) pt_dbl<PtxField>(acc, acc);
     const uint32_t d = (u2[win >> 3] >> (4 * (win & 7))) & 0xFu;
-    pt_add_nodbl(acc, acc, T[d]);
+    pt_add_nodbl<PtxField>(acc, acc, T[d]);
   }
 
   // --- combine (complete: u1*G == +-u2*Q is reachable), then the
   // projective x check: X == (r + k n) Z^2, k in {0, 1} ---
   Jac res;
-  pt_add_complete(res, acc_g, acc);
-  out[i] = (r_ok && s_ok && q_ok && x_matches_r(res, R)) ? 1 : 0;
+  pt_add_complete<PtxField>(res, acc_g, acc);
+  out[i] = r_ok && s_ok && q_ok && x_matches_r<PtxField>(res, R);
 }
 
 extern "C" int p256_verify_launch(const void* qx, const void* qy,
@@ -117,5 +131,47 @@ extern "C" int p256_verify_launch(const void* qx, const void* qy,
       (const uint32_t*)qx, (const uint32_t*)qy, (const uint32_t*)r,
       (const uint32_t*)s, (const uint32_t*)e, (const uint32_t*)table,
       (uint8_t*)out, n, require_low_s);
+  return (int)cudaGetLastError();
+}
+
+// -- the field probe ----------------------------------------------------------
+// a, b, out: (n, 8) uint32, little-endian words of input i at i * 8 + j.
+// op 0: mul_p(a, b), written over a; 1: sqr_p(a), in place; 2:
+// mont_mul_ptx<MOD_N>(a, b), written over b (KP2's call sites alias the
+// same ways).  Inputs must meet the routines' preconditions (a < 2^256;
+// b < p, or < n for op 2; a < p for sqr_p): the kernel does not check.
+
+__global__ void __launch_bounds__(128)
+    p256_field_probe_kernel(int op, const uint32_t* __restrict__ a,
+                            const uint32_t* __restrict__ b,
+                            uint32_t* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[8], y[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    x[j] = a[(size_t)i * 8 + j];
+    y[j] = b[(size_t)i * 8 + j];
+  }
+  if (op == 0) {
+    PtxField::mul(x, x, y);
+  } else if (op == 1) {
+    PtxField::sqr(x, x);
+  } else {
+    PtxField::n_mul(y, x, y);
+    fe_copy(x, y);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[(size_t)i * 8 + j] = x[j];
+}
+
+extern "C" int p256_field_probe_launch(int op, const void* a, const void* b,
+                                       void* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  if (op < 0 || op > 2) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  p256_field_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      op, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }

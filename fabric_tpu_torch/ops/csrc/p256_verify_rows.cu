@@ -36,7 +36,8 @@
 // thread runs its own Fermat chain (~425 Montgomery operations mod n,
 // more than the rest of its work).  Later work: a batch (product-tree)
 // inversion pass, comb rows staged through shared memory per key run,
-// PTX carry chains.
+// field_ptx.cuh's PtxField (KP2's PTX carry chains) in place of
+// CiosField.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,17 +65,17 @@ __global__ void __launch_bounds__(128) p256_verify_rows_kernel(
 
   // --- u1 = e / s, u2 = r / s mod n ---
   uint32_t u1[8], u2[8];
-  scalars(u1, u2, R, S, E);
+  scalars<CiosField>(u1, u2, R, S, E);
 
   // --- two fixed-base combs: u1*G over G's table, u2*Q over Q's ---
   const uint32_t* qtab = bank + (size_t)slot[i] * (32 * 256 * 16);
   Jac acc_g, acc_q, res;
-  pt_comb(acc_g, table, u1);
-  pt_comb(acc_q, qtab, u2);
+  pt_comb<CiosField>(acc_g, table, u1);
+  pt_comb<CiosField>(acc_q, qtab, u2);
 
   // --- complete combine, then the projective x check ---
-  pt_add_complete(res, acc_g, acc_q);
-  out[i] = (r_ok && s_ok && x_matches_r(res, R)) ? 1 : 0;
+  pt_add_complete<CiosField>(res, acc_g, acc_q);
+  out[i] = (r_ok && s_ok && x_matches_r<CiosField>(res, R)) ? 1 : 0;
 }
 
 extern "C" int p256_verify_rows_launch(const void* r, const void* s,

@@ -34,7 +34,8 @@ import torch
 
 from . import _build, p256_tables
 from .field import (IMADS, LIMBS, N, P, add_const, fp, fn, is_zero_limbs,
-                    lt_const, words_be_to_limbs, words_le_to_limbs)
+                    limbs_to_words_le, lt_const, words_be_to_limbs,
+                    words_le_to_limbs)
 from ..device import resolve_device
 
 A = P - 3
@@ -329,6 +330,93 @@ def verify_words(qx, qy, r, s, e, require_low_s: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# The field probe: one of KP2's field routines per thread
+# ---------------------------------------------------------------------------
+# Inputs and output (n, 8) uint32, little-endian words, Montgomery form
+# (R = 2^256).  mul_p is field_ptx.cuh's a b R^-1 mod p, sqr_p its a^2
+# R^-1 mod p, mul_n its mont_mul_ptx<MOD_N>, a b R^-1 mod n.
+
+FIELD_PROBE_OPS = ("mul_p", "sqr_p", "mul_n")
+
+
+def field_probe_plain(op: str, a: torch.Tensor,
+                      b: torch.Tensor = None) -> torch.Tensor:
+    """The plain version of the probe: `field.Mod.mul` on (n, 8) words.
+    Preconditions as the kernel's: a < 2^256, b < m (sqr_p: a < p)."""
+    if op not in FIELD_PROBE_OPS:
+        raise ValueError(f"unknown field op {op!r}; one of {FIELD_PROBE_OPS}")
+    x = words_le_to_limbs(a)
+    y = x if op == "sqr_p" else words_le_to_limbs(b)
+    return limbs_to_words_le((fn if op == "mul_n" else fp).mul(x, y))
+
+
+def p256_field_probe(op: str, a: torch.Tensor,
+                     b: torch.Tensor = None) -> torch.Tensor:
+    """Wrapper of KP2's field probe (`p256_field_probe_launch`, in KP2's
+    library): op (`FIELD_PROBE_OPS`) on each row of a (and b; sqr_p
+    takes a alone), one thread each.  CUDA tensors launch the kernel on
+    the current stream; CPU tensors take `field_probe_plain`.  The kernel
+    does not check the preconditions (a < 2^256, b < m, sqr_p's a < p)."""
+    if op not in FIELD_PROBE_OPS:
+        raise ValueError(f"unknown field op {op!r}; one of {FIELD_PROBE_OPS}")
+    if a.dim() != 2 or a.shape[1] != 8 or a.dtype != torch.uint32 \
+            or not a.is_contiguous():
+        raise ValueError("a must be a contiguous (n, 8) uint32 tensor")
+    if (b is None) != (op == "sqr_p"):
+        raise ValueError(f"{op} takes {1 if op == 'sqr_p' else 2} input(s)")
+    if b is not None and (b.shape != a.shape or b.dtype != a.dtype
+                          or not b.is_contiguous() or b.device != a.device):
+        raise ValueError("b must be a contiguous uint32 tensor of a's shape "
+                         "on a's device")
+    dev = a.device
+    if dev.type == "cpu":
+        return field_probe_plain(op, a, b)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty_like(a)
+    n = a.shape[0]
+    if n == 0:
+        return out
+    lib = _build.load("p256_verify")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.p256_field_probe_launch(
+            ctypes.c_int(FIELD_PROBE_OPS.index(op)),
+            ctypes.c_void_p(a.data_ptr()),
+            ctypes.c_void_p((a if b is None else b).data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),
+            ctypes.c_void_p(stream))
+    if rc:
+        raise RuntimeError(f"p256_field_probe launch failed: CUDA error {rc}")
+    p256_field_probe.launches += 1
+    return out
+
+
+p256_field_probe.launches = 0
+
+
+def field_probe_edges(op: str) -> tuple:
+    """Edge inputs of the probe's op -> (a values, b values), each within
+    the op's preconditions: 0, 1, m - 1 and 2^256 - 1 as a; m itself and
+    values just past it as a; operands whose words are all ones, so that
+    every carry chain carries into its top word; inputs whose result is
+    0, 1 or m - 1 (a = m, a = R^-1 mod m, a = (m - 1) R^-1 mod m against
+    b = R^2 mod m)."""
+    m = N if op == "mul_n" else P
+    top = (1 << 256) - 1
+    r2 = (1 << 512) % m
+    rinv = pow(1 << 256, -1, m)
+    a = [0, 1, m - 1, top, m, m + 1, top, top, (1 << 224) - 1,
+         (1 << 128) - 1, 1 << 255, rinv, (m - 1) * rinv % m, m - 2]
+    b = [m - 1, m - 1, m - 1, m - 1, 7, m - 1, (1 << 224) - 1, 1, m - 1,
+         (1 << 255) + 1, m - 1, r2, r2, 0]
+    if op == "sqr_p":                           # a is also b: a < p
+        a = [x for x in a if x < m] + [(1 << 224) - 1, m - 2]
+        b = a
+    return a, b
+
+
+# ---------------------------------------------------------------------------
 # Work count for the kernel's bound
 # ---------------------------------------------------------------------------
 
@@ -383,6 +471,19 @@ def field_ops_per_verify(u1: int, u2: int) -> dict:
 def imads_per_verify(u1: int, u2: int) -> int:
     """32-bit multiply-adds that one signature's field work needs."""
     return sum(IMADS[k] * c for k, c in field_ops_per_verify(u1, u2).items())
+
+
+# what KP2 issues mod n a signature: to_mont(s), its own Fermat chain,
+# u1 and u2
+N_OPS_ISSUED = 1 + sum(INV_N_CHAIN.values()) + 2
+
+
+def field_ops_issued(u1: int, u2: int) -> int:
+    """Montgomery multiplies and squares KP2 issues for one signature:
+    the least count mod p (the kernel issues exactly that) and
+    `N_OPS_ISSUED` mod n."""
+    c = field_ops_per_verify(u1, u2)
+    return c["p", "mul"] + c["p", "sqr"] + N_OPS_ISSUED
 
 
 # ---------------------------------------------------------------------------

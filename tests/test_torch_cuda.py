@@ -104,6 +104,32 @@ def test_p256_verify_kernel_matches_plain(cuda_device):
     assert got.cpu().tolist()[:24] == [r[5] for r in rows[:24]]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 4096])
+@pytest.mark.parametrize("op", p256.FIELD_PROBE_OPS)
+def test_p256_field_probe_matches_plain_and_ints(op, n, cuda_device):
+    """KP2's field routines (field_ptx.cuh's mul_p, sqr_p, mont_mul_ptx
+    mod n) through the probe, bit for bit against the plain field and
+    Python ints; the edge values first."""
+    rng = random.Random(31 + n)
+    m = F.N if op == "mul_n" else F.P
+    ea, eb = p256.field_probe_edges(op)
+    va = (ea + [rng.randrange(m if op == "sqr_p" else R)
+                for _ in range(n)])[:n]
+    vb = va if op == "sqr_p" else (eb + [rng.randrange(m)
+                                         for _ in range(n)])[:n]
+    a = F.ints_to_words_le(va, cuda_device)
+    b = None if op == "sqr_p" else F.ints_to_words_le(vb, cuda_device)
+    before = p256.p256_field_probe.launches
+    got = p256.p256_field_probe(op, a, b)
+    torch.cuda.synchronize()
+    assert p256.p256_field_probe.launches == before + 1
+    assert torch.equal(got, p256.field_probe_plain(op, a, b))
+    rinv = pow(R, -1, m)
+    assert F.words_le_to_ints(got) == [x * y * rinv % m
+                                       for x, y in zip(va, vb)]
+
+
 def on_curve_rows(rows):
     return [r for r in rows if p256_tables.on_curve(r[0], r[1])]
 
