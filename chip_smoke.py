@@ -65,8 +65,13 @@ ends with one JSON line.  Phases:
              between the two, the flags equal to the stream's labels,
              KV7 launched once per device-validated block, block 3
              demoted (range_query) and nothing else; KV7 against its
-             plain version on blocks 1 and 2's lanes; block 2 timed warm
-             on fresh stacks, stage by stage, with one profiled run
+             plain version on blocks 1 and 2's lanes and on two variants
+             of block 2's (every tx on one hot slot; every seventh tx
+             wider than a lane of the walk), each with its dependency
+             depth; KV7 timed on block 2 whole and by phase (the gate
+             fold's grid-wide launches, the walk), with its bound from
+             the depth; block 2 timed warm on fresh stacks, stage by
+             stage, with one profiled run
 7. times   — medians of repeated runs (CUDA events for kernels); each
              kernel's plain version is timed by its one comparison call
              on the path's own batch for that kernel; KP2 at two sizes,
@@ -775,8 +780,34 @@ def creator_check(committer, raw: bytes, tx: int) -> dict:
                 hashlib.sha256(env.payload).digest())}
 
 
+def kv7_variants(ln, num: int) -> dict:
+    """A block's lanes changed two ways for KV7's hard cases -> {name:
+    lanes}.  "hot slot": every read and write on one slot, no deletes,
+    each read at the version the last code-0 writer before its tx left,
+    so every code-0 tx is one link of one chain; "wide txs": every
+    seventh tx takes the reads and writes of the six before it, more
+    than a lane of the walk holds."""
+    import numpy as np
+    from fabric_tpu_torch.ops import block_validate as kv7
+    c0 = kv7.code0(ln, num)
+    T = c0.shape[0]
+    w_off = np.searchsorted(ln["w_tx"], np.arange(T + 1))
+    writer = np.where((c0 == 0) & (np.diff(w_off) > 0), np.arange(T), -1)
+    prev = np.concatenate([[-1], np.maximum.accumulate(writer)[:-1]])
+    p = prev[ln["r_tx"]]
+    zero = np.zeros_like
+    hot = dict(ln, r_slot=zero(ln["r_slot"]), w_slot=zero(ln["w_slot"]),
+               w_del=zero(ln["w_del"]),
+               r_has=np.where(p >= 0, 1, ln["c_has"][0]).astype(np.int32),
+               r_blk=np.where(p >= 0, num, ln["c_blk"][0]).astype(np.int32),
+               r_txn=np.where(p >= 0, p, ln["c_txn"][0]).astype(np.int32))
+    m = np.minimum(7 * (np.arange(T) // 7) + 6, T - 1).astype(np.int32)
+    wide = dict(ln, r_tx=m[ln["r_tx"]], w_tx=m[ln["w_tx"]])
+    return {"hot slot": hot, "wide txs": wide}
+
+
 def commit_phase(torch, args, provider, orgs, raws, labels, fns,
-                 imad_rate: float, clock_hz: float) -> dict:
+                 clock_hz: float) -> dict:
     """Phase 7: the stream through two port stacks, KV7 on and off; the
     checks; KV7 against its plain version; the timings.  -> KV7's row of
     the kernels line."""
@@ -843,27 +874,45 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
           " state, history, commit hash)", demotions=demoted,
           launches=launches)
 
-    # KV7 against its plain version on blocks 1 and 2's full lanes; the
-    # plain version's time is its one comparison call on block 2
+    # KV7 against its plain version on blocks 1 and 2's full lanes and on
+    # block 2's hot-slot and wide-tx variants; the plain version's time
+    # is its one comparison call on block 2
     err = 0
-    for num in (1, 2):
-        ln = lanes_seen[num]
+    cases = [(f"block {num}", lanes_seen[num], num) for num in (1, 2)]
+    cases += [(name, ln, 2) for name, ln in
+              kv7_variants(lanes_seen[2], 2).items()]
+    for name, ln, num in cases:
         buf, d = kv7.pack(ln)
         buf_d = kv7.upload(buf, dev)
         got = kv7.block_validate_kernel(buf_d, d, num).cpu()
-        (gate, final), plain_ms = timed_once(
+        (gate, final), ms = timed_once(
             torch, lambda: kv7.block_validate_plain(ln, num))
         check(torch.equal(got[:d["T"]], gate)
               and torch.equal(got[d["T"]:], final),
-              f"KV7 != block_validate_plain on block {num}")
+              f"KV7 != block_validate_plain on {name}")
         err = max(err, int((got.to(torch.int16) - torch.cat(
             [gate, final]).to(torch.int16)).abs().max()))
-        phase("commit", kv7_vs_plain=f"equal on block {num}", **d)
+        depth = kv7.dep_depth(ln, num)
+        row = {"kv7_vs_plain": f"equal on {name}", "kv7_dep_depth": depth,
+               "valid": int((final == 0).sum()),
+               "mvcc": int((final == 11).sum()), **d}
+        if name != "block 2":
+            row["kv7_ms"] = round(event_ms(torch, lambda: (
+                kv7.block_validate_kernel(buf_d, d, num)), args.trials), 4)
+        phase("commit", **row)
+        if name == "block 2":
+            plain_ms, depth2, b2 = ms, depth, (buf_d, d)
+    buf_d, d = b2
     kv7_ms = event_ms(torch, lambda: kv7.block_validate_kernel(
         buf_d, d, 2), args.trials)
+    _, phase1, walk = kv7.block_validate_parts(buf_d, d, 2)
+    phase1()
+    phase1_ms = event_ms(torch, phase1, args.trials)
+    walk_ms = event_ms(torch, walk, args.trials)
     bytes_s = kv7.bytes_moved(d) / HBM_BYTES_PER_S
-    ops_s = (2 * d["S"] + 2 * d["E"] + 4 * d["T"] + 8 * d["R"]
-             + 3 * d["W"]) / imad_rate
+    # the walk's least dependent steps: one shared-memory round trip per
+    # link of the block's longest chain
+    ops_s = depth2 * SHMEM_CYCLES / clock_hz
     serial_ms = d["T"] * SHMEM_CYCLES / clock_hz * 1e3
 
     # block 2, warm, on fresh stacks holding blocks 0 and 1: validate +
@@ -896,10 +945,12 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
               valid_tx_per_s=round(v2 / med["total"] * 1e3, 1),
               **{f"{k}_ms": round(v, 3) for k, v in med.items()
                  if k != "total"})
-    phase("commit", kv7_ms=round(kv7_ms, 4), kv7_plain_ms=round(plain_ms, 2),
+    phase("commit", kv7_ms=round(kv7_ms, 4),
+          kv7_phase1_ms=round(phase1_ms, 4), kv7_walk_ms=round(walk_ms, 4),
+          kv7_plain_ms=round(plain_ms, 2), kv7_dep_depth=depth2,
           kv7_bound_ms=round(max(bytes_s, ops_s) * 1e3, 6),
           kv7_bound_by="operations" if ops_s >= bytes_s else "bytes",
-          kv7_serial_floor_ms=round(serial_ms, 4),
+          kv7_old_serial_floor_ms=round(serial_ms, 4),
           kv7_bytes=kv7.bytes_moved(d), smem_slots=kv7.smem_slots())
     if busy_ms > 0:
         phase("commit", profiled="block 2, KV7 on", wall_ms=round(wall_ms, 3),
@@ -918,7 +969,9 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
             "ms": kv7_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_s, ops_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-            "library_ms": None, "on_main_path": True}, launches
+            "library_ms": None, "on_main_path": True,
+            "phase1_ms": phase1_ms, "walk_ms": walk_ms,
+            "dep_depth": depth2}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1903,7 +1956,7 @@ def main(argv=None) -> int:
           window=COMMIT_WINDOW)
     kv7_row, commit_launches = commit_phase(
         torch, args, provider, orgs, commit_raws, commit_labels, fns,
-        imad_rate, max_clock_mhz * 1e6)
+        max_clock_mhz * 1e6)
     for kname, n in commit_launches.items():
         total[kname] = total.get(kname, 0) + n
 

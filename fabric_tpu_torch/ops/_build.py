@@ -65,6 +65,8 @@ SIGNATURES = {
     },
     "block_validate": {
         "block_validate_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
+        "block_validate_phase1_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
+        "block_validate_walk_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
         "block_validate_smem_slots": [],
     },
 }

@@ -27,11 +27,14 @@ it runs `block_validate_plain`, the plain PyTorch version (the fold in
 tensor ops, the walk a Python loop over the txs, with the reference's
 wseq state); on CUDA it packs the lanes into one int32 buffer (`pack`),
 copies it to the card once, launches KV7 (`csrc/block_validate.cu`,
-`block_validate_kernel`) and copies both outputs back at once.  The
-wrapper requires the read and write lanes in tx order (`r_tx`, `w_tx`
-non-decreasing, as `rwset_lanes` emits them), keeps only each tx's
-last write to each slot (`last_writes`: the earlier ones never decide
-a later read) and passes per-tx CSR offsets.
+`block_validate_kernel`: the gate fold as three grid-wide launches, then
+the walk in one thread block, which decides up to 32 txs a step) and
+copies both outputs back at once.  The wrapper requires the read and
+write lanes in tx order (`r_tx`, `w_tx` non-decreasing, as
+`rwset_lanes` emits them), keeps only each tx's last write to each slot
+(`last_writes`: the earlier ones never decide a later read) and passes
+per-tx CSR offsets.  `dep_depth` gives a block's dependency depth, the
+walk's least number of dependent steps.
 """
 
 from __future__ import annotations
@@ -234,13 +237,14 @@ def smem_slots() -> int:
     return n
 
 
-def block_validate_kernel(buf, d: dict, blk_num: int) -> torch.Tensor:
-    """KV7 wrapper: `buf` is `pack`'s buffer as an int32 tensor on a CUDA
-    device; launches the kernel on the current stream (one block, no
-    synchronisation) and returns the (2T,) uint8 output tensor, gate
-    codes then final codes.  The last-writer state lives in shared
-    memory when the slots fit (`smem_slots`), else in device memory.
-    Raises when the launch fails."""
+def _launcher(buf, d: dict, blk_num: int) -> tuple:
+    """Check `buf` (`pack`'s buffer as an int32 tensor on a CUDA device)
+    and allocate the output and scratch -> (out, launch): `out` the
+    (2T,) uint8 output tensor, gate codes then final codes, and
+    launch(fn) a call of one of the library's C entry points on the
+    current stream, raising when it fails.  The last-writer state lives
+    in shared memory when the slots fit (`smem_slots`), else in device
+    memory."""
     dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"KV7 runs on a CUDA device, got {dev}")
@@ -252,23 +256,50 @@ def block_validate_kernel(buf, d: dict, blk_num: int) -> torch.Tensor:
         raise ValueError("blk_num must fit in int32")
     T = d["T"]
     out = torch.empty(2 * T, dtype=torch.uint8, device=dev)
-    if T == 0:
-        return out
-    lib = _build.load("block_validate")
     with torch.cuda.device(dev):
-        smem = d["K"] <= smem_slots()
-        scratch = torch.empty(d["E"] + T + d["R"] + d["W"] + d["K"],
+        smem = T > 0 and d["K"] <= smem_slots()
+        scratch = torch.empty(d["E"] + 2 * T + d["R"] + d["W"] + d["K"],
                               dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.block_validate_launch(
-            ctypes.c_void_p(buf.data_ptr()),
-            *[ctypes.c_int(d[k]) for k in ("T", "E", "S", "R", "W", "K",
-                                           "TB", "V")],
-            ctypes.c_int(blk_num), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(scratch.data_ptr()), ctypes.c_int(int(smem)),
-            ctypes.c_void_p(stream))
-    if rc:
-        raise RuntimeError(f"block_validate launch failed: CUDA error {rc}")
+
+    def launch(fn):
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(ctypes.c_void_p(buf.data_ptr()),
+                    *[ctypes.c_int(d[k]) for k in
+                      ("T", "E", "S", "R", "W", "K", "TB", "V")],
+                    ctypes.c_int(blk_num), ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(scratch.data_ptr()),
+                    ctypes.c_int(int(smem)), ctypes.c_void_p(stream))
+        if rc:
+            raise RuntimeError(f"block_validate launch failed: CUDA error "
+                               f"{rc}")
+    return out, launch
+
+
+def block_validate_parts(buf, d: dict, blk_num: int) -> tuple:
+    """KV7's two phases apart, for timing: -> (out, phase1, walk), each
+    of `phase1` (the memset and the three grid-wide gate-fold launches)
+    and `walk` (the one-block walk, which needs phase 1's scratch) a
+    callable that launches its phase on the current stream, without
+    synchronisation.  Counts no launch; arguments as
+    `block_validate_kernel`."""
+    out, launch = _launcher(buf, d, blk_num)
+    lib = _build.load("block_validate")
+    return (out, lambda: launch(lib.block_validate_phase1_launch),
+            lambda: launch(lib.block_validate_walk_launch))
+
+
+def block_validate_kernel(buf, d: dict, blk_num: int) -> torch.Tensor:
+    """KV7 wrapper: `buf` is `pack`'s buffer as an int32 tensor on a CUDA
+    device; launches both phases on the current stream in one call (the
+    gate fold across the card, then the walk in one block; no
+    synchronisation) and returns the (2T,) uint8 output tensor, gate
+    codes then final codes.  Counts one launch a call.  Raises when a
+    launch fails."""
+    out, launch = _launcher(buf, d, blk_num)
+    if d["T"] == 0:
+        return out
+    launch(_build.load("block_validate").block_validate_launch)
     block_validate_kernel.launches += 1
     return out
 
@@ -309,6 +340,39 @@ def block_validate(lanes, blk_num: int, device=None,
         timings.update(pack_s=t1 - t0, upload_s=t2 - t1, kv7_s=t3 - t2,
                        download_s=time.perf_counter() - t3)
     return out[:d["T"]], out[d["T"]:]
+
+
+def code0(lanes, blk_num: int) -> np.ndarray:
+    """Each tx's code before the MVCC walk (its gate code, or 22 for a
+    gate-valid tx whose lane status is BAD): the plain version's final
+    codes with no reads or writes."""
+    bare = dict(lanes, **{n: lanes[n][:0] for n in _GROUPS["R"]
+                          + _GROUPS["W"]})
+    return block_validate_plain(bare, blk_num)[1].numpy().astype(np.int32)
+
+
+def dep_depth(lanes, blk_num: int) -> int:
+    """The block's dependency depth: the longest chain of txs t1 < t2 <
+    ... in which each t(k+1) reads a slot whose last code-0 writer before
+    it (whatever that writer's fate) is t(k).  A walk takes at least one
+    dependent step per link; a tx whose code is not 0 is in no chain.
+    One pass over the txs with a depth per slot, O(T + R + W)."""
+    c0 = code0(lanes, blk_num).tolist()
+    T = len(c0)
+    r_off = np.searchsorted(lanes["r_tx"], np.arange(T + 1)).tolist()
+    w_off = np.searchsorted(lanes["w_tx"], np.arange(T + 1)).tolist()
+    r_slot, w_slot = lanes["r_slot"].tolist(), lanes["w_slot"].tolist()
+    last = {}                  # slot -> depth of its last code-0 writer
+    best = 0
+    for t in range(T):
+        if c0[t]:
+            continue
+        dt = 1 + max((last.get(r_slot[j], 0)
+                      for j in range(r_off[t], r_off[t + 1])), default=0)
+        for j in range(w_off[t], w_off[t + 1]):
+            last[w_slot[j]] = dt
+        best = max(best, dt)
+    return best
 
 
 def bytes_moved(d: dict) -> int:

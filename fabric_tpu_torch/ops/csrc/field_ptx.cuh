@@ -30,14 +30,14 @@
 // ints; a change to any asm statement here is checked there.
 //
 // Operands stay in registers.  The arithmetic is forced inline; the
-// point layer's policy PtxField (KP2's field) reaches the multiply mod p
-// through mul_p_call, a real call whose operands and result are 8-word
-// structs passed by value, which the CUDA ABI keeps in registers.  KP2
-// has ~50 multiply sites in source, more once its point routines are
-// inlined: with mul_p inlined at each, the kernel's code no longer fits
-// the instruction cache, and KP2 ran 1.5x slower than with the call
-// (tools/kp2_ab.py on an H100, PERF.md).  The multiplies mod n (the
-// Fermat chain's loop, and four more) stay inline.
+// point layer's policy PtxField (KP2's and KP3's field) reaches the
+// multiply mod p through mul_p_call, a real call whose operands and
+// result are 8-word structs passed by value, which the CUDA ABI keeps in
+// registers.  KP2 has ~50 multiply sites in source, more once its point
+// routines are inlined: with mul_p inlined at each, the kernel's code no
+// longer fits the instruction cache, and KP2 ran 1.5x slower than with
+// the call (tools/kp2_ab.py on an H100, PERF.md).  The multiplies mod n
+// (the Fermat chain's loop, and a few more) stay inline.
 
 #pragma once
 #include <stdint.h>

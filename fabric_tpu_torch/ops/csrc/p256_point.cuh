@@ -1,9 +1,11 @@
 // P-256 point arithmetic for Hopper (sm_90a), one point per thread: the
-// Jacobian point type, the field policies, doubling, the adds, the comb
+// Jacobian point type, doubling, the adds, the comb
 // accumulation over a fixed-base table and the big-endian word loader.
-// Shared by KP2 (p256_verify.cu, on field_ptx.cuh's PtxField) and KP3
-// (p256_verify_rows.cu, on CiosField); every routine that multiplies
-// takes the field as its template parameter F.
+// Shared by KP2 (p256_verify.cu) and KP3 (p256_verify_rows.cu), both on
+// field_ptx.cuh's PtxField; every routine that multiplies takes the
+// field as its template parameter F.  No kernel multiplies through
+// p256_field.cuh's generic CIOS here any more; that header stays for
+// the adds and subtractions below and for KP1, KE5, KE6 and KB8.
 //
 // Replaces: fabric_tpu/ops/ecp256.py:dbl, add_nodbl, add_complete,
 // add_mixed and comb_accumulate.  Infinity is a flag, never Z == 0.
@@ -23,34 +25,8 @@ struct Jac {
 // The field a point routine computes in, its template parameter F:
 // F::mul(r, a, b) and F::sqr(r, a) mod p (a < 2^256, b < p), F::p_to_mont
 // (any 256-bit a), and mod n F::n_to_mont, F::n_mul and F::n_inv (the
-// scalars).  CiosField is p256_field.cuh's generic mont_mul, a call on
-// operands in local memory (KP3); field_ptx.cuh's PtxField keeps them in
-// registers (KP2).  Adds and subtractions are the same for both.
-struct CiosField {
-  static __device__ __forceinline__ void mul(uint32_t* r, const uint32_t* a,
-                                             const uint32_t* b) {
-    mont_mul<MOD_P>(r, a, b);
-  }
-  static __device__ __forceinline__ void sqr(uint32_t* r, const uint32_t* a) {
-    mont_mul<MOD_P>(r, a, a);
-  }
-  static __device__ __forceinline__ void p_to_mont(uint32_t* r,
-                                                   const uint32_t* a) {
-    to_mont<MOD_P>(r, a);
-  }
-  static __device__ __forceinline__ void n_to_mont(uint32_t* r,
-                                                   const uint32_t* a) {
-    to_mont<MOD_N>(r, a);
-  }
-  static __device__ __forceinline__ void n_mul(uint32_t* r, const uint32_t* a,
-                                               const uint32_t* b) {
-    mont_mul<MOD_N>(r, a, b);
-  }
-  static __device__ __forceinline__ void n_inv(uint32_t* r,
-                                               const uint32_t* a) {
-    mont_inv<MOD_N>(r, a);
-  }
-};
+// scalars): field_ptx.cuh's PtxField, operands in registers.  Adds and
+// subtractions are p256_field.cuh's.
 
 __device__ __forceinline__ void fp_add(uint32_t* r, const uint32_t* a,
                                        const uint32_t* b) {

@@ -7,8 +7,9 @@ The reference program is taken single-device, as ROADMAP C1 prescribes:
 one fixed bucket key, with the inputs padded as `_dispatch` pads them
 (pre with 255, status with SKIP, reads with r_tx = -1, writes with
 w_tx = -1, live masks 0), so one compile serves every case.  Inputs are
-made from numpy seeds: 200 random lane sets, then one directed case for
-each place where a rewrite of the walk can drift from `local`."""
+made from numpy seeds: 200 random lane sets, then the directed cases of
+`kv7_cases.py`, one for each place where a rewrite of the walk can drift
+from `local`."""
 import numpy as np
 import pytest
 import torch
@@ -17,11 +18,10 @@ import jax
 
 from fabric_tpu.committer.device_validate import DeviceValidator as RefDV
 from fabric_tpu_torch.ops import block_validate as kv7
+from kv7_cases import BLK, DIRECTED, OK, SKIP, BAD, lanes
 
 # the one bucket every case is padded to (powers of two, >= 8)
 TB_, EB, SB, RB, WB, KB, TABB, VB = 64, 256, 1024, 256, 256, 64, 8192, 512
-BLK = 7
-OK, SKIP, BAD = 0, 1, 2
 
 
 @pytest.fixture(scope="module")
@@ -66,12 +66,6 @@ def ref_local(prog, ln, blk_num=BLK):
 def port_local(ln, blk_num=BLK):
     gate, final = kv7.block_validate(ln, blk_num, device="cpu")
     return gate, final
-
-
-def lanes(**kw):
-    """A lane dict from lists (int32 arrays), empty where not given."""
-    out = {n: np.asarray(kw.get(n, []), dtype=np.int32) for n in kv7.FIELDS}
-    return out
 
 
 def random_lanes(rng):
@@ -155,55 +149,6 @@ def test_plain_matches_reference_on_random_lanes(ref_program, chunk):
         assert np.array_equal(pf, rf), seed
         n_conflicts += int((pf == 11).sum())
     assert n_conflicts > 0       # the corpus reaches the MVCC branch
-
-
-def one_plan(T, verdict=(1,)):
-    """Every tx planned, creator at verdict 0 (live), no entries."""
-    return dict(pre=[0] * T, status=[OK] * T, has_plan=[1] * T,
-                c_idx=[0] * T, c_live=[1] * T, verdict=list(verdict))
-
-
-DIRECTED = {
-    # tx0 deletes s0 (committed); tx1 reads s0 at its committed version
-    # (conflict: the in-block delete is what it sees), tx2 reads it
-    # absent (ok)
-    "read_after_in_block_delete": (dict(
-        one_plan(3), r_tx=[1, 2], r_slot=[0, 0], r_has=[1, 0],
-        r_blk=[0, 0], r_txn=[3, 0], w_tx=[0], w_slot=[0], w_del=[1],
-        c_has=[1], c_blk=[0], c_txn=[3]), [0, 11, 0]),
-    # two writes to one slot in tx0: put then delete, so tx1's absent
-    # read passes and tx2's versioned read fails; tx3 deletes then puts,
-    # so tx4 sees (BLK, 3)
-    "two_writes_one_slot": (dict(
-        one_plan(5), r_tx=[1, 2, 4], r_slot=[0, 0, 1], r_has=[0, 1, 1],
-        r_blk=[0, BLK, BLK], r_txn=[0, 0, 3],
-        w_tx=[0, 0, 3, 3], w_slot=[0, 0, 1, 1], w_del=[0, 1, 1, 0],
-        c_has=[0, 0], c_blk=[0, 0], c_txn=[0, 0]), [0, 0, 11, 0, 0]),
-    # tx0 fails its creator check (verdict 0): its write never lands, so
-    # tx1's read of the committed version passes
-    "gate_failed_writer": (dict(
-        pre=[0, 0], status=[OK, OK], has_plan=[1, 1], c_idx=[0, 1],
-        c_live=[1, 1], verdict=[0, 1], r_tx=[1], r_slot=[0], r_has=[1],
-        r_blk=[2], r_txn=[5], w_tx=[0], w_slot=[0], w_del=[0],
-        c_has=[1], c_blk=[2], c_txn=[5]), [4, 0]),
-    # reads without a version: absent committed key passes, present
-    # committed key fails
-    "r_has_zero": (dict(
-        one_plan(2), r_tx=[0, 1], r_slot=[0, 1], r_has=[0, 0],
-        r_blk=[0, 0], r_txn=[0, 0], c_has=[0, 1], c_blk=[0, 1],
-        c_txn=[0, 1]), [0, 11]),
-    # a gate-valid tx whose lane status is BAD gets 22, SKIP stays 0
-    "status_bad_and_skip": (dict(
-        pre=[0, 0, 0], status=[BAD, SKIP, OK], has_plan=[1, 1, 1],
-        c_idx=[0, 0, 0], c_live=[1, 1, 1], verdict=[1]), [22, 0, 0]),
-    # no plan: keeps its pre code (and a failing entry on a planned tx
-    # gives 10)
-    "no_plan_keeps_pre": (dict(
-        pre=[12, 255, 0], status=[OK, OK, OK], has_plan=[0, 0, 1],
-        c_idx=[0, 0, 0], c_live=[0, 0, 1], verdict=[1, 0],
-        ent_tx=[2], ent_off=[0], sig_ent=[0], sig_item=[1], sig_bit=[0],
-        tables=[0, 1]), [12, 255, 10]),
-}
 
 
 @pytest.mark.parametrize("case", sorted(DIRECTED))

@@ -28,6 +28,8 @@ from fabric_tpu_torch.ops import ed25519 as E
 from fabric_tpu_torch.ops import ed25519_tables as T
 from fabric_tpu_torch.ops import p256, p256_fixed, p256_tables
 
+import kv7_cases
+
 R = 1 << 256
 
 
@@ -166,6 +168,36 @@ def test_p256_verify_rows_kernel_matches_plain(cuda_device):
     assert low.cpu().tolist() == [bool(row[5]) for row in rows]
     with pytest.raises(ValueError, match="slot"):
         p256_fixed.p256_verify_rows(r, s, e, slot_t + 3, bank, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 39_500])
+def test_kp3_batched_inverse_matches_plain(n, cuda_device):
+    """KP3 takes s^-1 over each block of 128 threads at once: at batch
+    sizes around a block and at the block's size of the main path, with
+    refused s (0, n, above n, 2^256 - 1, high-S) scattered through one
+    block of threads, the verdicts equal the plain version's and the
+    labels."""
+    base = on_curve_rows(corpus())
+    rows = [list(base[i % len(base)]) for i in range(n)]
+    lo = (n - 1) // 128 // 2 * 128             # one block, mid-batch
+    bad = (0, F.N, F.N + 3, R - 1, F.N - base[0][3])
+    for k, i in enumerate(range(lo + 1, min(n, lo + 128), 9)):
+        rows[i][3], rows[i][5] = bad[k % len(bad)], False
+    bank, slot = bank_for(rows, cuda_device)
+    r, s, e = [torch.from_numpy(p256.ints_to_words(list(v))).to(cuda_device)
+               for v in list(zip(*rows))[2:5]]
+    table = p256_tables.g_table(cuda_device)
+    slot_t = torch.from_numpy(slot)
+    for low_s in (True, False):
+        got = p256_fixed.p256_verify_rows(r, s, e, slot_t, bank, table,
+                                          require_low_s=low_s)
+        want = p256_fixed.verify_words_rows_plain(r, s, e, slot_t, bank,
+                                                  table, require_low_s=low_s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        if low_s:
+            assert got.cpu().tolist() == [bool(row[5]) for row in rows]
 
 
 def hot_key_items(n_keys, per_key, seed):
@@ -522,6 +554,44 @@ def test_kv7_matches_plain(shape, cuda_device):
     g2, f2 = kv7.block_validate(ln, 3, device=cuda_device)
     assert np.array_equal(g2, gate.numpy())
     assert np.array_equal(f2, final.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(kv7_cases.DIRECTED))
+def test_kv7_directed_cases_match_plain(case, cuda_device):
+    """KV7 on each directed case of tests/kv7_cases.py (chains inside a
+    group, a delete then a read, a dependence across a group's end,
+    gate-failed writers, txs too wide for a lane, T = 1, 31 and 33, a
+    hot slot): equal to the plain version and the case's codes."""
+    from fabric_tpu_torch.ops import block_validate as kv7
+    spec, want = kv7_cases.DIRECTED[case]
+    ln = kv7_cases.lanes(**spec)
+    gate, final = kv7.block_validate(ln, kv7_cases.BLK, device=cuda_device)
+    pg, pf = kv7.block_validate_plain(ln, kv7_cases.BLK)
+    assert np.array_equal(gate, pg.numpy())
+    assert np.array_equal(final, pf.numpy())
+    assert final.tolist() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["shared", "device"])
+def test_kv7_colliding_stamps_match_plain(state, cuda_device):
+    """10,000 txs over slots that share stamp buckets (0, 8192, 16384,
+    ... of 40 buckets), every 7th tx too wide for a lane, with the
+    last-writer state in shared memory and, with more slots than shared
+    memory holds, in device memory: equal to the plain version."""
+    from fabric_tpu_torch.ops import block_validate as kv7
+    K = 3 * 8192 + 17 if state == "shared" else kv7.smem_slots() + 5_000
+    slots = np.asarray([b + k * 8192 for b in range(40)
+                        for k in range(K // 8192)])
+    ln = kv7_cases.big_lanes(np.random.default_rng(11), 10_000, K, slots,
+                             wide_every=7)
+    assert (K <= kv7.smem_slots()) == (state == "shared")
+    gate, final = kv7.block_validate(ln, kv7_cases.BLK, device=cuda_device)
+    pg, pf = kv7.block_validate_plain(ln, kv7_cases.BLK)
+    assert np.array_equal(gate, pg.numpy())
+    assert np.array_equal(final, pf.numpy())
+    assert (final == 11).any() and (final == 0).any()
 
 
 def port_stack(device_validate, provider, orgs, device):
