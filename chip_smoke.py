@@ -13,8 +13,9 @@ ends with one JSON line.  Phases:
              fastparse, fastcollect) from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
              ints, mod p, mod n, mod p25519 and mod BN254's p, edge values
-             included; KP2's field probe (p256_field_probe: field_ptx.cuh's
-             mul_p, sqr_p and mont_mul_ptx mod n) on 65,536 seeded inputs
+             included; the field probe (p256_field_probe: field_ptx.cuh's
+             mul_p, sqr_p and mont_mul_ptx mod n, KP2's, and mul_25519,
+             KE5's and KE6's) on 65,536 seeded inputs
              plus edge values each, bit for bit against the plain field and
              Python ints, timed
 3b. experiments — the counterparts of the Pallas microbenchmarks in
@@ -46,7 +47,8 @@ ends with one JSON line.  Phases:
              Ed25519 items under keys of their own, 2% corrupted (5 kinds,
              bad encodings of A among them).  Verdicts against labels, a
              subset against the software provider, KE6 and KE5 against
-             their plain versions on their whole batches
+             their plain versions on their whole batches (config 2's and
+             config 3's KE6 batches, the generic load's KE5 batch)
 6. commit  — the port's block path on the card: a stream of four
              blocks (block 0 seeds --commit-txs accounts in namespace
              cc; blocks 1 and 2 are --commit-txs transfers each, reading
@@ -80,7 +82,13 @@ ends with one JSON line.  Phases:
              each against its plain version and the labels, with SM-cycles
              a multiply and registers, frame and spills from the build log;
              one large pinned host-to-device copy gives the link rate that
-             bounds a table upload
+             bounds a table upload; KE5 on the block's 64 Ed25519 items
+             and KE6 on 64 of config 2's signatures (against the plain
+             version and the labels) give each one chain's cycles a
+             multiply, and with the chain's length (`ed25519.chain_muls`)
+             its chain floor, beside registers, frame and spills; the
+             warm block and config 2 profiled in one session, each a
+             labelled range, for the device's idle share
 9. idemix  — (run after 7, before the kernels line) BASELINE config 4:
              the provider's idemix_pair_probe(128), green and red; a
              seeded load of 4,096 pairing checks under 2 issuers, 2%
@@ -156,6 +164,9 @@ SLICE = 4096
 SW_SUBSET = 512
 FIELD_LANES = 4096
 PROBE_LANES = 65536            # inputs of each op of KP2's field probe
+SMALL_BATCH = 64               # KE6's lone-chain batch (the block's KE5 64)
+WARMUP_S = 0.5                 # a profiler session's marker time before a run
+WARMUP = "warm-up marker"      # its range's label
 CHAIN_K = 256
 SPILL_TXS = 500
 H2D_BYTES = 1 << 28            # the one large copy that gives the link rate
@@ -332,26 +343,79 @@ def event_ms(torch, fn, trials: int) -> float:
     return statistics.median(out)
 
 
-def device_busy(torch, fn):
-    """One profiled call of fn (which synchronises): -> (device busy ms,
-    wall ms, the three ops with the most device time).  Busy time is the
-    sum of self device time over all ops: one stream, so nothing
-    overlaps."""
-    from torch.profiler import ProfilerActivity, profile
+def kernel_launcher(torch, lib_name: str, args, n: int):
+    """The C entry point of csrc/<lib_name>.cu on args (device tensors)
+    and a fresh (n,) bool output, on the current stream, without the
+    wrapper's checks and copies -> a callable that launches once and
+    returns the output (a timing launch: no count)."""
+    import ctypes
+    from fabric_tpu_torch.ops import _build
+    fn = getattr(_build.load(lib_name), f"{lib_name}_launch")
+    dev = args[0].device
+
+    def run():
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        rc = fn(*[ctypes.c_void_p(a.data_ptr()) for a in args],
+                ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),
+                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        check(rc == 0, f"{lib_name} launch failed: CUDA error {rc}")
+        return out
+    return run
+
+
+def device_busy(torch, runs: dict) -> dict:
+    """One profiled session over labelled runs, {label: fn} (each fn
+    synchronises): -> {label: (device busy ms, wall ms, the three ops
+    with the most device time)}.  Each run is a range of its own
+    (`record_function`), which the profiler also spans on the device
+    over the work launched inside it; a run's busy time is the sum of
+    the device events (kernels, copies, memsets) that start inside its
+    device span, so the host's and the device's clocks are never
+    compared; one stream, so nothing overlaps.  In this process CUPTI
+    starts recording some tens of ms after the session starts (on an
+    H100: no CUDA call nor device event in the first 25-47 ms, so a run
+    shorter than that recorded nothing), so the session first launches a
+    marker for WARMUP_S in a range of its own; it fails unless the marker
+    was recorded, or if a run records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    walls = {}
+    mark = torch.zeros(1, device=torch.device("cuda"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            rows.append((us, ev.key))
-    rows.sort(reverse=True)
-    top = [f"{key[:40]}:{us / 1e3:.3f}ms" for us, key in rows[:3]]
-    return sum(us for us, _ in rows) / 1e3, wall_ms, top
+        with record_function("busy:" + WARMUP):
+            t_end = time.perf_counter() + WARMUP_S
+            while time.perf_counter() < t_end:
+                mark.add_(1)
+                torch.cuda.synchronize()
+                time.sleep(0.002)
+        for label, fn in runs.items():
+            with record_function("busy:" + label):
+                t0 = time.perf_counter()
+                fn()
+                walls[label] = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {e.name[5:]: e.time_range for e in device
+             if e.name.startswith("busy:")}
+    check(WARMUP in spans, "device_busy: the marker was not recorded: the "
+          "profiler was not yet recording")
+    out = {}
+    for label in runs:
+        check(label in spans, f"device_busy: {label}: the profiler recorded "
+              "no device time")
+        span, per_op = spans[label], {}
+        for e in device:
+            if not e.name.startswith("busy:") and \
+                    span.start <= e.time_range.start <= span.end:
+                per_op[e.name] = per_op.get(e.name, 0) + (
+                    e.time_range.end - e.time_range.start)
+        busy_ms = sum(per_op.values()) / 1e3
+        check(busy_ms > 0, f"device_busy: {label}: the profiler recorded no "
+              "device time")
+        top = sorted(per_op.items(), key=lambda kv: -kv[1])[:3]
+        out[label] = (busy_ms, walls[label],
+                      [f"{k[:40]}:{us / 1e3:.3f}ms" for k, us in top])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -933,8 +997,9 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
             if trial == args.trials - 1 and on:
                 c, _ = commit_stack(provider, orgs, True, dev)
                 commit_stream(c, raws[:2])
-                busy_ms, wall_ms, top = device_busy(
-                    torch, lambda: commit_stream(c, raws[2:3]))
+                busy_ms, wall_ms, top = device_busy(torch, {
+                    "block 2": lambda: commit_stream(c, raws[2:3])})[
+                        "block 2"]
     n2, v2 = len(labels[2]), labels[2].count(0)
     for on in (True, False):
         med = {k.removesuffix("_s"): statistics.median(
@@ -952,14 +1017,10 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
           kv7_bound_by="operations" if ops_s >= bytes_s else "bytes",
           kv7_old_serial_floor_ms=round(serial_ms, 4),
           kv7_bytes=kv7.bytes_moved(d), smem_slots=kv7.smem_slots())
-    if busy_ms > 0:
-        phase("commit", profiled="block 2, KV7 on", wall_ms=round(wall_ms, 3),
-              device_busy_ms=round(busy_ms, 3),
-              device_idle_share=round(1 - busy_ms / wall_ms, 4),
-              top_device_ops=top)
-    else:
-        phase("commit", profiled="block 2", device_idle_share="not measured"
-              " (the profiler recorded no device time)")
+    phase("commit", profiled="block 2, KV7 on", wall_ms=round(wall_ms, 3),
+          device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / wall_ms, 4),
+          top_device_ops=top)
     phase("commit", library="none: no PyTorch call computes the gate fold "
           "and the in-order MVCC walk")
     return {"name": "block_validate", "route": "cuda",
@@ -1297,16 +1358,13 @@ def idemix_phase(torch, args, provider, org1, configs, raw, labels, fns,
 
     # one profiled block on a fresh CUDA stack
     committer, _ = stack(provider)
-    busy_ms, wall_ms, top = device_busy(
-        torch, lambda: commit_stream(committer, [raw]))
-    if busy_ms > 0:
-        phase("idemix", profiled="idemix block", wall_ms=round(wall_ms, 3),
-              device_busy_ms=round(busy_ms, 3),
-              device_idle_share=round(1 - busy_ms / wall_ms, 4),
-              top_device_ops=top)
-    else:
-        phase("idemix", profiled="idemix block", device_idle_share="not "
-              "measured (the profiler recorded no device time)")
+    busy_ms, wall_ms, top = device_busy(torch, {
+        "idemix block": lambda: commit_stream(committer, [raw])})[
+            "idemix block"]
+    phase("idemix", profiled="idemix block", wall_ms=round(wall_ms, 3),
+          device_busy_ms=round(busy_ms, 3),
+          device_idle_share=round(1 - busy_ms / wall_ms, 4),
+          top_device_ops=top)
     phase("idemix", library="none: no PyTorch call computes a pairing")
     return {"name": "bn254_pairing", "route": "cuda",
             "source": "fabric_tpu_torch/ops/csrc/bn254_pairing.cu",
@@ -1405,8 +1463,9 @@ def msps_ident(msps, creator: bytes):
 # ---------------------------------------------------------------------------
 
 def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
-    """Phase 3's field probe: each of KP2's field routines (mul_p, sqr_p,
-    mont_mul_ptx mod n, through `p256_field_probe`) on PROBE_LANES inputs,
+    """Phase 3's field probe: each routine of field_ptx.cuh (KP2's mul_p,
+    sqr_p, mont_mul_ptx mod n and KE5's and KE6's mul_25519, through
+    `p256_field_probe`) on PROBE_LANES inputs,
     the edge values of `field_probe_edges` first and seeded ones after,
     bit for bit against the plain field (`field_probe_plain`) and Python
     ints, then timed by CUDA events.  -> the probe's row of the kernels
@@ -1419,7 +1478,7 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
     sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by_ops": 0.0}
     err = 0
     for op in p256.FIELD_PROBE_OPS:
-        m = p256.N if op == "mul_n" else p256.P
+        m = p256.field_probe_modulus(op)
         ea, eb = p256.field_probe_edges(op)
         k = PROBE_LANES - len(ea)
         va = ea + [rng.randrange(m if op == "sqr_p" else R) for _ in range(k)]
@@ -1439,8 +1498,8 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
         err = max(err, int((got.to(torch.int64) - plain.to(torch.int64))
                            .abs().max()))
         ms = event_ms(torch, lambda: p256.p256_field_probe(op, a, b), trials)
-        key = ("n", "mul") if op == "mul_n" else (
-            "p", "sqr" if op == "sqr_p" else "mul")
+        key = {"mul_n": ("n", "mul"), "sqr_p": ("p", "sqr"),
+               "mul_25519": ("p25519", "mul")}.get(op, ("p", "mul"))
         ops_s = PROBE_LANES * IMADS[key] / imad_rate
         bytes_s = PROBE_LANES * 32 * (2 if b is None else 3) / HBM_BYTES_PER_S
         bound = max(ops_s, bytes_s) * 1e3
@@ -1931,6 +1990,22 @@ def main(argv=None) -> int:
     phase("ed25519", ke6_batch=len(e6_keep), corrupted=len(
         [i for i in e6_keep if c2_kinds[i] is not None]),
         ke6_vs_plain="equal")
+    # config 3's KE6 batch: its Ed25519 items in the provider's order
+    n3 = len(c3_items) - len(c2_items)
+    c3_pass = provider.pass_ed25519(c3_items, range(n3, len(c3_items)))
+    ebank.unpin(c3_pass.pinned)
+    e3_keep, e3_arrays, e3_slot = c3_pass.fast
+    e3_words = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in e3_arrays]
+    e3_slot_t = torch.from_numpy(e3_slot)
+    kern = ed25519.ed25519_verify_rows(*e3_words, e3_slot_t, ebank_t, btab)
+    check(torch.equal(kern, ed25519.verify_words_rows_plain(
+        *e3_words, e3_slot_t, ebank_t, btab)),
+        "KE6 != verify_words_rows_plain on config 3's batch")
+    check((kern.cpu().numpy() == c3_want[e3_keep]).all(),
+          "KE6 on config 3's batch != labels")
+    phase("ed25519", ke6_config3_batch=len(e3_keep),
+          ke6_vs_plain_and_labels="equal")
 
     g_pass = provider.pass_ed25519(g_items, range(args.gen))
     provider.ed_key_tables.unpin(g_pass.pinned)
@@ -2042,6 +2117,22 @@ def main(argv=None) -> int:
                for a in b_pass.generic[1]]
     ke5_block_ms = event_ms(torch, lambda: ed25519.ed25519_verify(
         *b_words, btab), t)
+    kern = ed25519.ed25519_verify(*b_words, btab)
+    check(torch.equal(kern, ed25519.verify_words_plain(*b_words, btab)),
+          "KE5 != verify_words_plain on the block's Ed25519 items")
+    check((kern.cpu().numpy() == want[b_pass.generic[0]]).all(),
+          "KE5 on the block's Ed25519 items != labels")
+    # KE6 on config 2's first SMALL_BATCH signatures: one chain a
+    # signature, the card nearly empty (the lone chain's cycles a
+    # multiply), launched without the wrapper's copy of the slots
+    e6_small = [w[..., :SMALL_BATCH].contiguous() for w in e6_words]
+    ke6_small = kernel_launcher(
+        torch, "ed25519_verify_rows", [*e6_small, e6_slot_t[:SMALL_BATCH]
+                                       .to(dev), ebank_t, btab], SMALL_BATCH)
+    ke6_small_ms = event_ms(torch, ke6_small, t)
+    check(torch.equal(ke6_small(), ed25519.ed25519_verify_rows(
+        *e6_words, e6_slot_t, ebank_t, btab)[:SMALL_BATCH]),
+        "KE6 on its small batch != KE6 on the whole (== plain)")
 
     # one table's upload into a bank slot (K4: a host-to-device copy from
     # pageable memory, as the bank does), and the link's peak rate from
@@ -2082,6 +2173,25 @@ def main(argv=None) -> int:
                                       "p256_verify_kernel")
     kp3_res = _build.kernel_resources(built["p256_verify_rows"]["log"],
                                       "p256_verify_rows_kernel")
+    ke5_res = _build.kernel_resources(built["ed25519_verify"]["log"],
+                                      "ed25519_verify_kernel")
+    ke6_res = _build.kernel_resources(built["ed25519_verify_rows"]["log"],
+                                      "ed25519_verify_rows_kernel")
+    # the lone chains: KE5 on the block's 64 items and KE6 on SMALL_BATCH
+    # signatures run one chain a quad on a nearly empty card, so their
+    # time over the chain's multiplies is one chain's cycles a multiply
+    # (KE6's also carries its block's Euclid, which is no multiply); the
+    # chain floor of a launch is the chain at that rate
+    chain5 = ed25519.chain_muls("ed25519_verify")
+    chain6 = ed25519.chain_muls("ed25519_verify_rows")
+    ke5_lone = ke5_block_ms * 1e-3 * clock_hz / chain5
+    ke6_lone = ke6_small_ms * 1e-3 * clock_hz / chain6
+    ke5_chain = {"chain_muls": chain5,
+                 "lone_chain_cycles_per_mul": round(ke5_lone, 1),
+                 "chain_floor_ms": chain5 * ke5_lone / clock_hz * 1e3}
+    ke6_chain = {"chain_muls": chain6,
+                 "lone_chain_cycles_per_mul": round(ke6_lone, 1),
+                 "chain_floor_ms": chain6 * ke6_lone / clock_hz * 1e3}
     kp3_lanes = len(f_keep)
     muls3, imads3 = chain_muls, p256.imads_per_launch()
     for r_, s_, e_ in zip(*[ints(a) for a in f_arrays]):
@@ -2133,10 +2243,9 @@ def main(argv=None) -> int:
                    ) / HBM_BYTES_PER_S
     ke5_bound_ms = max(ke5_ops_s, ke5_bytes_s) * 1e3
 
-    busy_ms, wall_ms, top = device_busy(torch, lambda: provider.batch_verify(
-        items))
-    c2_busy_ms, c2_wall_ms, c2_top = device_busy(
-        torch, lambda: provider.batch_verify(c2_items))
+    profiled = device_busy(torch, {
+        "block": lambda: provider.batch_verify(items),
+        "config2": lambda: provider.batch_verify(c2_items)})
 
     print(name_power, flush=True)
     phase("times", block_items=len(items), warm=True,
@@ -2180,12 +2289,17 @@ def main(argv=None) -> int:
           ke6_plain_ms=round(ke6_plain_ms, 2),
           mont_muls_per_verify=round(e6_ops / ke6_lanes, 1),
           imads_per_verify=round(e6_imads / ke6_lanes, 1),
-          ke6_bound_ms=round(ke6_bound_ms, 4))
+          ke6_bound_ms=round(ke6_bound_ms, 4),
+          ke6_small_ms=round(ke6_small_ms, 4), ke6_small_sigs=SMALL_BATCH,
+          **{k: round(v, 4) for k, v in ke6_chain.items()}, **ke6_res)
     phase("times", ke5_ms=round(ke5_ms, 4), ke5_sigs=ke5_lanes,
           ke5_plain_ms=round(ke5_plain_ms, 2),
           mont_muls_per_verify=round(e5_ops / ke5_lanes, 1),
           imads_per_verify=round(e5_imads / ke5_lanes, 1),
-          ke5_bound_ms=round(ke5_bound_ms, 4))
+          ke5_bound_ms=round(ke5_bound_ms, 4),
+          ke5_block_ms=round(ke5_block_ms, 4),
+          ke5_block_sigs=len(b_words[1]),
+          **{k: round(v, 4) for k, v in ke5_chain.items()}, **ke5_res)
     phase("times", kp1_ms=round(kp1_ms, 4), kp1_lanes=lanes, kp1_k=CHAIN_K,
           kp1_ns_per_mul=round(kp1_ms * 1e6 / (lanes * CHAIN_K), 4),
           kp1_plain_ms=round(kp1_plain_ms, 2),
@@ -2202,17 +2316,11 @@ def main(argv=None) -> int:
           h2d_peak_gb_per_s=round(h2d_rate / 1e9, 3),
           upload_bound_ms=round(tab.nbytes / h2d_rate * 1e3, 4),
           ed_upload_bound_ms=round(etab.nbytes / h2d_rate * 1e3, 4))
-    for run, (b_ms, w_ms, tp) in (("block", (busy_ms, wall_ms, top)),
-                                  ("config2", (c2_busy_ms, c2_wall_ms,
-                                               c2_top))):
-        if b_ms > 0:
-            phase("times", profiled=run, wall_ms=round(w_ms, 3),
-                  device_busy_ms=round(b_ms, 3),
-                  device_idle_share=round(1 - b_ms / w_ms, 4),
-                  top_device_ops=tp)
-        else:
-            phase("times", profiled=run, device_idle_share="not measured "
-                  "(the profiler recorded no device time)")
+    for run, (b_ms, w_ms, tp) in profiled.items():
+        phase("times", profiled=run, wall_ms=round(w_ms, 3),
+              device_busy_ms=round(b_ms, 3),
+              device_idle_share=round(1 - b_ms / w_ms, 4),
+              top_device_ops=tp)
     phase("times", library="none: no PyTorch call computes ECDSA or "
           "Ed25519 verify (any lane) or a Montgomery multiply chain")
 
@@ -2267,14 +2375,16 @@ def main(argv=None) -> int:
          "launches": total["ed25519_verify_rows"], "max_abs_err": ke6_err,
          "ms": ke6_ms, "plain_ms": ke6_plain_ms, "bound_ms": ke6_bound_ms,
          "bound_by": by(ke6_ops_s, ke6_bytes_s),
-         "library_ms": None, "on_main_path": True},
+         "library_ms": None, "on_main_path": True,
+         "ms_small": ke6_small_ms, **ke6_chain, **ke6_res},
         {"name": "ed25519_verify", "route": "cuda",
          "source": "fabric_tpu_torch/ops/csrc/ed25519_verify.cu",
          "replaces": "fabric_tpu/ops/ed25519.py:47",
          "launches": total["ed25519_verify"], "max_abs_err": ke5_err,
          "ms": ke5_ms, "plain_ms": ke5_plain_ms, "bound_ms": ke5_bound_ms,
          "bound_by": by(ke5_ops_s, ke5_bytes_s),
-         "library_ms": None, "on_main_path": True},
+         "library_ms": None, "on_main_path": True,
+         "ms_block": ke5_block_ms, **ke5_chain, **ke5_res},
         *experiment_rows(exp_results, total, field_err),
     ]
     phase("done", seconds=round(time.perf_counter() - t_start, 1))

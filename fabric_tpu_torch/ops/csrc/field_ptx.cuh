@@ -12,12 +12,18 @@
 //                      and i + 8, and zeroes word i.  (KF2's `min`,
 //                      field_chain_variants.cu, is the same product and
 //                      reduction with a lazy end.)
+//   mul_25519          mod p25519 = 2^255 - 19, R = 2^256 (KE5, KE6).  The
+//                      same product; each reduction step takes
+//                      q = t_i 19^-1 mod 2^32 and adds (t_i + q p) / 2^32 =
+//                      q 2^223 - floor(19 q / 2^32), eight words formed
+//                      from q with two multiplies and a few ALU ops, in one
+//                      carry chain: no q p rows.
 //   mont_mul_ptx<M>    a generic CIOS for a modulus with no special form
 //                      (P-256's n; BN254's p has its limbs here too): each
 //                      step's a_i b row and q m row, q = t_0 (-m^-1), is
 //                      one asm statement.
 //
-// Both end fully reduced in [0, m): one conditional subtraction of m from
+// All end fully reduced in [0, m): one conditional subtraction of m from
 // the 257-bit result, which lies in [0, 2m).  Preconditions, as for
 // p256_field.cuh's mont_mul: a < 2^256 (to_mont is given unreduced words)
 // and b < m, so that a b < m 2^256.  r may alias a or b: r is written
@@ -33,7 +39,8 @@
 // point layer's policy PtxField (KP2's and KP3's field) reaches the
 // multiply mod p through mul_p_call, a real call whose operands and
 // result are 8-word structs passed by value, which the CUDA ABI keeps in
-// registers.  KP2 has ~50 multiply sites in source, more once its point
+// registers (KE5's and KE6's point layer calls mul_25519_call the same
+// way).  KP2 has ~50 multiply sites in source, more once its point
 // routines are inlined: with mul_p inlined at each, the kernel's code no
 // longer fits the instruction cache, and KP2 ran 1.5x slower than with
 // the call (tools/kp2_ab.py on an H100, PERF.md).  The multiplies mod n
@@ -177,6 +184,63 @@ __device__ __forceinline__ void sqr_p(uint32_t r[8], const uint32_t a[8]) {
 }
 
 // ---------------------------------------------------------------------------
+// mod p25519 = 2^255 - 19
+// ---------------------------------------------------------------------------
+
+// one reduction step at word i (t points at t_i): q = t_i 19^-1 mod 2^32
+// (F25519_MINV = -p^-1 mod 2^32), so 19 q = uh 2^32 + t_i and
+// t_i + q p = q 2^255 - uh 2^32.  The step adds the 8 words of
+// W = q 2^223 - uh, which is >= 0 (uh > 0 only when q >= 2^32 / 19), into
+// t[1..8] in one carry chain: w0 = -uh, then uh's borrow as all-ones
+// words wm, then v = q 2^31 - [uh > 0] at words 6 and 7 (q << 31 and
+// q >> 1 with that borrow), with c_in on top.  t_i becomes 0 and is not
+// written.  Returns the carry out of t[8], which belongs at t[9] and rides
+// the next step's top word (v's high word is < 2^31, so adding c_in is
+// exact).
+__device__ __forceinline__ uint32_t ptx_red_25519(uint32_t* t, uint32_t c_in) {
+  const uint32_t q = t[0] * F25519_MINV;
+  const uint32_t uh = __umulhi(q, 19u);
+  const uint32_t b = uh != 0u ? 1u : 0u;
+  const uint32_t w0 = 0u - uh;
+  const uint32_t wm = 0u - b;
+  const uint64_t v = ((uint64_t)q << 31) - b;
+  const uint32_t w6 = (uint32_t)v;
+  const uint32_t w7 = (uint32_t)(v >> 32) + c_in;
+  uint32_t c;
+  asm("add.cc.u32  %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %10;\n\t"
+      "addc.cc.u32 %4, %4, %10;\n\t"
+      "addc.cc.u32 %5, %5, %10;\n\t"
+      "addc.cc.u32 %6, %6, %11;\n\t"
+      "addc.cc.u32 %7, %7, %12;\n\t"
+      "addc.u32    %8, 0, 0;"
+      : "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]),
+        "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "=r"(c)
+      : "r"(w0), "r"(wm), "r"(w6), "r"(w7));
+  return c;
+}
+
+// r = a * b * 2^-256 mod p25519 in [0, p); a < 2^256, b < p; r may alias
+// a, b.  The product as mul_p's, 8 reduction steps of ptx_red_25519 (no
+// q p rows), one conditional subtraction: (c, t[8..15]) < 2p.
+__device__ __forceinline__ void mul_25519(uint32_t r[8], const uint32_t a[8],
+                                          const uint32_t b[8]) {
+  const uint32_t pw[8] = {0xFFFFFFEDu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu,
+                          0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu};
+  uint32_t t[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ptx_mul_row(t + i, a[i], b);
+  uint32_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c = ptx_red_25519(t + i, c);
+  ptx_reduce(r, t + 8, c, pw);
+}
+
+// ---------------------------------------------------------------------------
 // a generic modulus: P-256's n, BN254's p
 // ---------------------------------------------------------------------------
 
@@ -276,6 +340,14 @@ struct fe8 {
 __device__ __noinline__ fe8 mul_p_call(fe8 a, fe8 b) {
   fe8 r;
   mul_p(r.w, a.w, b.w);
+  return r;
+}
+
+// mul_25519 as a real call, operands and result by value (KE5's and
+// KE6's one multiply: edwards_point.cuh)
+__device__ __noinline__ fe8 mul_25519_call(fe8 a, fe8 b) {
+  fe8 r;
+  mul_25519(r.w, a.w, b.w);
   return r;
 }
 

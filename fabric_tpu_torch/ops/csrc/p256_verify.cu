@@ -43,8 +43,8 @@
 //     is one serial chain of ~4,000 multiplies.
 // The field probe (p256_field_probe_launch, below) runs mul_p, sqr_p and
 // mont_mul_ptx<MOD_N> once per thread, through PtxField as KP2 calls
-// them, so that each can be held bit for bit against the plain field on
-// the card.
+// them, and mul_25519 as KE5 and KE6 call it, so that each can be held
+// bit for bit against the plain field on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,8 +138,10 @@ extern "C" int p256_verify_launch(const void* qx, const void* qy,
 // a, b, out: (n, 8) uint32, little-endian words of input i at i * 8 + j.
 // op 0: mul_p(a, b), written over a; 1: sqr_p(a), in place; 2:
 // mont_mul_ptx<MOD_N>(a, b), written over b (KP2's call sites alias the
-// same ways).  Inputs must meet the routines' preconditions (a < 2^256;
-// b < p, or < n for op 2; a < p for sqr_p): the kernel does not check.
+// same ways); 3: mul_25519(a, b) through mul_25519_call, as KE5 and KE6
+// call it.  Inputs must meet the routines' preconditions (a < 2^256;
+// b < p, < n for op 2, < p25519 for op 3; a < p for sqr_p): the kernel
+// does not check.
 
 __global__ void __launch_bounds__(128)
     p256_field_probe_kernel(int op, const uint32_t* __restrict__ a,
@@ -157,6 +159,12 @@ __global__ void __launch_bounds__(128)
     PtxField::mul(x, x, y);
   } else if (op == 1) {
     PtxField::sqr(x, x);
+  } else if (op == 3) {
+    fe8 u, v;
+    fe_copy(u.w, x);
+    fe_copy(v.w, y);
+    u = mul_25519_call(u, v);
+    fe_copy(x, u.w);
   } else {
     PtxField::n_mul(y, x, y);
     fe_copy(x, y);
@@ -168,7 +176,7 @@ __global__ void __launch_bounds__(128)
 extern "C" int p256_field_probe_launch(int op, const void* a, const void* b,
                                        void* out, int n, void* stream) {
   if (n <= 0) return 0;
-  if (op < 0 || op > 2) return (int)cudaErrorInvalidValue;
+  if (op < 0 || op > 3) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   p256_field_probe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

@@ -11,8 +11,11 @@ decompressed.  Two lanes, as for P-256:
 * generic, kernel KE5 (`csrc/ed25519_verify.cu`, wrapper
   `ed25519_verify`, plain version `verify_words_plain`): S < L; A
   decompressed (verdict False when it does not); [S]B by the signed
-  7-bit comb over B's table; [k](-A) by the 4-bit window ladder; the
-  complete add; Z^-1; y and the parity of x against R's encoding.
+  7-bit comb over B's table; [k](-A) by a 4-bit window ladder; the
+  complete add; Z^-1; y and the parity of x against R's encoding.  The
+  kernel's ladder takes signed digits over 9 entries, and it compares
+  the sum with R decompressed (X == x_R Z, Y == y_R Z) in place of Z^-1:
+  the same verdicts.
 * fixed-key, kernel KE6 (`csrc/ed25519_verify_rows.cu`, wrapper
   `ed25519_verify_rows`, plain version `verify_words_rows_plain`): as
   KE5, except that [k](-A) is a second signed comb, over the table of
@@ -93,8 +96,9 @@ def _check_signs(name, x, n, device):
 
 
 def _launch(lib_name, fn_name, tensors, n, dev) -> torch.Tensor:
-    """Launch a kernel over tensors (+ out) on the current stream."""
-    if n >= 1 << 31:
+    """Launch a kernel over tensors (+ out) on the current stream; the
+    kernels take four threads a signature, so 4 n must fit an int."""
+    if 4 * n >= 1 << 31:
         raise ValueError("batch too large for one launch")
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
@@ -112,7 +116,7 @@ def _launch(lib_name, fn_name, tensors, n, dev) -> torch.Tensor:
 
 def ed25519_verify(ay, a_sign, ry, r_sign, s, k, table) -> torch.Tensor:
     """KE5 wrapper.  CUDA tensors launch the kernel on the current stream
-    (one thread per signature, no synchronisation); CPU tensors take
+    (four threads a signature, no synchronisation); CPU tensors take
     `verify_words_plain`.  Raises on anything the kernel does not take and
     when the launch fails."""
     if ay.dim() != 2 or ay.shape[0] != 8:
@@ -265,9 +269,46 @@ _POW22523 = ed.chain_ops(ed.pow22523_chain)
 INV_CHAIN = ed.chain_ops(ed.inv_chain)
 
 # Z^-1 over a batch, at least: Montgomery's trick costs 3 multiplies per
-# signature and one Fermat chain per launch (`INV_CHAIN`).  The kernels
-# do not batch it yet: each thread runs its own chain.
+# signature and one Fermat chain per launch (`INV_CHAIN`).  KE6 inverts
+# once per block of 32 signatures, by the binary extended Euclid; KE5
+# inverts nothing (it decompresses R beside A and compares
+# projectively), which the least work does not count on.
 INV_BATCH_MULS = 3
+
+
+# The kernels' dependent chains, in multiply latencies: four lanes a
+# signature run a point operation as two steps of one multiply a lane
+# (csrc/edwards_point.cuh).  KE5's lanes decompress A (lanes 0, 2, 3) and
+# R (lane 1) side by side and compare the sum with R projectively; KE6
+# inverts Z over its block of 32 signatures (4 warps) by Montgomery's
+# trick, the block's product by one thread's binary extended Euclid
+# (~750 dependent ALU steps of 8 words, no multiplies, not counted here).
+# The ladder's table holds 0Q ... 8Q in cached form.
+LADDER_ENTRIES = 9
+BLOCK_WARPS = 4
+
+
+def chain_muls(kernel: str) -> int:
+    """Dependent multiply latencies of one signature of `kernel`
+    ("ed25519_verify", KE5, or "ed25519_verify_rows", KE6), as the kernel
+    runs it: the floor of a launch whose chains overlap fully."""
+    comb = 2 * ed.COMB_WINDOWS                # one niels add a window
+    if kernel == "ed25519_verify_rows":
+        # the warp's prefix and suffix products (3 steps each), one
+        # thread's products over the warps, the Euclid's result to
+        # Montgomery form, the quad's 4 multiplies; then (X, Y) Z^-1 and
+        # from_mont
+        block_inv = 2 * 3 + 2 * BLOCK_WARPS + 1 + 4
+        return 2 * comb + block_inv + 2
+    if kernel != "ed25519_verify":
+        raise ValueError(f"unknown kernel {kernel!r}")
+    # to_mont y, y^2, d y^2, v^2, v^3, v^6, v^7, u v^7; the power; u v^3,
+    # x, x^2, v x^2, the sqrt(-1) fix, from_mont x; then T = x y of -A
+    decompress = 8 + sum(_POW22523.values()) + 6 + 1
+    table = 1 + 3 * (LADDER_ENTRIES - 2)      # Q cached; 2Q ... 8Q, cached
+    ladder = 2 * ed.LADDER_WINDOWS + 2 * ed.LADDER_W * (
+        ed.LADDER_WINDOWS - 1)
+    return decompress + table + ladder + comb + 1     # x_R Z, y_R Z
 
 
 def imads_per_launch() -> int:

@@ -33,9 +33,9 @@ import numpy as np
 import torch
 
 from . import _build, p256_tables
-from .field import (IMADS, LIMBS, N, P, add_const, fp, fn, is_zero_limbs,
-                    limbs_to_words_le, lt_const, words_be_to_limbs,
-                    words_le_to_limbs)
+from .field import (IMADS, LIMBS, N, P, add_const, f25519, fp, fn,
+                    is_zero_limbs, limbs_to_words_le, lt_const,
+                    words_be_to_limbs, words_le_to_limbs)
 from ..device import resolve_device
 
 A = P - 3
@@ -334,9 +334,16 @@ def verify_words(qx, qy, r, s, e, require_low_s: bool = True,
 # ---------------------------------------------------------------------------
 # Inputs and output (n, 8) uint32, little-endian words, Montgomery form
 # (R = 2^256).  mul_p is field_ptx.cuh's a b R^-1 mod p, sqr_p its a^2
-# R^-1 mod p, mul_n its mont_mul_ptx<MOD_N>, a b R^-1 mod n.
+# R^-1 mod p, mul_n its mont_mul_ptx<MOD_N>, a b R^-1 mod n, mul_25519
+# its a b R^-1 mod p25519 (KE5's and KE6's multiply).
 
-FIELD_PROBE_OPS = ("mul_p", "sqr_p", "mul_n")
+_PROBE_FIELD = {"mul_p": fp, "sqr_p": fp, "mul_n": fn, "mul_25519": f25519}
+FIELD_PROBE_OPS = tuple(_PROBE_FIELD)
+
+
+def field_probe_modulus(op: str) -> int:
+    """The modulus of a probe op."""
+    return _PROBE_FIELD[op].m
 
 
 def field_probe_plain(op: str, a: torch.Tensor,
@@ -347,7 +354,7 @@ def field_probe_plain(op: str, a: torch.Tensor,
         raise ValueError(f"unknown field op {op!r}; one of {FIELD_PROBE_OPS}")
     x = words_le_to_limbs(a)
     y = x if op == "sqr_p" else words_le_to_limbs(b)
-    return limbs_to_words_le((fn if op == "mul_n" else fp).mul(x, y))
+    return limbs_to_words_le(_PROBE_FIELD[op].mul(x, y))
 
 
 def p256_field_probe(op: str, a: torch.Tensor,
@@ -401,8 +408,9 @@ def field_probe_edges(op: str) -> tuple:
     values just past it as a; operands whose words are all ones, so that
     every carry chain carries into its top word; inputs whose result is
     0, 1 or m - 1 (a = m, a = R^-1 mod m, a = (m - 1) R^-1 mod m against
-    b = R^2 mod m)."""
-    m = N if op == "mul_n" else P
+    b = R^2 mod m); mod p25519 also 2p and 2^256 - 1 - p as a (a >= p,
+    as to_mont is given)."""
+    m = field_probe_modulus(op)
     top = (1 << 256) - 1
     r2 = (1 << 512) % m
     rinv = pow(1 << 256, -1, m)
@@ -413,6 +421,9 @@ def field_probe_edges(op: str) -> tuple:
     if op == "sqr_p":                           # a is also b: a < p
         a = [x for x in a if x < m] + [(1 << 224) - 1, m - 2]
         b = a
+    if op == "mul_25519":
+        a += [2 * m, top - m, m - 1]
+        b += [m - 1, 2, m - 1]
     return a, b
 
 

@@ -110,11 +110,11 @@ def test_p256_verify_kernel_matches_plain(cuda_device):
 @pytest.mark.parametrize("n", [37, 4096])
 @pytest.mark.parametrize("op", p256.FIELD_PROBE_OPS)
 def test_p256_field_probe_matches_plain_and_ints(op, n, cuda_device):
-    """KP2's field routines (field_ptx.cuh's mul_p, sqr_p, mont_mul_ptx
-    mod n) through the probe, bit for bit against the plain field and
-    Python ints; the edge values first."""
+    """The field routines of field_ptx.cuh (mul_p, sqr_p, mont_mul_ptx
+    mod n; mul_25519, KE5's and KE6's) through the probe, bit for bit
+    against the plain field and Python ints; the edge values first."""
     rng = random.Random(31 + n)
-    m = F.N if op == "mul_n" else F.P
+    m = p256.field_probe_modulus(op)
     ea, eb = p256.field_probe_edges(op)
     va = (ea + [rng.randrange(m if op == "sqr_p" else R)
                 for _ in range(n)])[:n]
@@ -377,6 +377,120 @@ def test_ed25519_kernels_match_plain(cuda_device):
     assert got.cpu().tolist() == labels
     with pytest.raises(ValueError, match="slot"):
         E.ed25519_verify_rows(*rows, slot + 4, bank, table)
+
+
+RAGGED = (1, 7, 9, 33, 100, 129)
+
+
+@pytest.fixture(scope="module")
+def ed_ragged():
+    """max(RAGGED) Ed25519 items under 5 keys, every third one bad in
+    turn: wrong message, S + L, R.y = p + 1 (>= p), R = (y 1, sign 1)
+    (x = 0 with sign 1), R.y with no x, and for KE5 A.y = p + 1 and A = (y
+    1, sign 1), which do not decompress -> (items, labels, the fixed-key
+    items' indices)."""
+    rng = random.Random(77)
+    keys = [crypto.ed25519_key_from_seed(rng.randbytes(32)) for _ in range(5)]
+    pubs = [crypto.ed25519_public_bytes(k) for k in keys]
+    bad = ("msg", "s_plus_l", "r_noncanon", "r_x0_sign1", "r_no_x",
+           "a_noncanon", "a_x0_sign1")
+    items, labels = [], []
+    for i in range(max(RAGGED)):
+        j = i % 5
+        msg = rng.randbytes(rng.randrange(0, 120))
+        sig, pk = crypto.ed25519_sign(keys[j], msg), pubs[j]
+        kind = bad[(i // 3) % len(bad)] if i % 3 == 2 else None
+        if kind == "msg":
+            msg += b"!"
+        elif kind == "s_plus_l":
+            s = int.from_bytes(sig[32:], "little") + E.L
+            sig = sig[:32] + s.to_bytes(32, "little")
+        elif kind == "r_noncanon":
+            sig = (ED_P + 1).to_bytes(32, "little") + sig[32:]
+        elif kind == "r_x0_sign1":
+            sig = (1 | 1 << 255).to_bytes(32, "little") + sig[32:]
+        elif kind == "r_no_x":                 # 2 is no y of the curve
+            sig = (2).to_bytes(32, "little") + sig[32:]
+        elif kind == "a_noncanon":
+            pk = (ED_P + 1).to_bytes(32, "little")
+        elif kind == "a_x0_sign1":
+            pk = (1 | 1 << 255).to_bytes(32, "little")
+        items.append(VerifyItem(SCHEME_ED25519, pk, sig, msg))
+        labels.append(kind is None)
+    fixed = [i for i, it in enumerate(items) if it.pubkey in pubs]
+    return items, labels, fixed
+
+
+@pytest.fixture(scope="module")
+def ed_ragged_plain(ed_ragged):
+    """The whole ragged corpus through both plain versions once (a
+    verdict is each signature's own, so a prefix's are the prefix of
+    these) -> (KE5 args, KE5 plain, KE6 args, KE6 plain), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    dev = torch.device("cuda")
+    items, labels, fixed = ed_ragged
+    packed = E.pack_verify_inputs(*zip(*[it[1:] for it in items]))
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in packed]
+    table = T.b_table(dev)
+    plain5 = E.verify_words_plain(*args, table)
+    slots = {}
+    for i in fixed:
+        slots.setdefault(items[i].pubkey, len(slots))
+    bank = torch.stack([torch.from_numpy(T.table_for_pubkey(pk))
+                        for pk in slots]).to(dev)
+    slot = torch.tensor([slots[items[i].pubkey] for i in fixed],
+                        dtype=torch.int32)
+    rows = [torch.from_numpy(np.ascontiguousarray(a[..., fixed])).to(dev)
+            for a in packed[2:]]
+    plain6 = E.verify_words_rows_plain(*rows, slot, bank, table)
+    return (args, plain5, (rows, slot, bank), plain6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", RAGGED)
+def test_ed25519_kernels_ragged_sizes(n, ed_ragged, ed_ragged_plain,
+                                      cuda_device):
+    """KE5 and KE6 (four lanes a signature, 32 a block) on the first n
+    signatures of a corpus whose bad lanes sit beside good ones in every
+    quad's warp: equal to the plain versions and the labels; a bad lane
+    leaks nothing into its neighbours, a quad past n writes nothing."""
+    _, labels, fixed = ed_ragged
+    args, plain5, (rows, slot, bank), plain6 = ed_ragged_plain
+    table = T.b_table(cuda_device)
+    got = E.ed25519_verify(*[a[..., :n].contiguous() for a in args], table)
+    assert torch.equal(got, plain5[:n])
+    assert got.cpu().tolist() == labels[:n]
+    m = sum(1 for i in fixed if i < n)
+    got = E.ed25519_verify_rows(*[r[..., :m].contiguous() for r in rows],
+                                slot[:m].contiguous(), bank, table)
+    assert torch.equal(got, plain6[:m])
+    assert got.cpu().tolist() == [labels[i] for i in fixed[:m]]
+
+
+@pytest.mark.cuda
+def test_device_busy_two_sessions_in_a_row(ed_ragged_plain, cuda_device):
+    """chip_smoke.device_busy twice in a row, each session over two
+    labelled runs (KE6 launches, a copy, a matmul): every run of both
+    sessions records device time, at most its wall time."""
+    import chip_smoke
+    _, _, (rows, slot, bank), _ = ed_ragged_plain
+    table = T.b_table(cuda_device)
+    x = torch.randn(512, 512, device=cuda_device)
+
+    def ke6():
+        E.ed25519_verify_rows(*rows, slot, bank, table).cpu()
+
+    def dense():
+        (x @ x).sum().item()
+
+    for _ in range(2):
+        out = chip_smoke.device_busy(torch, {"ke6": ke6, "dense": dense})
+        assert set(out) == {"ke6", "dense"}
+        for busy_ms, wall_ms, top in out.values():
+            assert 0 < busy_ms <= wall_ms and top
+        assert any("ed25519_verify_rows" in t for t in out["ke6"][2])
 
 
 @pytest.mark.cuda

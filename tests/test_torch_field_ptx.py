@@ -2,8 +2,9 @@
 before and without any build: an instruction-level model of PTX's carry
 semantics runs the PTX text of every asm statement of the header, read
 from the header itself, under a statement-for-statement Python mirror of
-the C around them, and `mul_p`, `sqr_p` and `mont_mul_ptx` (P-256's n and
-BN254's p) are held against Python ints: r == a b 2^-256 mod m, r < m.
+the C around them, and `mul_p`, `sqr_p`, `mul_25519` (KE5's and KE6's
+multiply mod 2^255 - 19) and `mont_mul_ptx` (P-256's n and BN254's p)
+are held against Python ints: r == a b 2^-256 mod m, r < m.
 A test drops one carry at a time and shows the check catches it.  The
 field probe's CPU path (`ops/p256.py` `p256_field_probe`) is held against
 ints and against the reference's `bignum.Mont` multiply."""
@@ -105,7 +106,7 @@ def parse_asm(name: str) -> dict:
 
 
 STATEMENTS = ("ptx_mul_row", "ptx_row", "ptx_reduce", "ptx_red_p",
-              "ptx_red_row")
+              "ptx_red_row", "ptx_red_25519")
 ASM = {name: parse_asm(name) for name in STATEMENTS}
 
 
@@ -127,6 +128,10 @@ def value(w) -> int:
 
 # p's words as mul_p spells them (0u and 1u are not hex there)
 P_WORDS = [0xFFFFFFFF, 0xFFFFFFFF, 0xFFFFFFFF, 0, 0, 0, 1, 0xFFFFFFFF]
+P25519_WORDS = header_words(r"mul_25519\(uint32_t r.*?pw\[8\] = \{.*?\};")
+F25519_MINV = int(re.search(
+    r"#define F25519_MINV (0x[0-9A-F]+)u",
+    (CSRC / "p256_field.cuh").read_text()).group(1), 16)
 MWORDS = header_words(r"ptx_mword\(int j\) \{.*?\n\}")
 N_WORDS, BN_WORDS = MWORDS[:8], MWORDS[8:]
 MINV = {F.N: (-pow(F.N, -1, 1 << 32)) % (1 << 32),
@@ -254,6 +259,31 @@ def ptx_red_p(t, c_in, fault=NO_FAULT):
     return env["c"]
 
 
+def ptx_red_25519(t, c_in, fault=NO_FAULT):
+    q = (t[0] * F25519_MINV) & M32
+    uh = (q * 19) >> 32                        # __umulhi(q, 19u)
+    b = 1 if uh != 0 else 0
+    w0 = (0 - uh) & M32
+    wm = (0 - b) & M32
+    v = ((q << 31) - b) & ((1 << 64) - 1)
+    w6 = v & M32
+    w7 = ((v >> 32) + c_in) & M32
+    env = {"t": t, "w0": w0, "wm": wm, "w6": w6, "w7": w7, "c": None}
+    run_asm("ptx_red_25519", env, fault)
+    return env["c"]
+
+
+def mul_25519(r, a, b, fault=NO_FAULT):
+    pw = list(P25519_WORDS)
+    t = [0] * 16
+    for i in range(8):
+        ptx_mul_row(View(t, i), a[i], b, fault)
+    c = 0
+    for i in range(8):
+        c = ptx_red_25519(View(t, i), c, fault)
+    ptx_reduce(r, View(t, 8), c, pw, fault)
+
+
 def mul_p(r, a, b, fault=NO_FAULT):
     pw = list(P_WORDS)
     t = [0] * 17
@@ -303,6 +333,8 @@ def emulate(op: str, a: int, b: int, fault=NO_FAULT) -> int:
         mul_p(r, limbs32(a), limbs32(b), fault)
     elif op == "sqr_p":
         sqr_p(r, limbs32(a), fault)
+    elif op == "mul_25519":
+        mul_25519(r, limbs32(a), limbs32(b), fault)
     else:
         mont_mul_ptx(F.N if op == "mul_n" else F.BN254, r, limbs32(a),
                      limbs32(b), fault)
@@ -313,8 +345,9 @@ def emulate(op: str, a: int, b: int, fault=NO_FAULT) -> int:
 # Inputs
 # ---------------------------------------------------------------------------
 
-OPS = ("mul_p", "sqr_p", "mul_n", "mul_bn254")
-MOD = {"mul_p": F.P, "sqr_p": F.P, "mul_n": F.N, "mul_bn254": F.BN254}
+OPS = ("mul_p", "sqr_p", "mul_n", "mul_bn254", "mul_25519")
+MOD = {"mul_p": F.P, "sqr_p": F.P, "mul_n": F.N, "mul_bn254": F.BN254,
+       "mul_25519": F.P25519}
 
 
 def seeded(op: str, count: int, seed: int) -> tuple:
@@ -361,6 +394,8 @@ def test_header_constants_are_the_moduli():
     assert value(P_WORDS) == F.P
     assert value(N_WORDS) == F.N
     assert value(BN_WORDS) == F.BN254
+    assert value(P25519_WORDS) == F.P25519
+    assert (F25519_MINV * 19) % (1 << 32) == 1        # -p^-1 = 19^-1
     pw = header_words(r"pw\[8\] = \{.*?\};")
     assert [w for w in pw] == [w for w in P_WORDS if w not in (0, 1)]
     field_h = (CSRC / "p256_field.cuh").read_text()
@@ -390,13 +425,13 @@ def test_emulation_matches_ints(op):
         assert 0 <= got < m
 
 
-@pytest.mark.parametrize("op", ["mul_p", "mul_n"])
+@pytest.mark.parametrize("op", ["mul_p", "mul_n", "mul_25519"])
 def test_emulation_aliasing(op):
     """r aliasing a, b, or both (pt_dbl's fp_mul(x, x, y), the Fermat
     chain's acc = acc * acc): the result is the same."""
     m = MOD[op]
-    run = mul_p if op == "mul_p" else (
-        lambda r, a, b: mont_mul_ptx(F.N, r, a, b))
+    run = {"mul_p": mul_p, "mul_25519": mul_25519}.get(
+        op, lambda r, a, b: mont_mul_ptx(F.N, r, a, b))
     for a, b in cases(op, 40, seed=7):
         x, y = limbs32(a), limbs32(b)
         run(x, x, y)
@@ -430,8 +465,15 @@ DROP_SITES = [("ptx_mul_row", 3), ("ptx_mul_row", 8), ("ptx_mul_row", 14),
               ("ptx_row", 14), ("ptx_red_p", 2), ("ptx_red_p", 5),
               ("ptx_red_p", 6), ("ptx_red_row", 4), ("ptx_red_row", 8),
               ("ptx_red_row", 9), ("ptx_red_row", 15), ("ptx_red_row", 18),
-              ("ptx_reduce", 1), ("ptx_reduce", 7), ("ptx_reduce", 8)]
-OPS_OF = {"ptx_mul_row": ("mul_p", "sqr_p"), "ptx_red_p": ("mul_p", "sqr_p"),
+              ("ptx_reduce", 1), ("ptx_reduce", 7), ("ptx_reduce", 8),
+              # mod p25519: W's borrow words (-uh's borrow carried up), its
+              # q << 31 and q >> 1 words, and the carry out of t[8]
+              ("ptx_red_25519", 1), ("ptx_red_25519", 3),
+              ("ptx_red_25519", 5), ("ptx_red_25519", 6),
+              ("ptx_red_25519", 7), ("ptx_red_25519", 8)]
+OPS_OF = {"ptx_mul_row": ("mul_p", "sqr_p", "mul_25519"),
+          "ptx_red_p": ("mul_p", "sqr_p"),
+          "ptx_red_25519": ("mul_25519",),
           "ptx_row": ("mul_n", "mul_bn254"),
           "ptx_red_row": ("mul_n", "mul_bn254"), "ptx_reduce": OPS}
 

@@ -47,34 +47,36 @@ LIBS = {"p256_verify": "p256_verify_kernel",
         "p256_verify_rows": "p256_verify_rows_kernel"}
 
 
-def build(srcs: dict) -> dict:
-    """{label: csrc dir} -> {label: {lib: ctypes.CDLL}}, printing each
-    kernel's ptxas figures."""
+def build(srcs: dict, libs: dict = LIBS) -> dict:
+    """{label: csrc dir} -> {label: {lib: ctypes.CDLL}} for the sources
+    `libs` names ({lib: kernel}), their C entries typed as ops/_build.py
+    types them, printing each kernel's ptxas figures."""
     from fabric_tpu_torch.ops import _build
     procs = {}
     for label, src in srcs.items():
         out = ROOT / "build" / "ab" / label
         out.mkdir(parents=True, exist_ok=True)
-        for lib in LIBS:
+        for lib in libs:
             cmd = [_build.find_nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
                    "-o", str(out / f"lib{lib}.so"), str(Path(src) / f"{lib}.cu")]
             procs[label, lib] = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)
-    libs = {}
+    dlls = {}
     for (label, lib), proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"FAILED: nvcc {label}/{lib}.cu:\n{log}")
-        res = _build.kernel_resources(log, LIBS[lib])
-        print(json.dumps({"build": label, "kernel": LIBS[lib], **res}),
+        res = _build.kernel_resources(log, libs[lib])
+        print(json.dumps({"build": label, "kernel": libs[lib], **res}),
               flush=True)
         dll = ctypes.CDLL(str(ROOT / "build" / "ab" / label / f"lib{lib}.so"))
-        fn = getattr(dll, f"{lib}_launch")
-        fn.argtypes = _build.SIGNATURES[lib][f"{lib}_launch"]
-        fn.restype = ctypes.c_int
-        libs.setdefault(label, {})[lib] = fn
-    return libs
+        for fn_name, argtypes in _build.SIGNATURES[lib].items():
+            fn = getattr(dll, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        dlls.setdefault(label, {})[lib] = dll
+    return dlls
 
 
 def launcher(torch, fn, args, n):
@@ -165,7 +167,8 @@ def main(argv=None) -> int:
     for label in order:
         row = {"label": label}
         for name, (lib, a, n, plain, _) in cases.items():
-            run = launcher(torch, libs[label][lib], a, n)
+            run = launcher(torch, getattr(libs[label][lib], f"{lib}_launch"),
+                           a, n)
             cs.check(torch.equal(run(), plain), f"{label} {name} != plain")
             ms = cs.event_ms(torch, run, args.trials)
             times[label][name].append(ms)
