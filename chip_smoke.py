@@ -106,6 +106,16 @@ ends with one JSON line.  Phases:
              tower probe, each routine (mul, sqr, cyc_sqr, mul_by_lines,
              pow_u, final_exp) on 4,096 seeded inputs bit for bit against
              its plain version, timed at 4,096 and at 30 inputs
+10. mesh   — (run after 9, before the kernels line) parallel/mesh.py and
+             its users on the card: node.warmup in a process of its own
+             (every library built into build/warmup_probe/, then a block
+             with nvcc and cc barred), entry(), dryrun_multichip(2) and
+             (4), the warm block, config 2 and config 3 through the plain
+             provider and meshes of one and two shards on cuda:0 (equal
+             verdicts, one table build a key, one bank replica, launches a
+             shard, times in turns, the mesh code's own host ms), the
+             spill drill and KB8's 4,096 seeded checks on two shards, and
+             a device trace of two warm blocks (capture_device_trace)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -119,7 +129,9 @@ threshold at small sizes), the idemix runs KB8 (and KV7 and the Org1
 endorsements' P-256 lane in the block).  KP1, KF2 and KI3 are
 benchmark kernels, the counterparts of experiments/, and KB8's tower
 probe and KP2's field probe tests of their routines; they are on no main
-path: their counts there are 0.
+path: their counts there are 0.  Phase 10's mesh providers are not the
+main path either: their launches stay out of the kernels line, and its
+[mesh] lines give them per provider, cell and shard.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -136,6 +148,7 @@ import argparse
 import hashlib
 import json
 import multiprocessing
+import os
 import random
 import statistics
 import subprocess
@@ -165,8 +178,6 @@ SW_SUBSET = 512
 FIELD_LANES = 4096
 PROBE_LANES = 65536            # inputs of each op of KP2's field probe
 SMALL_BATCH = 64               # KE6's lone-chain batch (the block's KE5 64)
-WARMUP_S = 0.5                 # a profiler session's marker time before a run
-WARMUP = "warm-up marker"      # its range's label
 CHAIN_K = 256
 SPILL_TXS = 500
 H2D_BYTES = 1 << 28            # the one large copy that gives the link rate
@@ -298,7 +309,14 @@ def _envelope_job(job):
     return out
 
 
+_PHASE_S = {}                  # seconds by phase: each line's own, since
+_LAST_LINE = [time.perf_counter()]  # the line before it
+
+
 def phase(tag: str, **kv) -> None:
+    now = time.perf_counter()
+    _PHASE_S[tag] = _PHASE_S.get(tag, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     extra = " ".join(f"{k}={v}" for k, v in kv.items())
     print(f"[{tag}] {extra}".rstrip(), flush=True)
 
@@ -375,20 +393,16 @@ def device_busy(torch, runs: dict) -> dict:
     starts recording some tens of ms after the session starts (on an
     H100: no CUDA call nor device event in the first 25-47 ms, so a run
     shorter than that recorded nothing), so the session first launches a
-    marker for WARMUP_S in a range of its own; it fails unless the marker
-    was recorded, or if a run records no device time."""
+    marker for `profiling.MARKER_S` in a range of its own
+    (`profiling.marker_warmup`); it fails unless the marker was
+    recorded, or if a run records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+    from fabric_tpu_torch.ops_plane.profiling import MARKER, marker_warmup
     walls = {}
-    mark = torch.zeros(1, device=torch.device("cuda"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("busy:" + WARMUP):
-            t_end = time.perf_counter() + WARMUP_S
-            while time.perf_counter() < t_end:
-                mark.add_(1)
-                torch.cuda.synchronize()
-                time.sleep(0.002)
+        marker_warmup("busy:" + MARKER)
         for label, fn in runs.items():
             with record_function("busy:" + label):
                 t0 = time.perf_counter()
@@ -397,7 +411,7 @@ def device_busy(torch, runs: dict) -> dict:
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = {e.name[5:]: e.time_range for e in device
              if e.name.startswith("busy:")}
-    check(WARMUP in spans, "device_busy: the marker was not recorded: the "
+    check(MARKER in spans, "device_busy: the marker was not recorded: the "
           "profiler was not yet recording")
     out = {}
     for label in runs:
@@ -1459,6 +1473,354 @@ def msps_ident(msps, creator: bytes):
 
 
 # ---------------------------------------------------------------------------
+# the mesh (phase 10): parallel/mesh.py, placement's providers, the entry,
+# warmup and trace capture
+# ---------------------------------------------------------------------------
+
+# warmup in a process of its own, with build directories of its own under
+# build/ (so that it builds every library), then one block with the
+# compilers barred
+WARMUP_PROBE = r"""
+import json, shutil, sys
+from pathlib import Path
+from fabric_tpu_torch import native
+from fabric_tpu_torch.ops import _build
+root = Path(sys.argv[1])
+_build.BUILD_DIR = root / "kernels"
+native.BUILD_DIR = root / "native"
+from fabric_tpu_torch.node import warmup as W
+man = W.warmup([64], verbose=False)
+from fabric_tpu_torch.bccsp import get_default
+
+def barred(*a, **k):
+    raise AssertionError("a build after warmup")
+
+_build._start = barred
+native._compile = barred
+items = W.gen_p256_sigs(512, 8, seed=3) + W.gen_ed25519_sigs(64, 64, seed=4)
+ok = bool(get_default().batch_verify(items).all())
+shutil.rmtree(root)
+print(json.dumps({"manifest": man, "block_ok": ok, "block_items": len(items)}))
+"""
+
+
+class _Timed:
+    """A kernel wrapper's module attribute in its place: sums the seconds
+    spent inside it for a LaneTimer.  Its `launches` is the wrapper's own,
+    which the wrapper increments through its module's global name."""
+
+    def __init__(self, timer, orig):
+        self.timer, self.orig = timer, orig
+
+    @property
+    def launches(self):
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.orig.launches = n
+
+    def __call__(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return self.orig(*a, **k)
+        finally:
+            self.timer.lane_s += time.perf_counter() - t0
+
+
+class LaneTimer:
+    """Wraps the four signature wrappers (module attributes, which the
+    provider and the mesh look up at each call) to sum the seconds spent
+    inside them."""
+
+    NAMES = (("p256_fixed", "p256_verify_rows"), ("p256", "p256_verify"),
+             ("ed25519", "ed25519_verify_rows"), ("ed25519", "ed25519_verify"))
+
+    def __init__(self):
+        self.lane_s, self.saved = 0.0, []
+
+    def __enter__(self):
+        import importlib
+        for mod_name, fn_name in self.NAMES:
+            mod = importlib.import_module(f"fabric_tpu_torch.ops.{mod_name}")
+            orig = getattr(mod, fn_name)
+            self.saved.append((mod, fn_name, orig))
+            setattr(mod, fn_name, _Timed(self, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, orig in self.saved:
+            setattr(mod, fn_name, orig)
+
+
+# a mesh lane's kernel, by its key in `fns`
+LANE_KERNEL = {"p256": "p256_verify", "p256-rows": "p256_verify_rows",
+               "ed25519": "ed25519_verify",
+               "ed25519-rows": "ed25519_verify_rows",
+               "idemix-pair": "bn254_pairing"}
+
+
+def recorded_sharded(provider):
+    """Wrap a mesh provider's sharded lanes to keep each call's (verdicts,
+    valid count) -> (that list, the lanes to put back)."""
+    calls, saved = [], dict(provider._sharded)
+    for lane, fn in saved.items():
+        def rec(*a, _fn=fn):
+            out = _fn(*a)
+            calls.append(out)
+            return out
+        provider._sharded[lane] = rec
+    return calls, saved
+
+
+def timed_sharded(provider):
+    """Wrap a mesh provider's sharded lanes to sum the seconds spent in
+    them -> a one-element list holding that sum."""
+    spent = [0.0]
+    for lane, fn in list(provider._sharded.items()):
+        def timed(*a, _fn=fn):
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            spent[0] += time.perf_counter() - t0
+            return out
+        provider._sharded[lane] = timed
+    return spent
+
+
+def mesh_phase(torch, args, cells, spill, builds, host_tables, fns,
+               name_power) -> dict:
+    """Phase 10.  cells: {name: (items, labels, kinds, kernels that must
+    launch, kernels that may)} of the warm block, config 2 and config 3;
+    spill: the spill drill's (items, labels, kinds); builds: the table
+    builds a provider makes over the cells, (P-256, Ed25519);
+    host_tables: {public key: table} built in phases 4-5, which the
+    fresh providers here take in place of building them again (their
+    banks still count a build and an upload a key).  Its launches are its
+    own: they stay out of the main path's counts.  -> the phase's
+    numbers."""
+    import numpy as np
+    from fabric_tpu_torch import entry as entrymod
+    from fabric_tpu_torch.bccsp.cuda import CudaProvider
+    from fabric_tpu_torch.ops import bn254 as kb8
+    from fabric_tpu_torch.ops import ed25519_tables, p256_tables
+    from fabric_tpu_torch.ops_plane import profiling
+    from fabric_tpu_torch.parallel import mesh as meshmod
+    out, launches_by = {}, {}
+    parts_s, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts_s[name] = round(now - t_part[0], 2)
+        t_part[0] = now
+
+    # warmup, in a fresh process: seconds per library and per lane, then a
+    # block that pays no nvcc or cc build
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", WARMUP_PROBE,
+                          "build/warmup_probe"], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, f"warmup probe failed:\n{res.stdout}\n"
+          f"{res.stderr[-4000:]}")
+    probe = json.loads(res.stdout.strip().splitlines()[-1])
+    man = probe["manifest"]
+    check(probe["block_ok"], "the block after warmup rejected a valid item")
+    check(all(man["builds_s"][lib] > 0 for lib in man["builds_s"]),
+          "warmup: a library was not built in its own build directory")
+    phase("mesh", warmup_builds_s={k: round(v, 2) for k, v in
+                                   man["builds_s"].items()},
+          build_wall_s=round(man["build_wall_s"], 2),
+          lanes_s={k: round(v, 4) for k, v in man["lanes_s"].items()},
+          block_after_warmup=f"{probe['block_items']} items, all True, "
+          "no nvcc or cc build", process_s=round(time.perf_counter() - t0, 2))
+    out["warmup"] = man
+    part("warmup")
+
+    # the entry and the dry runs
+    fn, eargs = entrymod.entry()
+    v = fn(*eargs)
+    check(v.shape == (128,) and bool(v.all()), "entry(): 128 items all True")
+    phase("mesh", entry="128 items, all True")
+    for n in (2, 4):
+        rec = entrymod.dryrun_multichip(n)
+        check(rec["shards"] == n, "dryrun shard count")
+        phase("mesh", dryrun_multichip=n, checks="all held", record=rec)
+    part("entry_dryruns")
+
+    # three providers on the warm cells, their tables built once a key
+    tables = dict(host_tables)
+
+    def cached(build):
+        def fn(pk):
+            if pk not in tables:
+                tables[pk] = build(pk)
+            return tables[pk]
+        return fn
+
+    meshes = {"plain": None, "mesh-1": meshmod.make_mesh(["cuda:0"]),
+              "mesh-2": meshmod.make_mesh(["cuda:0"] * 2)}
+    provs = {}
+    for label, mesh in meshes.items():
+        prov = CudaProvider(mesh=mesh)
+        prov.key_tables.build_fn = cached(p256_tables.table_for_pubkey)
+        prov.ed_key_tables.build_fn = cached(ed25519_tables.table_for_pubkey)
+        provs[label] = prov
+    verdicts = {}
+    for label, prov in provs.items():
+        if prov.mesh is not None:
+            lane_calls, saved = recorded_sharded(prov)
+        for cell, (items, labels, kinds, on, maybe) in cells.items():
+            for fn_ in fns.values():
+                fn_.launches = 0
+            if prov.mesh is not None:
+                for lane_fn in saved.values():
+                    lane_fn.shard_launches[:] = [0] * len(prov.mesh)
+            got = prov.batch_verify(items)
+            launches = {k: f.launches for k, f in fns.items()}
+            launches_by[label, cell] = {k: n for k, n in launches.items()
+                                        if n}
+            check_verdicts(f"mesh {label} {cell}", got, np.asarray(labels),
+                           kinds)
+            verdicts[label, cell] = got
+            if label != "plain":
+                check(np.array_equal(got, verdicts["plain", cell]),
+                      f"mesh {label} {cell}: verdicts != the plain provider's")
+            check(prov.stats["fallbacks"] == 0, f"mesh {label}: fallbacks")
+            if prov.mesh is not None:
+                check(lane_calls and all(int(c) == int(v.sum())
+                                         for v, c in lane_calls),
+                      f"mesh {label} {cell}: a valid count != its verdicts")
+                lane_calls.clear()
+            check_launches(f"mesh {label} {cell}", launches, on, maybe)
+            # per shard: what each wrapper's own count gained across the
+            # shard's calls (mesh.py); the plain provider is one shard
+            shards = ({LANE_KERNEL[lane]: list(f.shard_launches)
+                       for lane, f in saved.items() if any(f.shard_launches)}
+                      if prov.mesh is not None else
+                      {k: [n] for k, n in launches_by[label, cell].items()})
+            check({k: sum(v) for k, v in shards.items()}
+                  == launches_by[label, cell],
+                  f"mesh {label} {cell}: launches a shard {shards} do not "
+                  f"add up to the run's {launches_by[label, cell]}")
+            phase("mesh", provider=label, cell=cell,
+                  launches=launches_by[label, cell],
+                  launches_per_shard=shards, verdicts_vs_labels="equal")
+        if prov.mesh is not None:
+            prov._sharded.update(saved)
+        check((prov.key_tables.stats["builds"],
+               prov.ed_key_tables.stats["builds"]) == builds,
+              f"mesh {label}: table builds != one a key {builds}")
+    for label, prov in provs.items():
+        for bank in ("key_tables", "ed_key_tables"):
+            st, st0 = getattr(prov, bank).stats, getattr(provs["plain"],
+                                                         bank).stats
+            check(st == st0, f"mesh {label}: {bank} stats {st} != {st0}")
+            check(len(getattr(prov, bank).replicas()) == 1,
+                  f"mesh {label}: {bank} holds more than one replica")
+        check(prov.stats == provs["plain"].stats,
+              f"mesh {label}: stats != the plain provider's")
+    plain_p = provs["plain"]
+    phase("mesh", table_builds=builds,
+          table_h2d_bytes=(plain_p.key_tables.stats["h2d_bytes"],
+                           plain_p.ed_key_tables.stats["h2d_bytes"]),
+          replicas=1, stats_vs_plain="equal",
+          valid_counts_vs_verdicts="equal")
+    part("providers")
+
+    # times: medians of args.trials warm runs a provider, in two turns
+    # (plain, mesh-1, mesh-2, mesh-2, mesh-1, plain), and the mesh code's
+    # own host time (the sharded calls less the wrappers inside them)
+    spent = {label: timed_sharded(p) for label, p in provs.items()
+             if p.mesh is not None}
+    order = ("plain", "mesh-1", "mesh-2", "mesh-2", "mesh-1", "plain")
+    per_turn = -(-args.trials // 2)
+    times = {(label, cell): [] for label in provs for cell in cells}
+    own = {(label, cell): [] for label in spent for cell in cells}
+    for label in order:
+        prov = provs[label]
+        for cell, (items, *_rest) in cells.items():
+            for _ in range(per_turn):
+                with LaneTimer() as sc:
+                    if label in spent:
+                        spent[label][0] = 0.0
+                    t0 = time.perf_counter()
+                    prov.batch_verify(items)
+                    times[label, cell].append((time.perf_counter() - t0)
+                                              * 1e3)
+                if label in spent:
+                    own[label, cell].append((spent[label][0] - sc.lane_s)
+                                            * 1e3)
+    print(name_power, flush=True)
+    for cell in cells:
+        row = {}
+        for label in provs:
+            t = times[label, cell]
+            row[label] = {"median_ms": statistics.median(t),
+                          "turns_ms": [statistics.median(t[:per_turn]),
+                                       statistics.median(t[per_turn:])]}
+            if label in spent:
+                row[label]["mesh_host_ms"] = statistics.median(
+                    own[label, cell])
+        phase("mesh", times=cell, warm_runs=2 * per_turn, **row)
+        out[cell] = row
+    part("times")
+
+    # the spill drill through the 2-shard mesh
+    s_items, s_labels, s_kinds = spill
+    drill = CudaProvider(max_cached_keys=2, mesh=meshmod.make_mesh(
+        ["cuda:0"] * 2))
+    plain_drill = CudaProvider(max_cached_keys=2)
+    got, want_ = drill.batch_verify(s_items), plain_drill.batch_verify(
+        s_items)
+    check(np.array_equal(got, want_), "mesh spill drill != the plain drill")
+    check_verdicts("mesh spill drill", got, np.asarray(s_labels), s_kinds)
+    check(drill.key_tables.stats == plain_drill.key_tables.stats
+          and drill.key_tables.stats["pinned_spills"] > 0,
+          f"mesh spill drill: bank stats {drill.key_tables.stats}")
+    phase("mesh", spill_items=len(s_items), bank_stats=drill.key_tables.stats,
+          verdicts_vs_plain_and_labels="equal")
+    part("spill")
+
+    # KB8 over two shards on phase 9's seeded checks
+    load = seeded_checks(IDEMIX_CHECKS, SEED + 11)
+    args9 = kb8_args(torch, torch.device("cuda"), load)
+    plain = kb8.bn254_pairing_check(*args9)
+    sharded_kb8 = meshmod.sharded_idemix_pair_verify(
+        meshmod.make_mesh(["cuda:0"] * 2))
+    got, count = sharded_kb8(*args9)
+    check(sharded_kb8.shard_launches == [1, 1],
+          f"sharded KB8: launches a shard {sharded_kb8.shard_launches}")
+    check(torch.equal(got, plain), "sharded KB8 != KB8")
+    check(got.cpu().tolist() == load["labels"], "sharded KB8 != labels")
+    check(int(count) == sum(load["labels"]), "sharded KB8 count")
+    phase("mesh", kb8_shards=2, checks=len(load["labels"]),
+          vs_unsharded_and_labels="equal", valid=int(count),
+          launches_per_shard={"bn254_pairing": sharded_kb8.shard_launches})
+    part("kb8")
+
+    # a device trace around two warm blocks
+    prov = provs["plain"]
+    items = cells["block"][0]
+    trace = profiling.capture_device_trace(
+        0.05, "chiprun_out/mesh_trace",
+        work=lambda: [prov.batch_verify(items) for _ in range(2)])
+    check("error" not in trace, f"trace: {trace}")
+    names = trace["kernels"]
+    for k in ("p256_verify_rows_kernel", "p256_verify_kernel",
+              "ed25519_verify_kernel"):
+        check(any(k in nm for nm in names), f"trace: no {k} event")
+    phase("mesh", trace=trace["trace"], device_events=trace["device_events"],
+          kernels=[nm[:40] for nm in names][:12])
+    part("trace")
+    phase("mesh", seconds=parts_s)
+    out["seconds"] = parts_s
+    out["unverified"] = ("cudaStreamWaitEvent across devices and a "
+                         "library's static cudart on a device other than 0: "
+                         "one card here")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # KP2's field probe (phase 3) and KP2's work (phase 7)
 # ---------------------------------------------------------------------------
 
@@ -1788,11 +2150,13 @@ def main(argv=None) -> int:
     bank = provider.key_tables
     build_fn = bank.build_fn
     build_s = []
+    host_tables = {}            # the tables built here, for phase 10
 
     def timed_build(pk):
         t = time.perf_counter()
         tab = build_fn(pk)
         build_s.append(time.perf_counter() - t)
+        host_tables[pk] = tab
         return tab
 
     bank.build_fn = timed_build
@@ -1906,6 +2270,7 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         tab = eb_fn(pk)
         ed_build_s.append(time.perf_counter() - t)
+        host_tables[pk] = tab
         return tab
 
     ebank.build_fn = timed_ed_build
@@ -2340,6 +2705,19 @@ def main(argv=None) -> int:
     probe_row["launches"] = total.get("bn254_tower_probe", 0)
     field_probe_row["launches"] = total.get("p256_field_probe", 0)
 
+    # --- 10. mesh ------------------------------------------------------------
+    cells = {"block": (items, labels, kinds, ("p256_verify_rows",
+                                              "p256_verify",
+                                              "ed25519_verify"), ()),
+             "config2": (c2_items, c2_labels, c2_kinds,
+                         ("ed25519_verify_rows",), ()),
+             "config3": (c3_items, list(c3_want), c3_kinds,
+                         ("p256_verify_rows", "ed25519_verify_rows"),
+                         ("p256_verify",))}
+    mesh_phase(torch, args, cells, (items[:n_spill], labels[:n_spill],
+                                    kinds[:n_spill]), (hot_keys, ED_KEYS),
+               host_tables, fns, name_power)
+
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
         return "operations" if ops_s >= bytes_s else "bytes"
@@ -2387,7 +2765,8 @@ def main(argv=None) -> int:
          "ms_block": ke5_block_ms, **ke5_chain, **ke5_res},
         *experiment_rows(exp_results, total, field_err),
     ]
-    phase("done", seconds=round(time.perf_counter() - t_start, 1))
+    phase("done", seconds=round(time.perf_counter() - t_start, 1),
+          by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

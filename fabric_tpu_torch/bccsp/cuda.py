@@ -40,10 +40,21 @@ jaxtpu.py` (`_verify_p256` with its vectorized lane split,
   once, ~0.2 s, and uploaded, 35,072 bytes).
 * Unknown schemes are False and count as `host_rejects`.
 
+With a mesh (`CudaProvider(mesh=parallel.mesh.make_mesh(...))`, the
+counterpart of `JaxTpuProvider(mesh=...)`), the host passes and the lane
+choice run once, as above, against the one slot map; each lane's chunk
+then goes to the lane's sharded function (`parallel/mesh.py`), which
+splits it over the mesh's shards, each on its own stream, with each
+distinct device's replica of the banks, of G's and B's tables and of the
+idemix lines.  Without a mesh, every launch is the wrapper's own, on the
+current stream.
+
 All device work of one call (the five kernels, the banks' slot writes
-and the idemix line uploads) runs on the current CUDA stream;
-`resolve()` waits for that stream's work whatever stream is current when
-it is called.  A slot rebuilt for one batch is written only after every
+and the idemix line uploads) runs on the current CUDA stream, or, for
+the kernels under a mesh, on the shard streams, whose verdicts are
+gathered on the current stream of the mesh's first device; `resolve()`
+waits for that stream's work whatever stream is current when it is
+called.  A slot rebuilt for one batch is written only after every
 launch of an earlier batch that reads it, on any stream (`DeviceBank`).
 
 Unlike the reference, nothing falls back: a failed build of the C parser
@@ -71,6 +82,7 @@ from ..ops import bn254 as kb8
 from ..ops import ed25519, ed25519_tables, p256_fixed, p256_tables
 from ..ops import p256 as p256mod
 from ..ops.device_bank import DeviceBank
+from ..parallel import mesh as meshmod
 from . import provider as prov
 from .provider import (VerifyItem, SCHEME_P256, SCHEME_ED25519,
                        SCHEME_IDEMIX)
@@ -187,10 +199,12 @@ class CudaProvider(prov.Provider):
     name = "cuda"
 
     def __init__(self, require_low_s: bool = True, device=None,
-                 fast_key_threshold: int = 64, max_cached_keys: int = 256):
+                 fast_key_threshold: int = 64, max_cached_keys: int = 256,
+                 mesh=None):
         """device: where the lanes run (default CUDA; raises when there
         is none).  device="cpu" runs the kernels' plain PyTorch
-        versions, for tests.
+        versions, for tests.  mesh: a `parallel.mesh.DeviceMesh` whose
+        shards run the lanes, in place of device.
 
           fast_key_threshold  signatures a key must bring to one batch to
                               earn a table slot (a P-256 build costs
@@ -200,7 +214,22 @@ class CudaProvider(prov.Provider):
                               P-256's and Ed25519's
         """
         self.require_low_s = require_low_s
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("give device or mesh, not both")
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            devices = (self.device,)
+        else:
+            self.device = mesh.devices[0]
+            devices = mesh.distinct_devices
+            self._sharded = {
+                "p256": meshmod.sharded_p256_verify(mesh, require_low_s),
+                "p256-rows": meshmod.sharded_p256_rows_verify(
+                    mesh, require_low_s),
+                "ed25519": meshmod.sharded_ed25519_verify(mesh),
+                "ed25519-rows": meshmod.sharded_ed25519_rows_verify(mesh),
+                "idemix-pair": meshmod.sharded_idemix_pair_verify(mesh)}
         self.sw = SoftwareProvider(require_low_s=require_low_s)
         self.stats = {"dispatches": 0, "device_sigs": 0, "host_rejects": 0,
                       "fallbacks": 0, "fast_key_sigs": 0, "h2d_bytes": 0}
@@ -208,20 +237,32 @@ class CudaProvider(prov.Provider):
         self.max_cached_keys = int(max_cached_keys)
         self.key_tables = DeviceBank(
             self.max_cached_keys, (p256_tables.ROWS, p256_tables.ROW_WORDS),
-            p256_tables.table_for_pubkey, device=self.device)
+            p256_tables.table_for_pubkey, devices=devices)
         self.ed_key_tables = DeviceBank(
             self.max_cached_keys, (ed25519.ROWS, ed25519.ROW_WORDS),
-            ed25519_tables.table_for_pubkey, device=self.device)
-        self._g_table = p256_tables.g_table(self.device)
-        self._b_table = ed25519_tables.b_table(self.device)
-        # the idemix lane's device lines: slot 0 g2's, then one slot per
-        # issuer's w in order of first sight
+            ed25519_tables.table_for_pubkey, devices=devices)
+        # one replica per device of G's and B's tables and of the idemix
+        # lane's lines (slot 0 g2's, then one slot per issuer's w in order
+        # of first sight) and their flags
+        self._g_tables = {d: p256_tables.g_table(d) for d in devices}
+        self._b_tables = {d: ed25519_tables.b_table(d) for d in devices}
+        self._g_table = self._g_tables[devices[0]]
+        self._b_table = self._b_tables[devices[0]]
         g2 = self._idemix_g2_packed()
         self._idemix_lock = threading.Lock()
         self._idemix_slots: dict = {}
-        self._idemix_flags = torch.from_numpy(g2["flags"]).to(self.device)
-        self._idemix_lines = torch.from_numpy(g2["lines"][None]).to(
-            self.device)
+        self._idemix_flag_reps = {d: torch.from_numpy(g2["flags"]).to(d)
+                                  for d in devices}
+        self._idemix_line_reps = {
+            d: torch.from_numpy(g2["lines"][None]).to(d) for d in devices}
+
+    @property
+    def _idemix_flags(self) -> torch.Tensor:
+        return self._idemix_flag_reps[self.device]
+
+    @property
+    def _idemix_lines(self) -> torch.Tensor:
+        return self._idemix_line_reps[self.device]
 
     def stats_snapshot(self) -> ProviderStats:
         """Point-in-time copy of the counters plus the bank's builds."""
@@ -342,11 +383,12 @@ class CudaProvider(prov.Provider):
 
     def _upload(self, arrays, lo, hi):
         """Columns lo:hi of each host array (the last axis indexes the
-        signatures) -> tensors on the device."""
+        signatures) -> tensors on the device (under a mesh, host tensors:
+        each shard's columns are copied on its own stream)."""
         words = [torch.from_numpy(np.ascontiguousarray(a[..., lo:hi]))
                  for a in arrays]
         self.stats["h2d_bytes"] += sum(w.nbytes for w in words)
-        if self.device.type == "cuda":
+        if self.mesh is None and self.device.type == "cuda":
             words = [w.pin_memory().to(self.device, non_blocking=True)
                      for w in words]
         return words
@@ -370,33 +412,55 @@ class CudaProvider(prov.Provider):
             pending.append((keep[lo:hi], out))
 
     def _run_lanes(self, batch, bank, fast, generic, pending) -> None:
-        """Launch a host pass's two lanes: fast(*words, slot, bank array)
-        for the fixed-key lane, generic(*words) for the other.  The
+        """Launch a host pass's two lanes: fast(*words, slot, bank) for
+        the fixed-key lane, generic(*words) for the other; bank is the
+        bank's tensor, or under a mesh its {device: replica} map.  The
         batch's bank pins are released once the fixed-key launches are
-        enqueued, or when one raises."""
+        enqueued (on the current stream, or on the mesh's shard streams),
+        or when one raises."""
         self.stats["host_rejects"] += batch.rejected
+        streams = None
+        if self.mesh is not None:
+            streams = [s for s in self.mesh.streams if s is not None]
         try:
             if batch.fast is not None:
-                arr = bank.array()
+                arr = bank.array() if self.mesh is None else bank.replicas()
                 self._launch_lane(batch.fast, lambda *a: fast(*a, arr),
                                   pending)
         finally:
-            bank.unpin(batch.pinned)
+            bank.unpin(batch.pinned, streams)
         if batch.generic is not None:
             self._launch_lane(batch.generic, generic, pending)
 
     def _verify_p256(self, items, idxs, pending) -> None:
+        batch = self.pass_p256(items, idxs)
+        if self.mesh is not None:
+            rows, gen = self._sharded["p256-rows"], self._sharded["p256"]
+            self._run_lanes(
+                batch, self.key_tables,
+                lambda *a: rows(*a, self._g_tables)[0],
+                lambda *w: gen(*w, self._g_tables)[0], pending)
+            return
         low_s = self.require_low_s
         self._run_lanes(
-            self.pass_p256(items, idxs), self.key_tables,
+            batch, self.key_tables,
             lambda r, s, e, slot, bank: p256_fixed.p256_verify_rows(
                 r, s, e, slot, bank, self._g_table, require_low_s=low_s),
             lambda *w: p256mod.p256_verify(*w, self._g_table,
                                            require_low_s=low_s), pending)
 
     def _verify_ed25519(self, items, idxs, pending) -> None:
+        batch = self.pass_ed25519(items, idxs)
+        if self.mesh is not None:
+            rows = self._sharded["ed25519-rows"]
+            gen = self._sharded["ed25519"]
+            self._run_lanes(
+                batch, self.ed_key_tables,
+                lambda *a: rows(*a, self._b_tables)[0],
+                lambda *w: gen(*w, self._b_tables)[0], pending)
+            return
         self._run_lanes(
-            self.pass_ed25519(items, idxs), self.ed_key_tables,
+            batch, self.ed_key_tables,
             lambda ry, r_sign, s, k, slot, bank: ed25519.ed25519_verify_rows(
                 ry, r_sign, s, k, slot, bank, self._b_table),
             lambda *w: ed25519.ed25519_verify(*w, self._b_table), pending)
@@ -410,7 +474,8 @@ class CudaProvider(prov.Provider):
 
     def _idemix_packed(self, ipk_bytes: bytes) -> int:
         """The device slot of an issuer's w lines, precomputed on the
-        host and appended to the device line tensor on first sight."""
+        host and appended to every replica of the device line tensor on
+        first sight, under the same slot."""
         from ..idemix.msp import deserialize_ipk
         with self._idemix_lock:
             slot = self._idemix_slots.get(ipk_bytes)
@@ -418,11 +483,14 @@ class CudaProvider(prov.Provider):
                 packed = kb8.pack_steps(hbn.ate_precompute(
                     deserialize_ipk(ipk_bytes).w))
                 kb8.stack_lines([self._idemix_g2_packed(), packed])
-                lines = torch.from_numpy(packed["lines"][None]).to(
-                    self.device)
-                self.stats["h2d_bytes"] += lines.nbytes
-                # a new tensor: launches already enqueued keep the old one
-                self._idemix_lines = torch.cat([self._idemix_lines, lines])
+                host = torch.from_numpy(packed["lines"][None])
+                reps = self._idemix_line_reps
+                for dev, old in reps.items():
+                    lines = host.to(dev)
+                    self.stats["h2d_bytes"] += lines.nbytes
+                    # a new tensor: launches already enqueued keep the old
+                    # one
+                    reps[dev] = torch.cat([old, lines])
                 slot = self._idemix_slots[ipk_bytes] = \
                     self._idemix_lines.shape[0] - 1
             return slot
@@ -448,32 +516,45 @@ class CudaProvider(prov.Provider):
                  kb8.ints_to_words([p[1] for p in p1]),
                  kb8.ints_to_words([p[0] for p in p2]),
                  kb8.ints_to_words([(hbn.P - p[1]) % hbn.P for p in p2])]
-        flags, lines = self._idemix_flags, self._idemix_lines
+        check, flags, lines = self._pairing()
         for lo in range(0, len(keep), MAX_CHUNK):
             hi = min(lo + MAX_CHUNK, len(keep))
             args = self._upload(words, lo, hi)
             slot = torch.from_numpy(slots[lo:hi])
             self.stats["h2d_bytes"] += slot.nbytes
-            out = kb8.bn254_pairing_check(flags, lines, slot, *args)
+            out = check(flags, lines, slot, *args)
             self.stats["dispatches"] += 1
             self.stats["device_sigs"] += hi - lo
             pending.append((keep[lo:hi], out))
 
     def idemix_pair_probe(self, batch: int):
         """(fn, green_args, red_args) for the BN254 pairing lane on this
-        provider's device: green checks e(G1, g2) * e(-G1, g2) == 1, red
+        provider's device (under a mesh: the sharded lane, fn -> its
+        verdicts): green checks e(G1, g2) * e(-G1, g2) == 1, red
         e(G1, g2)^2 == 1, both at `batch` checks with g2's lines on both
         sides (slot 0)."""
         gx, gy = hbn.G1_GEN
+        dev = self.device if self.mesh is None else "cpu"
 
         def col(v):
-            return torch.from_numpy(kb8.ints_to_words([v] * batch)).to(
-                self.device)
+            return torch.from_numpy(kb8.ints_to_words([v] * batch)).to(dev)
 
         x, y, y_neg = col(gx), col(gy), col(hbn.P - gy)
-        base = (self._idemix_flags, self._idemix_lines,
-                torch.zeros(batch, dtype=torch.int32), x, y, x)
-        return kb8.bn254_pairing_check, base + (y_neg,), base + (y,)
+        fn, flags, lines = self._pairing()
+        base = (flags, lines, torch.zeros(batch, dtype=torch.int32), x, y, x)
+        return fn, base + (y_neg,), base + (y,)
+
+    def _pairing(self):
+        """(fn, flags, lines) of the idemix lane: KB8's wrapper over the
+        device's line tensor, or under a mesh the sharded lane (its
+        verdicts) over every replica; fn(flags, lines, slot, x1, y1, x2,
+        y2) -> (B,) bool."""
+        if self.mesh is None:
+            return (kb8.bn254_pairing_check, self._idemix_flags,
+                    self._idemix_lines)
+        sharded = self._sharded["idemix-pair"]
+        return (lambda *a: sharded(*a)[0], dict(self._idemix_flag_reps),
+                dict(self._idemix_line_reps))
 
     def batch_verify_async(self, items: Sequence[VerifyItem]):
         """Enqueue the device work and return resolve() -> bool[N]."""

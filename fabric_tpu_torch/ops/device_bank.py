@@ -15,12 +15,19 @@ build writes its slot in place, `bank[slot].copy_(table)`: a plain
 host-to-device copy, no kernel.  The pins keep a slot from being chosen
 for eviction between the lane choice and the launch of the batch that
 chose it.  `unpin`, called once those launches are enqueued, records an
-event on the current stream for each slot it releases; a rewrite of the
-slot makes its own stream wait for every such event first, so it lands
-after every launch that may still read the old table, on whichever
-streams the launches and the rewrite run.  The copy comes from pageable
-host memory and so returns only when it is done: every launch enqueued
-after it, on any stream, reads the new table.
+event for each slot it releases on every stream that launched against
+it (the current stream, or the shard streams of a mesh); a rewrite of
+the slot makes its own stream wait for every such event first, so it
+lands after every launch that may still read the old table, on
+whichever streams the launches and the rewrite run.  The copy comes
+from pageable host memory and so returns only when it is done: every
+launch enqueued after it, on any stream, reads the new table.
+
+Replicated (`devices=mesh.distinct_devices`, `parallel/mesh.py`): one
+host slot map (the same LRU, pins and stats) over one uint32 tensor per
+distinct device.  A build writes its table into every replica, each
+after the readers of that replica; `array(device)` is that device's
+replica.  With one device the bank is the one it was before.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, with_index
 
 
 class DeviceBank:
@@ -41,19 +48,24 @@ class DeviceBank:
     build_fn(pubkey) -> np.ndarray of `entry_shape` (host comb table), or
     None for malformed or off-curve keys (the fixed-key lane's one
     on-curve gate).  Thread-safe.  device: where the bank lives (default
-    CUDA; raises without it).
+    CUDA; raises without it); devices: the distinct devices of a mesh,
+    one replica on each, in place of device.
     """
 
     def __init__(self, max_keys: int, entry_shape: Tuple[int, ...],
                  build_fn: Callable[[bytes], Optional[np.ndarray]],
-                 device=None):
+                 device=None, devices=None):
         self.max_keys = int(max_keys)
         self.entry_shape = tuple(entry_shape)
         self.build_fn = build_fn
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("give device or devices, not both")
+        self.devices = tuple(dict.fromkeys(
+            with_index(resolve_device(d)) for d in (devices or (device,))))
+        self.device = self.devices[0]
         self._slots: "OrderedDict[bytes, int]" = OrderedDict()
         self._free = list(range(self.max_keys - 1, -1, -1))
-        self._bank = None
+        self._banks: dict = {}
         self._lock = threading.RLock()
         # refcounted pins: a slot claimed by an in-flight batch (from lane
         # choice until its launch is enqueued) must not be evicted, by
@@ -61,8 +73,9 @@ class DeviceBank:
         # thread.  Callers pin via lookup/get_or_build(pin=True) and
         # release with unpin() after launching.
         self._pinned: dict = {}
-        # slot -> {stream handle: event after the last launches enqueued
-        # there that read it}; a rewrite of the slot waits for them
+        # slot -> {stream handle: (its device, an event after the last
+        # launches enqueued there that read it)}; a rewrite of the slot's
+        # replica on a device waits for that device's events
         self._readers: dict = {}
         self.stats = {"hits": 0, "builds": 0, "rejects": 0,
                       "evictions": 0, "pinned_spills": 0, "h2d_bytes": 0}
@@ -75,15 +88,24 @@ class DeviceBank:
         with self._lock:
             return len(self._slots)
 
-    def array(self) -> torch.Tensor:
-        """The device-resident (max_keys, *entry_shape) uint32 bank,
-        allocated (zeroed) on first use."""
+    def array(self, device=None) -> torch.Tensor:
+        """The (max_keys, *entry_shape) uint32 bank on `device` (default:
+        the first), allocated (zeroed) on first use."""
+        dev = self.device if device is None else with_index(
+            torch.device(device))
         with self._lock:
-            if self._bank is None:
-                self._bank = torch.zeros((self.max_keys,) + self.entry_shape,
-                                         dtype=torch.uint32,
-                                         device=self.device)
-            return self._bank
+            bank = self._banks.get(dev)
+            if bank is None:
+                if dev not in self.devices:
+                    raise ValueError(f"the bank has no replica on {dev}")
+                bank = self._banks[dev] = torch.zeros(
+                    (self.max_keys,) + self.entry_shape, dtype=torch.uint32,
+                    device=dev)
+            return bank
+
+    def replicas(self) -> dict:
+        """{device: bank} over every replica."""
+        return {d: self.array(d) for d in self.devices}
 
     def lookup(self, pubkey: bytes, pin: bool = False) -> Optional[int]:
         """Slot index for a resident key (refreshes LRU), else None.
@@ -97,20 +119,24 @@ class DeviceBank:
                     self._pinned[slot] = self._pinned.get(slot, 0) + 1
             return slot
 
-    def unpin(self, slots) -> None:
+    def unpin(self, slots, streams=None) -> None:
         """Release pins taken via lookup/get_or_build(pin=True), once the
-        launches that read these slots are enqueued on the current
-        stream."""
+        launches that read these slots are enqueued on `streams` (default:
+        the current stream of each replica's device)."""
         slots = list(slots)
-        ev = None
-        if slots and self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            ev = torch.cuda.Event()
-            ev.record(stream)
+        marks = []                      # (stream handle, device, event)
+        if slots:
+            if streams is None:
+                streams = [torch.cuda.current_stream(d) for d in self.devices
+                           if d.type == "cuda"]
+            for stream in streams:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                marks.append((stream.cuda_stream, stream.device, ev))
         with self._lock:
             for s in slots:
-                if ev is not None:
-                    self._readers.setdefault(s, {})[stream.cuda_stream] = ev
+                for handle, dev, ev in marks:
+                    self._readers.setdefault(s, {})[handle] = (dev, ev)
                 n = self._pinned.get(s, 0) - 1
                 if n <= 0:
                     self._pinned.pop(s, None)
@@ -143,7 +169,7 @@ class DeviceBank:
                 if pin:
                     self._pinned[got] = self._pinned.get(got, 0) + 1
                 return got
-            bank = self.array()
+            banks = self.replicas()
             if self._free:
                 slot = self._free.pop()
             else:
@@ -158,15 +184,18 @@ class DeviceBank:
                     return None
                 self.stats["evictions"] += 1
             self.stats["builds"] += 1
-            self.stats["h2d_bytes"] += tab.nbytes
+            self.stats["h2d_bytes"] += tab.nbytes * len(banks)
             # in place: after every launch that may still read the old
             # table, before every later one (see the module docstring)
-            readers = self._readers.pop(slot, {})
-            if readers:
-                stream = torch.cuda.current_stream(self.device)
-                for ev in readers.values():
-                    stream.wait_event(ev)
-            bank[slot].copy_(torch.from_numpy(tab))
+            readers = self._readers.pop(slot, {}).values()
+            host = torch.from_numpy(tab)
+            for dev, bank in banks.items():
+                if dev.type == "cuda":
+                    stream = torch.cuda.current_stream(dev)
+                    for rdev, ev in readers:
+                        if rdev == dev:
+                            stream.wait_event(ev)
+                bank[slot].copy_(host)
             self._slots[pubkey] = slot
             if pin:
                 self._pinned[slot] = self._pinned.get(slot, 0) + 1

@@ -6,6 +6,7 @@ hosts that have neither:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import hashlib
+import json
 import random
 
 import numpy as np
@@ -1085,3 +1086,127 @@ def test_experiments_on_the_card(cuda_device):
     res = proto_pallas3.run(trials=1, B=2048)
     assert all(r["ms"] > 0 and r["lane_ops_per_s"] > 0
                for r in res["probes"])
+
+
+# -- the mesh (parallel/mesh.py), entry and trace capture ---------------------
+
+@pytest.mark.cuda
+def test_two_shard_mesh_matches_plain_provider_on_mixed_block(cuda_device):
+    """The mixed block of test_cuda_provider_mixed_curves_match_sw through
+    a 2-shard mesh on cuda:0: verdicts equal the plain provider's and SW's,
+    every kernel launches once a shard on its shard's stream, one table
+    build a key and one bank replica."""
+    from fabric_tpu_torch.parallel import mesh as M
+    p_items, _ = hot_key_items(2, 5, seed=12)
+    rows = corpus()[:6]
+    p_items += [VerifyItem(SCHEME_P256, b"\x04" + qx.to_bytes(32, "big")
+                           + qy.to_bytes(32, "big"),
+                           crypto.encode_dss_signature(r, s),
+                           e.to_bytes(32, "big"))
+                for qx, qy, r, s, e, _ in rows]
+    e_items, _ = ed_corpus()
+    items = p_items + e_items[:13]
+    plain = CudaProvider(fast_key_threshold=4)
+    mesh = M.make_mesh(["cuda:0"] * 2)
+    assert mesh.distinct_devices == (torch.device("cuda", 0),)
+    prov = CudaProvider(fast_key_threshold=4, mesh=mesh)
+    want = plain.batch_verify(items)
+    fns = (p256_fixed.p256_verify_rows, p256.p256_verify,
+           E.ed25519_verify_rows, E.ed25519_verify)
+    before = [f.launches for f in fns]
+    got = prov.batch_verify(items)
+    assert [f.launches - b for f, b in zip(fns, before)] == [2, 2, 2, 2]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, SoftwareProvider().batch_verify(items))
+    assert prov.stats == plain.stats and prov.stats["fallbacks"] == 0
+    assert prov.key_tables.stats == plain.key_tables.stats
+    assert len(prov.key_tables.replicas()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_sharded_lanes_one_signature_and_empty_shards(n, cuda_device):
+    """KP3 sharded over 4 streams of cuda:0 at 1-3 signatures (a shard
+    of one, empty shards) equals the unsharded kernel."""
+    from fabric_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(["cuda:0"] * 4)
+    items, labels = hot_key_items(2, 2, seed=31)
+    prov = CudaProvider(fast_key_threshold=1)
+    batch = prov.pass_p256(items[:n], range(n))
+    prov.key_tables.unpin(batch.pinned)
+    keep, arrays, slot = batch.fast
+    table = p256_tables.g_table(cuda_device)
+    words = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    bank = prov.key_tables.array()
+    want = p256_fixed.p256_verify_rows(*[w.to(cuda_device) for w in words],
+                                       torch.from_numpy(slot), bank, table)
+    fn = M.sharded_p256_rows_verify(mesh)
+    got, count = fn(*words, slot, bank, table)
+    assert torch.equal(got, want) and int(count) == int(want.sum())
+    assert got.cpu().tolist() == [labels[i] for i in keep]
+    # one KP3 launch a non-empty shard, none on an empty one
+    assert fn.shard_launches == [int(hi > lo) for lo, hi in
+                                 M.shard_bounds(len(keep), 4)]
+
+
+@pytest.mark.cuda
+def test_replicated_bank_rebuild_waits_for_both_shard_streams(cuda_device):
+    """Two slots, a 2-shard mesh.  Batch a's KP3 on shard 1's stream
+    waits behind a ~0.5 s spin there; batch b, on the current stream,
+    evicts and rewrites both slots.  Were the rewrite not ordered after
+    the reads of both shard streams, shard 1's KP3 would read b's keys
+    and reject a's good signatures."""
+    from fabric_tpu_torch.parallel import mesh as M
+    a, want_a = hot_key_items(2, 6, seed=7)
+    b, want_b = hot_key_items(2, 6, seed=8)
+    tables = {it.pubkey: p256_tables.table_for_pubkey(it.pubkey)
+              for it in a + b}
+    mesh = M.make_mesh(["cuda:0"] * 2)
+    # builds and loads the C parser and KP3 before the timed part
+    assert CudaProvider(fast_key_threshold=4, mesh=mesh).batch_verify(
+        a).tolist() == want_a
+    prov = CudaProvider(fast_key_threshold=4, max_cached_keys=2, mesh=mesh)
+    prov.key_tables.build_fn = tables.get
+    torch.cuda.synchronize()
+    with torch.cuda.stream(mesh.streams[1]):
+        torch.cuda._sleep(1 << 30)
+    res_a = prov.batch_verify_async(a)
+    res_b = prov.batch_verify_async(b)
+    assert prov.key_tables.stats["evictions"] == 2
+    assert res_b().tolist() == want_b
+    assert res_a().tolist() == want_a
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_two_shards_on_the_card(cuda_device, capsys):
+    from fabric_tpu_torch import entry
+    rec = entry.dryrun_multichip(2)
+    assert rec["shards"] == 2
+    assert rec["shards_per_device"] == {"cuda:0": 2}
+    assert rec["card"] and rec["sharded_sigs_per_sec"] > 0
+    fn, args = entry.entry()
+    assert bool(fn(*args).all())
+
+
+@pytest.mark.cuda
+def test_capture_device_trace_holds_kernel_events(cuda_device, tmp_path):
+    """A trace captured around a block's verify holds the marker and
+    KP2's and KE5's kernel events."""
+    from fabric_tpu_torch.ops_plane import profiling
+    items = [VerifyItem(SCHEME_P256, b"\x04" + qx.to_bytes(32, "big")
+                        + qy.to_bytes(32, "big"),
+                        crypto.encode_dss_signature(r, s),
+                        e.to_bytes(32, "big"))
+             for qx, qy, r, s, e, _ in corpus()[:8]] + ed_corpus()[0][:4]
+    prov = CudaProvider()
+    prov.batch_verify(items)
+    done = []
+    out = profiling.capture_device_trace(
+        0.05, str(tmp_path),
+        work=lambda: done.append(prov.batch_verify(items).tolist()))
+    assert len(done) == 1
+    assert out["device_events"] > 0
+    assert any("p256_verify_kernel" in k for k in out["kernels"])
+    assert any("ed25519_verify_kernel" in k for k in out["kernels"])
+    with open(out["trace"]) as f:
+        assert "traceEvents" in json.load(f)
