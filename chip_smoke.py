@@ -116,6 +116,31 @@ ends with one JSON line.  Phases:
              shard, times in turns, the mesh code's own host ms), the
              spill drill and KB8's 4,096 seeded checks on two shards, and
              a device trace of two warm blocks (capture_device_trace)
+11. durable — (run after 10, before the kernels line) the commit stream
+             of phase 6 through the port's stack on the factory's CUDA
+             provider with KV7, on a durable ledger: KVLedger(root=
+             build/durable/..., state_shards=8, snapshot_every=2; the
+             reference's 256 cut so that whole checkpoints of the
+             stream's state are written and recovered); (a) flags,
+             metadata flags, state, history and commit hash equal phase
+             6's in-memory KV7 stack after every block; (b) a spawned
+             child reopens a copy at height 2, commits block 2 and is
+             killed with SIGKILL once the block store's fsync of block 2
+             is done, before the state commit; (c) the parent reopens it:
+             the replay covers exactly block 2, state, history and commit
+             hash equal memory's, then block 3 (demoted by its range
+             query) commits on the reopened ledger; (d) config blocks at
+             commit: a block endorsed by a new org's peer (Org4) is
+             ENDORSEMENT_POLICY_FAILURE, a config update adding Org4
+             (submitted by Org1's peer, signed by the Admins of
+             Org1-Org3) commits through KP3 and KP2, the same kind of
+             block is then valid, an unauthorized and a stale-sequence
+             config tx are INVALID_CONFIG_TRANSACTION, the config history
+             equal after a reopen; (e) host times: block 2's validate +
+             commit on the durable and the in-memory ledger in turns,
+             fsyncs by kind of file with their ms and bytes, the state
+             WAL's appends, checkpoint writes, recovery on reopen.  Its
+             launches are printed on its own lines
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -131,7 +156,8 @@ benchmark kernels, the counterparts of experiments/, and KB8's tower
 probe and KP2's field probe tests of their routines; they are on no main
 path: their counts there are 0.  Phase 10's mesh providers are not the
 main path either: their launches stay out of the kernels line, and its
-[mesh] lines give them per provider, cell and shard.
+[mesh] lines give them per provider, cell and shard; nor are phase 11's
+durable runs, whose launches its [durable] lines give per run.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -195,6 +221,10 @@ SHMEM_CYCLES = 30              # one shared-memory round trip, the walk's step
 # the idemix phase: BASELINE config 4's probe batch (bench.py:1172-1183),
 # the seeded load of pairing checks and its corrupted kinds, and the
 # block of idemix creators (its corrupted txs by position)
+DURABLE_SHARDS = 8
+DURABLE_SNAPSHOT_EVERY = 2     # the reference's 256, cut (phase 11)
+DURABLE_ORG4_TXS = 256
+ORG4_POLICY = "AND('Org1.member', 'Org4.member')"
 IDEMIX_PROBE = 128
 IDEMIX_CHECKS = 4096
 PAIR_KINDS = ("x_plus_1", "other_slot", "swapped")
@@ -885,10 +915,12 @@ def kv7_variants(ln, num: int) -> dict:
 
 
 def commit_phase(torch, args, provider, orgs, raws, labels, fns,
-                 clock_hz: float) -> dict:
+                 clock_hz: float) -> tuple:
     """Phase 7: the stream through two port stacks, KV7 on and off; the
-    checks; KV7 against its plain version; the timings.  -> KV7's row of
-    the kernels line."""
+    checks; KV7 against its plain version; the timings.  -> (KV7's row
+    of the kernels line, the stream's launches, the KV7 stack's (codes,
+    metadata flags, (state rows, history rows, commit hash)) after each
+    block)."""
     from fabric_tpu_torch.ops import block_validate as kv7
     dev = torch.device("cuda")
     n_blocks = len(raws)
@@ -1046,7 +1078,454 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "library_ms": None, "on_main_path": True,
             "phase1_ms": phase1_ms, "walk_ms": walk_ms,
-            "dep_depth": depth2}, launches
+            "dep_depth": depth2}, launches, [
+                (dr.final_flags.codes(), dmeta, drows)
+                for dr, dmeta, _s, drows in dev_out]
+
+
+# ---------------------------------------------------------------------------
+# the durable ledger and commit-time config blocks
+# ---------------------------------------------------------------------------
+
+def org_config(C, org):
+    """The channel config's entry of a DevOrg."""
+    mc = org.msp_config()
+    return C.OrgConfig(org.mspid, tuple(mc.root_certs_pem),
+                       tuple(mc.admin_certs_pem),
+                       tuple(mc.intermediate_certs_pem), tuple(mc.crls_pem))
+
+
+def durable_stack(provider, dev, root, msps=None, bundle=None, history=None):
+    """Committer -> TxValidator (deep path) -> DeviceValidator (KV7,
+    window=16384) -> KVLedger(root, 8 state shards, a checkpoint every
+    DURABLE_SNAPSHOT_EVERY blocks) -> (committer, device validator).
+    msps: a static MSP set; bundle: a BundleSource whose current bundle
+    gives the MSPs and takes committed config blocks (with `history`, a
+    ConfigHistory)."""
+    from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
+                                            TxValidator)
+    from fabric_tpu_torch.committer.device_validate import DeviceValidator
+    from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
+    from fabric_tpu_torch.policy import parse_policy
+    policies = PolicyRegistry()
+    policies.set_policy("cc", parse_policy(COMMIT_POLICY))
+    policies.set_policy("cc4", parse_policy(ORG4_POLICY))
+    ledger = KVLedger("ch", LedgerConfig(
+        root=root, device_validate=True, state_shards=DURABLE_SHARDS,
+        snapshot_every=DURABLE_SNAPSHOT_EVERY))
+    dv = DeviceValidator(ledger.statedb, "ch", device=dev,
+                         window=COMMIT_WINDOW)
+    ledger.set_prepared_source(dv.take_prepared)
+    validator = TxValidator("ch", msps, provider, policies,
+                            bundle_source=bundle, device_validate=dv)
+    return Committer(ledger, validator, bundle_source=bundle,
+                     provider=provider if bundle is not None else None,
+                     confighistory=history), dv
+
+
+def _crash_child(root, raw_path, msp_configs, ready, dev_name):
+    """Spawned: reopen the ledger under root, commit block 2 through a
+    KV7 stack, and once the block store has appended and fsynced the
+    block, signal `ready` and wait, before the state commit, to be
+    killed.  Its provider sends every key to KP2 (no table builds)."""
+    import torch
+    from fabric_tpu_torch.bccsp.cuda import CudaProvider
+    from fabric_tpu_torch.msp import MSP, CachedMSP
+    from fabric_tpu_torch.protocol import wire
+    msps = {c.mspid: CachedMSP(MSP(c)) for c in msp_configs}
+    prov = CudaProvider(device=dev_name, fast_key_threshold=1 << 30)
+    committer, _ = durable_stack(prov, torch.device(dev_name), root,
+                                 msps=msps)
+
+    def stop(batch, num):
+        ready.set()
+        time.sleep(3600)
+
+    committer.ledger.statedb.apply_updates = stop
+    with open(raw_path, "rb") as f:
+        raw = f.read()
+    committer.store_block(wire.parse_block(raw))
+
+
+class _DiskMeter:
+    """os.fsync timed and attributed while installed: each call's
+    seconds and the bytes its file grew since the last fsync of that
+    file (or since `prime`; the whole file when new), by kind of file
+    (block segments, state WAL, history WAL, checkpoint shards and
+    manifests, directories)."""
+
+    def __init__(self):
+        self.calls = []         # (kind, seconds, bytes)
+        self._seen = {}
+        self._real = None
+
+    @staticmethod
+    def kind(path: str) -> str:
+        name = os.path.basename(path)
+        if name.startswith("blocks_"):
+            return "blocks"
+        if name in ("state.wal", "history.wal"):
+            return name.replace(".", "_")
+        return "checkpoint"
+
+    def prime(self, root: str) -> None:
+        """Take the files under root at their present sizes."""
+        self._seen = {}
+        for d, _s, fs in os.walk(root):
+            for f in fs:
+                st = os.stat(os.path.join(d, f))
+                self._seen[(st.st_dev, st.st_ino)] = st.st_size
+
+    def install(self):
+        import stat
+        self._real = real = os.fsync
+
+        def fsync(fd):
+            st = os.fstat(fd)
+            if stat.S_ISDIR(st.st_mode):
+                kind, grew = "dir", 0
+            else:
+                path = os.readlink(f"/proc/self/fd/{fd}")
+                kind = self.kind(path)
+                last = self._seen.get((st.st_dev, st.st_ino), 0)
+                grew = st.st_size - last if st.st_size >= last \
+                    else st.st_size
+                self._seen[(st.st_dev, st.st_ino)] = st.st_size
+            t0 = time.perf_counter()
+            real(fd)
+            self.calls.append((kind, time.perf_counter() - t0, grew))
+
+        os.fsync = fsync
+
+    def remove(self):
+        os.fsync = self._real
+
+    def take(self) -> dict:
+        """{kind: (fsyncs, ms, bytes)} since the last take."""
+        out = {}
+        for kind, s, b in self.calls:
+            n, ms, nb = out.get(kind, (0, 0.0, 0))
+            out[kind] = (n + 1, ms + s * 1e3, nb + b)
+        self.calls = []
+        return {k: (n, round(ms, 3), nb) for k, (n, ms, nb) in out.items()}
+
+
+def timed_method(obj, name: str, log: list):
+    """Wrap obj.name so each call appends its wall seconds to log."""
+    real = getattr(obj, name)
+
+    def fn(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            log.append(time.perf_counter() - t0)
+
+    setattr(obj, name, fn)
+
+
+def org4_block(num, prev, org4_peer, signers, clients, tag):
+    """DURABLE_ORG4_TXS txs on namespace cc4 under ORG4_POLICY, each
+    created by a stream client and endorsed by Org1's and Org4's peers
+    -> block bytes."""
+    from fabric_tpu_torch.protocol import (KVWrite, NsRwSet, TxRwSet,
+                                           build)
+    rng = random.Random(SEED + 20 + num)
+    envs = []
+    for t in range(DURABLE_ORG4_TXS):
+        rws = TxRwSet((NsRwSet("cc4", writes=(
+            KVWrite(f"org4.{tag}.{t:04d}", b"%d" % t),)),))
+        envs.append(build.endorser_tx(
+            "ch", "cc4", "1.0", rws, signers[clients[t % len(clients)]],
+            [signers[0], org4_peer], nonce=rng.randbytes(24),
+            timestamp=COMMIT_TS))
+    return build.new_block(num, prev, envs)
+
+
+def durable_phase(torch, args, provider, orgs, signers, clients, raws,
+                  mem_rows, fns, name_power, dev) -> dict:
+    """Phase 11.  The commit stream through a durable KV7 stack, a real
+    crash and its recovery, config blocks at commit, host times.  Its
+    launches are its own and stay out of the kernels line.  mem_rows:
+    phase 6's in-memory KV7 stack after each block, (codes, metadata
+    flags, (state rows, history rows, commit hash)).  -> its numbers."""
+    import shutil
+    import signal
+    from fabric_tpu_torch import config as C
+    from fabric_tpu_torch.ledger import ConfigHistory, KVLedger
+    from fabric_tpu_torch.ledger import LedgerConfig
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.msp.ca import DevOrg
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.protocol import block_header_hash, build, wire
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "durable")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    dirs = {k: os.path.join(base, k) for k in ("a", "b", "pristine")}
+    msps = {o.mspid: CachedMSP(o.msp()) for o in orgs}
+    all_fns = (*fns.values(), kv7.block_validate_kernel)
+    out = {"reduced": f"snapshot_every={DURABLE_SNAPSHOT_EVERY} "
+           "(the reference's 256), so the stream writes and recovers "
+           "whole checkpoints of its real state"}
+    phase("durable", root="build/durable", state_shards=DURABLE_SHARDS,
+          snapshot_every=DURABLE_SNAPSHOT_EVERY, reduced=out["reduced"],
+          card=name_power)
+
+    def du(root):
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for d, _s, fs in os.walk(root) for f in fs)
+
+    def launches_now():
+        got = {name: fn.launches for name, fn in fns.items()}
+        got["block_validate"] = kv7.block_validate_kernel.launches
+        return {k: n for k, n in got.items() if n}
+
+    # (a) the stream through the durable KV7 stack, held to phase 6's
+    # in-memory KV7 stack after every block; fsyncs, the state WAL's
+    # appends and the checkpoints timed
+    meter = _DiskMeter()
+    meter.prime(base)
+    wal_s, ckpt_s = [], {"state": [], "history": []}
+    for fn in all_fns:
+        fn.launches = 0
+    c, dv = durable_stack(provider, dev, dirs["a"], msps=msps)
+    lg = c.ledger
+    timed_method(lg.statedb, "_wal_append", wal_s)
+    timed_method(lg.statedb, "_checkpoint_locked", ckpt_s["state"])
+    timed_method(lg.historydb, "_checkpoint_locked", ckpt_s["history"])
+    meter.install()
+    try:
+        for num, raw in enumerate(raws):
+            block = wire.parse_block(raw)
+            before = du(dirs["a"])
+            t0 = time.perf_counter()
+            res = c.store_block(block)
+            secs = time.perf_counter() - t0
+            disk = meter.take()
+            codes = res.final_flags.codes()
+            mcodes, mmeta, mrows = mem_rows[num]
+            rows = (*ledger_rows(lg), lg.commit_hash)
+            check(codes == mcodes, f"durable block {num}: flags != memory")
+            check(bytes(block.metadata.items[META_TXFLAGS]) == mmeta,
+                  f"durable block {num}: metadata flags != memory")
+            check(rows[0] == mrows[0], f"durable block {num}: state rows")
+            check(rows[1] == mrows[1], f"durable block {num}: history rows")
+            check(rows[2] == mrows[2], f"durable block {num}: commit hash")
+            st = res.commit_stats
+            phase("durable", block=num, vs_memory="equal (flags, metadata,"
+                  " state, history, commit hash)",
+                  validate_commit_ms=round(secs * 1e3, 3),
+                  block_store_ms=round(st.block_commit_s * 1e3, 3),
+                  state_ms=round(st.state_commit_s * 1e3, 3),
+                  history_ms=round(st.history_commit_s * 1e3, 3),
+                  dir_bytes_delta=du(dirs["a"]) - before,
+                  fsyncs_ms_bytes=disk)
+            if num == 1:
+                for k in ("b", "pristine"):
+                    shutil.copytree(dirs["a"], dirs[k])
+    finally:
+        meter.remove()
+    launches = launches_now()
+    st = dv.stats
+    check(st["validator_device_blocks_total"] == len(raws) - 1
+          and launches.get("block_validate") == len(raws) - 1,
+          f"durable: KV7 blocks {st}, launches {launches}")
+    check(st["validator_device_stash_misses_total"] == 0,
+          "durable: a stash miss on the stream")
+    check_launches("durable", launches, ("p256_verify_rows",
+                                         "block_validate"),
+                   maybe=("p256_verify",))
+    out["wal_append_ms"] = [round(s * 1e3, 3) for s in wal_s]
+    out["checkpoint_ms"] = {k: [round(s * 1e3, 3) for s in v]
+                            for k, v in ckpt_s.items()}
+    ckpt_files = [os.path.join(d, f) for d, _s, fs in
+                  os.walk(os.path.join(dirs["a"], "ch", "state", "ckpt"))
+                  for f in fs]
+    phase("durable", stream="equal to memory after every block",
+          launches=launches, wal_append_ms=out["wal_append_ms"],
+          checkpoint_ms=out["checkpoint_ms"],
+          state_checkpoint_bytes=sum(os.path.getsize(p)
+                                     for p in ckpt_files),
+          dir_bytes=du(dirs["a"]), card=name_power)
+
+    # (b) a real crash: a spawned child reopens a copy at height 2,
+    # commits block 2, and is killed with SIGKILL once the block store's
+    # fsync of block 2 is done, before the state commit
+    raw_path = os.path.join(base, "block2.bin")
+    with open(raw_path, "wb") as f:
+        f.write(raws[2])
+    ctx = multiprocessing.get_context("spawn")
+    ready = ctx.Event()
+    t0 = time.perf_counter()
+    child = ctx.Process(target=_crash_child, args=(
+        dirs["b"], raw_path, [o.msp_config() for o in orgs], ready,
+        dev.type))
+    child.start()
+    try:
+        signalled = ready.wait(600)
+    finally:
+        os.kill(child.pid, signal.SIGKILL)
+        child.join(60)
+    check(signalled, "crash child: no signal after block 2's fsync")
+    check(child.exitcode == -signal.SIGKILL,
+          f"crash child: exit code {child.exitcode}, not SIGKILL")
+    phase("durable", crash="child killed by SIGKILL after block 2's block"
+          " store fsync, before its state commit",
+          child_s=round(time.perf_counter() - t0, 2))
+
+    # (c) recovery: the parent reopens, block 2 is replayed from the
+    # block store, and the reopened ledger goes on committing
+    src = C.BundleSource(C.Bundle(C.ChannelConfig(
+        "ch", 0, tuple(org_config(C, o) for o in orgs),
+        C.default_policies([o.mspid for o in orgs]))))
+    hist_dir = os.path.join(dirs["b"], "ch", "confighistory")
+    t0 = time.perf_counter()
+    c, dv = durable_stack(provider, dev, dirs["b"], bundle=src,
+                          history=ConfigHistory(hist_dir))
+    recovery_ms = (time.perf_counter() - t0) * 1e3
+    lg = c.ledger
+    rec = dict(lg.last_recovery)
+    check(rec == {"replayed_blocks": 1, "start": 2, "height": 3},
+          f"recovery replayed {rec}, not exactly block 2")
+    check(lg.statedb.last_recovery["source"] == "manifest"
+          and lg.statedb.last_recovery["savepoint"] == 1,
+          f"state recovery {lg.statedb.last_recovery}")
+    rows = (*ledger_rows(lg), lg.commit_hash)
+    check(rows == mem_rows[2][2], "recovered ledger != memory after block 2")
+    out["recovery_ms"] = recovery_ms
+    phase("durable", recovery_ms=round(recovery_ms, 3), last_recovery=rec,
+          state_recovery=lg.statedb.last_recovery,
+          history_recovery=lg.historydb.last_recovery,
+          vs_memory="equal (state, history, commit hash)", card=name_power)
+
+    # the blocks after the reopen: block 3 (its range query demotes it,
+    # host MVCC on a stash with no entry), then Org4's and the config
+    # blocks, KV7 wherever a block is expressible
+    org4 = DevOrg("Org4")
+    org4_peer = org4.new_identity("peer0")
+    prev = block_header_hash(wire.parse_block(raws[3]).header)
+    cfg1 = C.ChannelConfig("ch", 1, tuple(
+        org_config(C, o) for o in (*orgs, org4)), C.default_policies(
+            [o.mspid for o in (*orgs, org4)]))
+    stale = C.ChannelConfig("ch", 1, cfg1.orgs, cfg1.policies,
+                            batch=C.BatchConfig(max_message_count=100))
+    nxt = C.ChannelConfig("ch", 2, cfg1.orgs, cfg1.policies)
+    admins = [o.admin for o in orgs]
+    tail = []
+    for num, what in enumerate(("org4_before", "config", "org4_after",
+                                "config_unauthorized", "config_stale"),
+                               start=4):
+        if what.startswith("org4"):
+            block = org4_block(num, prev, org4_peer, signers, clients, what)
+        else:
+            cfg, who = {"config": (cfg1, admins),
+                        "config_unauthorized": (nxt, admins[:1]),
+                        "config_stale": (stale, admins)}[what]
+            env = C.build_config_envelope(cfg, [signers[0], *who])
+            block = build.new_block(num, prev, [env])
+        prev = block_header_hash(block.header)
+        tail.append((what, block.serialize()))
+    want = {"block3": None, "org4_before": [10] * DURABLE_ORG4_TXS,
+            "config": [0], "org4_after": [0] * DURABLE_ORG4_TXS,
+            "config_unauthorized": [6], "config_stale": [6]}
+    fb0 = provider.stats["fallbacks"]
+    for what, raw in [("block3", raws[3])] + tail:
+        for fn in all_fns:
+            fn.launches = 0
+        miss0 = dv.stats["validator_device_stash_misses_total"]
+        blocks0 = dv.stats["validator_device_blocks_total"]
+        dem0 = dict(dv.stats["validator_device_demotions_total"])
+        t0 = time.perf_counter()
+        res = c.store_block(wire.parse_block(raw))
+        secs = time.perf_counter() - t0
+        codes = res.final_flags.codes()
+        got = launches_now()
+        dem = {k: v - dem0[k] for k, v in
+               dv.stats["validator_device_demotions_total"].items()
+               if v - dem0[k]}
+        row = {"block": lg.height - 1, "what": what,
+               "valid": codes.count(0), "txs": len(codes),
+               "kv7": dv.stats["validator_device_blocks_total"] - blocks0,
+               "stash_misses":
+                   dv.stats["validator_device_stash_misses_total"] - miss0,
+               "demotions": dem, "launches": got,
+               "validate_commit_ms": round(secs * 1e3, 3),
+               "sequence": src.current().sequence}
+        if what == "block3":
+            check(codes == mem_rows[3][0], "block 3 after reopen: flags")
+            check((*ledger_rows(lg), lg.commit_hash) == mem_rows[3][2],
+                  "block 3 after reopen != memory")
+            check(dem == {"range_query": 1} and row["kv7"] == 0,
+                  f"block 3 after reopen: {row}")
+        else:
+            check(codes == want[what], f"{what}: flags {codes[:8]}...")
+            check(what.startswith("config") or row["kv7"] == 1,
+                  f"{what}: not through KV7 ({row})")
+        if what == "config":
+            check(got.get("p256_verify_rows", 0) > 0
+                  and got.get("p256_verify", 0) > 0,
+                  f"config block: KP3 and KP2 launches {got}")
+            check(src.current().sequence == 1
+                  and "Org4" in src.current().msps,
+                  "config block: the bundle did not move to Org1-Org4")
+        phase("durable", **row)
+    check(src.current().sequence == 1, "an invalid config tx was applied")
+    check(provider.stats["fallbacks"] == fb0 == 0, "durable: fallbacks")
+    entries = ConfigHistory(hist_dir).entries()
+    check(entries == [(5, cfg1.serialize())],
+          f"config history after a reopen: {[e[0] for e in entries]}")
+    t0 = time.perf_counter()
+    re = KVLedger("ch", LedgerConfig(root=dirs["b"],
+                                     state_shards=DURABLE_SHARDS,
+                                     snapshot_every=DURABLE_SNAPSHOT_EVERY))
+    reopen_ms = (time.perf_counter() - t0) * 1e3
+    check(re.height == lg.height and re.commit_hash == lg.commit_hash,
+          "reopen after the config blocks: height or commit hash")
+    phase("durable", confighistory=f"{len(entries)} entry at block 5, "
+          "equal after a reopen", reopen_ms=round(reopen_ms, 3),
+          reopen_recovery=re.last_recovery, fallbacks=0,
+          config_bytes=len(cfg1.serialize()))
+
+    # (e) block 2 warm, validate + commit, on the durable and on the
+    # in-memory KV7 stack in turns, each holding blocks 0 and 1
+    runs = {"durable": [], "memory": []}
+    fs = {"fsync_ms": [], "fsyncs": [], "bytes": []}
+    for trial in range(args.trials):
+        tdir = os.path.join(base, f"t{trial}")
+        shutil.copytree(dirs["pristine"], tdir)
+        cd, _ = durable_stack(provider, dev, tdir, msps=msps)
+        meter.prime(tdir)
+        cm, _ = commit_stack(provider, orgs, True, dev)
+        commit_stream(cm, raws[:2])
+        for name, cc in (("durable", cd), ("memory", cm)):
+            if name == "durable":
+                meter.install()
+            try:
+                (res, _meta, secs, _rows), = commit_stream(cc, raws[2:3])
+            finally:
+                if name == "durable":
+                    meter.remove()
+            runs[name].append(secs * 1e3)
+        disk = meter.take()
+        fs["fsync_ms"].append(sum(v[1] for v in disk.values()))
+        fs["fsyncs"].append(sum(v[0] for v in disk.values()))
+        fs["bytes"].append(sum(v[2] for v in disk.values()))
+        shutil.rmtree(tdir)
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    out.update(block2_ms=med, fsync=fs)
+    print(name_power, flush=True)
+    phase("durable", block=2, warm=True, trials=args.trials,
+          durable_validate_commit_ms=round(med["durable"], 3),
+          memory_validate_commit_ms=round(med["memory"], 3),
+          durable_runs_ms=[round(v, 3) for v in runs["durable"]],
+          memory_runs_ms=[round(v, 3) for v in runs["memory"]],
+          fsyncs=fs["fsyncs"][0],
+          fsync_ms_median=round(statistics.median(fs["fsync_ms"]), 3),
+          bytes_written=fs["bytes"][0], card=name_power)
+    shutil.rmtree(base, ignore_errors=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2394,7 +2873,7 @@ def main(argv=None) -> int:
           block_bytes=[len(r) for r in commit_raws],
           build_s=round(stream_s, 2), policy=COMMIT_POLICY,
           window=COMMIT_WINDOW)
-    kv7_row, commit_launches = commit_phase(
+    kv7_row, commit_launches, mem_rows = commit_phase(
         torch, args, provider, orgs, commit_raws, commit_labels, fns,
         max_clock_mhz * 1e6)
     for kname, n in commit_launches.items():
@@ -2717,6 +3196,11 @@ def main(argv=None) -> int:
     mesh_phase(torch, args, cells, (items[:n_spill], labels[:n_spill],
                                     kinds[:n_spill]), (hot_keys, ED_KEYS),
                host_tables, fns, name_power)
+
+    # --- 11. durable ---------------------------------------------------------
+    durable_phase(torch, args, provider, orgs, signers, clients, commit_raws,
+                  mem_rows, fns, name_power, dev)
+    del mem_rows
 
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):

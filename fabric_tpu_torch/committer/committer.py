@@ -4,12 +4,12 @@ Reference parity: core/committer/committer_impl.go LedgerCommitter plus
 the gossip/state coordinator hand-off (state.go:781 commitBlock ->
 coordinator.StoreBlock -> txvalidator.Validate -> CommitLegacy).
 
-Counterpart of `fabric_tpu/committer/committer.py` for blocks of
-endorser transactions: `store_block` with the idempotent-replay check,
-validation and the ledger commit.  Not ported yet: commit-time
-config-block application (the reference's `bundle_source` and
-`confighistory` wiring), `PipelinedCommitter`, the commit listeners (the gateway's commit-status
-notifier), and the ops-plane spans and metrics.
+Counterpart of `fabric_tpu/committer/committer.py`: `store_block` with
+the idempotent-replay check, validation, commit-time config-block
+application (`bundle_source`, `provider`, `confighistory`; the
+`_precommit` / `_postcommit` split) and the commit listeners.  Not
+ported yet: `PipelinedCommitter`, and the ops-plane structured logs,
+spans and metrics.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Optional
 
 from fabric_tpu_torch.ledger import KVLedger
 from fabric_tpu_torch.protocol import Block, block_header_hash
-from fabric_tpu_torch.protocol.txflags import TxFlags
+from fabric_tpu_torch.protocol.txflags import TxFlags, ValidationCode
 from fabric_tpu_torch.protocol.types import META_TXFLAGS
 
 from .txvalidator import TxValidator, ValidationResult
@@ -38,29 +38,178 @@ class BlockCommitResult:
 
 
 class Committer:
-    def __init__(self, ledger: KVLedger, validator: TxValidator):
+    def __init__(self, ledger: KVLedger, validator: TxValidator,
+                 bundle_source=None, provider=None, confighistory=None):
         self.ledger = ledger
         self.validator = validator
+        self.bundle_source = bundle_source
+        self.provider = provider
+        # height-indexed config log (core/ledger/confighistory/mgr.go)
+        self.confighistory = confighistory
         # wire the duplicate-txid oracle to the block store
         self.validator.ledger_has_txid = ledger.blockstore.has_txid
+        # post-commit hooks fed (block, final TxFlags); the gateway's
+        # commit-status notifier rides here so clients learn a txid's
+        # validation code without polling the ledger
+        self._commit_listeners = []
+
+    def add_commit_listener(self, fn) -> None:
+        """Register fn(block, final_flags), called after every commit."""
+        self._commit_listeners.append(fn)
 
     def store_block(self, block: Block) -> BlockCommitResult:
-        """Validate (verify-then-gate) and commit one block."""
+        """Validate (verify-then-gate) and commit one block.
+
+        Committed config blocks are applied to the channel bundle AFTER the
+        commit (core/peer: channel config takes effect at the block
+        boundary), so the config tx itself is validated under the previous
+        configuration — matching configtx/validator.go sequencing.
+        """
+        pre = self._precommit(block)
+        if isinstance(pre, BlockCommitResult):
+            return pre
+        vr, new_cfg = pre
+        t_commit = time.perf_counter()
+        stats = self.ledger.commit(block)
+        return self._postcommit(block, vr, stats, new_cfg, t_commit)
+
+    def _precommit(self, block: Block):
+        """Everything that must happen BEFORE the ledger commit: the
+        idempotent-replay check, signature/policy validation, and
+        commit-time config-tx validation (which may flip tx 0's flag).
+        -> BlockCommitResult for an acknowledged replay, else
+        (ValidationResult, new_cfg|None)."""
         replayed = self._check_replay(block)
         if replayed is not None:
             return replayed
         vr = self.validator.validate(block)
-        t0 = time.perf_counter()
-        stats = self.ledger.commit(block)
-        commit_s = time.perf_counter() - t0
+        # Commit-time config validation happens BEFORE the commit: a config
+        # tx that fails (wrong sequence, Admins unsatisfied) must be
+        # recorded with an INVALID flag, never committed as VALID with the
+        # failure merely logged (the reference invalidates the config tx;
+        # an unauthorized config tx permanently recorded valid would be a
+        # ledger integrity violation).
+        new_cfg = None
+        cfg_env = None
+        if self.bundle_source is not None:
+            from fabric_tpu_torch.config import config_envelope_of
+            cfg_env = config_envelope_of(block)
+        if cfg_env is not None:
+            flags = TxFlags.from_bytes(block.metadata.items[META_TXFLAGS])
+            if flags.is_valid(0):
+                from fabric_tpu_torch.config import (
+                    ConfigError,
+                    parse_config_envelope,
+                    validate_parsed_config_update,
+                )
+                bundle = self.bundle_source.current()
+                try:
+                    cfg, sds = parse_config_envelope(cfg_env)
+                except Exception as exc:
+                    cfg = None
+                    err = ConfigError(f"malformed config envelope: {exc}")
+                else:
+                    err = None
+                if cfg is not None and cfg.sequence <= bundle.sequence:
+                    # A stale-sequence config tx is only acceptable as
+                    # HISTORICAL REPLAY — a peer bootstrapped at a later
+                    # config catching up through the old config blocks
+                    # that produced it.  Genuine replay is recognizable:
+                    # the block number is at or below the height the
+                    # current config was taken/applied at (BundleSource
+                    # .config_height, advanced on every application, or
+                    # covered by confighistory).  A brand-NEW block above
+                    # that height carrying a stale-sequence config tx is
+                    # a wrong-sequence config (e.g. a byzantine orderer
+                    # replaying an old authorized update) and is flagged
+                    # INVALID like any other wrong-sequence config — the
+                    # reference invalidates it at commit
+                    # (configtx/validator.go sequence check).
+                    covered = block.header.number <= getattr(
+                        self.bundle_source, "config_height", 0)
+                    if not covered and self.confighistory is not None:
+                        latest = self.confighistory.latest_height()
+                        covered = (latest is not None
+                                   and block.header.number <= latest)
+                    if (not covered and cfg is not None
+                            and cfg.sequence == bundle.sequence
+                            and cfg.serialize()
+                            == bundle.config.serialize()):
+                        # byte-identical to the live config: this is the
+                        # very config block that produced the bootstrap
+                        # bundle (a fresh peer bootstrapped at sequence S
+                        # replaying the block that applied S) — a
+                        # harmless idempotent replay, and flagging it
+                        # INVALID would diverge from tip peers.  Configs
+                        # strictly OLDER than the bootstrap one still
+                        # need config_height seeded in the node config.
+                        covered = True
+                        self.bundle_source.config_height = max(
+                            getattr(self.bundle_source, "config_height", 0),
+                            block.header.number)
+                    if covered:
+                        logger.debug(
+                            "config block %d sequence %d <= bundle "
+                            "sequence %d: catch-up replay, skipping",
+                            block.header.number, cfg.sequence,
+                            bundle.sequence)
+                    else:
+                        err = ConfigError(
+                            f"config sequence {cfg.sequence} <= current "
+                            f"{bundle.sequence} in new block "
+                            f"{block.header.number}")
+                elif err is None:
+                    try:
+                        new_cfg = validate_parsed_config_update(
+                            bundle, cfg, sds,
+                            self.provider or self.validator.provider)
+                    except ConfigError as exc:
+                        err = exc
+                if err is not None:
+                    # the reference also emits a structured log record
+                    # (committer.config_tx_invalid) here
+                    logger.warning(
+                        "config tx in block %d invalid at commit: %s",
+                        block.header.number, err)
+                    flags.set(0, ValidationCode.INVALID_CONFIG_TRANSACTION)
+                    block.metadata.items[META_TXFLAGS] = flags.to_bytes()
+        return vr, new_cfg
+
+    def _postcommit(self, block: Block, vr, stats, new_cfg,
+                    t_commit: float) -> BlockCommitResult:
+        """Everything AFTER the ledger commit: commit listeners and (for
+        a valid config tx) the channel bundle application.  (The
+        reference also records the commit's phase spans and metrics
+        here.)"""
+        commit_s = time.perf_counter() - t_commit
         final = TxFlags.from_bytes(block.metadata.items[META_TXFLAGS])
+        for fn in self._commit_listeners:
+            try:
+                fn(block, final)
+            except Exception:
+                logger.exception("commit listener failed for block %d",
+                                 block.header.number)
+        if new_cfg is not None and final.is_valid(0):
+            try:
+                from fabric_tpu_torch.config import Bundle
+                self.bundle_source.update(Bundle(new_cfg),
+                                          config_height=block.header.number)
+                if self.confighistory is not None:
+                    self.confighistory.record(block.header.number,
+                                              new_cfg.serialize())
+            except Exception:
+                # the block is already committed; a config-plane failure
+                # must not make the caller believe the commit failed
+                logger.exception("config application failed for block %d",
+                                 block.header.number)
         return BlockCommitResult(vr, stats, final, commit_s)
 
     def _check_replay(self, block: Block) -> Optional[BlockCommitResult]:
         """Idempotent re-commit: a block we already hold (deliver retry
         after a severed stream, duplicated gossip push, orderer resend
-        after crash recovery) is acknowledged without re-validating or
-        re-committing — IF it is the same block.  The same number with a different header hash is a fork
+        after crash recovery) is acknowledged without re-validating,
+        re-committing, or re-notifying listeners — IF it is the same
+        block.  The same number with a different header hash is a fork
         and stays a hard error."""
         num = int(block.header.number)
         if num >= self.ledger.height:
@@ -75,3 +224,7 @@ class Committer:
                     self.validator.channel_id, num, self.ledger.height)
         final = TxFlags.from_bytes(stored.metadata.items[META_TXFLAGS])
         return BlockCommitResult(None, None, final)
+
+    @property
+    def height(self) -> int:
+        return self.ledger.height

@@ -25,10 +25,12 @@ Restructured in three passes over the whole block:
 Counterpart of `fabric_tpu/committer/txvalidator.py`, its deep native
 path only (`_begin_deep`, `_finish_deep`).  Not ported yet, and not
 accepted by the constructor: the classic Python tail and `collect_py`
-(so key-level endorsement, SBE, which needs that tail), the
-config-bundle source, the verify-once cache, early abort, per-channel
-placement, sub-block dispatch chunks, and the ops-plane spans and
-gauges.  `ValidationResult` keeps the reference's timings.
+(so key-level endorsement, SBE, which needs that tail), the verify-once
+cache, early abort, per-channel placement, sub-block dispatch chunks,
+and the ops-plane spans and gauges.  The config-bundle source is
+ported: with `bundle_source` the MSPs come from the current bundle,
+pinned once per block.  `ValidationResult` keeps the reference's
+timings.
 """
 
 from __future__ import annotations
@@ -91,13 +93,17 @@ class TxValidator:
 
     def __init__(self, channel_id: str, msps: Dict[str, object], provider,
                  policies: PolicyRegistry,
-                 ledger_has_txid=None,
+                 ledger_has_txid=None, bundle_source=None,
                  validation_plugin: str = "DefaultValidation",
                  device_validate=None):
         self.channel_id = channel_id
-        self.msps = msps
+        self._static_msps = msps
         self.provider = provider
         self.policies = policies
+        # channel config (config.BundleSource or None): the MSPs of the
+        # current bundle, so a committed config block takes effect at the
+        # next block
+        self.bundle_source = bundle_source
         # pluggable commit-time decision (handlers/library/registry.go;
         # the builtin is the v20 policy gate)
         from fabric_tpu_torch.handlers import default_registry
@@ -124,6 +130,20 @@ class TxValidator:
         self.device_validate = device_validate
         # wall seconds of pass 1's parts, last block begun
         self.last_timings: Dict[str, float] = {}
+
+    @property
+    def msps(self):
+        """MSP set for the block being validated.  Snapshotted once per
+        validate() call: all txs of one block must be judged under ONE
+        config or peers could produce divergent validity bitmaps when a
+        bundle swap races a long validation (the reference pins the bundle
+        per block too, core/peer/peer.go:332-371)."""
+        snap = getattr(self, "_msps_snapshot", None)
+        if snap is not None:
+            return snap
+        if self.bundle_source is not None:
+            return self.bundle_source.current().msps
+        return self._static_msps
 
     @property
     def evaluator(self):
@@ -166,6 +186,21 @@ class TxValidator:
 
         Splitting begin/finish lets a block-stream caller overlap host
         collection of block N+1 with device verification of block N."""
+        self._msps_snapshot = (self.bundle_source.current().msps
+                               if self.bundle_source is not None else None)
+        try:
+            return self._begin_inner(block)
+        finally:
+            self._msps_snapshot = None
+
+    def validate_finish(self, state: dict) -> ValidationResult:
+        self._msps_snapshot = state["msps"]
+        try:
+            return self._finish_deep(state)
+        finally:
+            self._msps_snapshot = None
+
+    def _begin_inner(self, block: Block) -> dict:
         num = block.header.number
         # duplicate-txid oracle widened by the in-flight window: a txid
         # in an earlier block the ledger cannot see yet is a duplicate
@@ -177,9 +212,6 @@ class TxValidator:
             and not self.ledger_has_txid(next(iter(m)))]
         carry = [m for _, m in self._inflight_txids]
         return self._begin_deep(block, num, carry)
-
-    def validate_finish(self, state: dict) -> ValidationResult:
-        return self._finish_deep(state)
 
     def _begin_deep(self, block: Block, num: int, carry: list) -> dict:
         """Deep native pass 1: the C walker consumes its own tuples
@@ -247,7 +279,8 @@ class TxValidator:
                              "assemble_s": t3 - t2, "enqueue_s": t4 - t3}
         return {"deep": True, "block": block, "codes": codes,
                 "plans": plans, "items": index, "resolvers": resolvers,
-                "seen_txids": seen_txids, "collect_s": collect_s,
+                "msps": self._msps_snapshot, "seen_txids": seen_txids,
+                "collect_s": collect_s,
                 "n_refs": n_refs, "n_txs": n}
 
     def _finish_deep(self, state: dict) -> ValidationResult:

@@ -1,27 +1,36 @@
 """The channel ledger: block store + state DB + history DB, committed in
-lock-step.
+lock-step with crash recovery.
 
 Reference parity: core/ledger/kvledger/kv_ledger.go —
   CommitLegacy (:425-508): MVCC validate-and-prepare (:452), commit-hash
   chaining (:459-465), block+pvtdata store (:470), state DB (:477),
-  history DB (:487), with per-phase timing metrics (:491-499).
+  history DB (:487), with per-phase timing metrics (:491-499);
+  recovery.go: replay blocks above each DB's savepoint on open;
+  rebuild_dbs.go / reset.go / rollback.go admin operations.
 
-Counterpart of `fabric_tpu/ledger/kvledger.py`, in memory, with the
-serial commit and the fused device validation's prepared-batch hand-off
-(`set_prepared_source`).  Not ported yet: a durable ledger (`root`
-raises NotImplementedError) and so its recovery on open, the wavefront
-parallel commit, the cross-block commit window, snapshot bootstrap, and
-the admin operations (pause/resume, rollback, reset, rebuild_dbs,
-state_status, snapshot_export).
+The block store is the source of truth; state/history are derived and
+self-heal on open (recoverDBs).
+
+Counterpart of `fabric_tpu/ledger/kvledger.py`: the serial commit, the
+fused device validation's prepared-batch hand-off
+(`set_prepared_source`), a durable ledger under `LedgerConfig.root`
+with its recovery on open, and the admin operations.  The directory
+each writes is the reference's, byte for byte.  Not ported yet, and not
+accepted by `LedgerConfig`: the wavefront parallel commit, the
+cross-block commit window (`commit_begin`, `commit_finish`,
+`abort_window`), snapshot export and bootstrap; and the ops-plane
+observer of the apply sizes.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
+import shutil
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 from fabric_tpu_torch.protocol import Block
 from fabric_tpu_torch.protocol.txflags import TxFlags
@@ -48,14 +57,36 @@ def _safe_envelopes(block: Block):
     return out
 
 
+def _history_writes_from_flags(envelopes, flags: TxFlags):
+    """History records of a block's VALID txs, trusting the stored flags
+    (used on replay when MVCC must not re-run)."""
+    from fabric_tpu_torch.ledger.mvcc import parse_endorser_tx
+    history = []
+    for tx_num, env in enumerate(envelopes):
+        if env is None or not flags.is_valid(tx_num):
+            continue
+        try:
+            parsed = parse_endorser_tx(env)
+        except Exception:
+            continue
+        if parsed is None:
+            continue
+        txid, rwset = parsed
+        for ns_rw in rwset.ns_rwsets:
+            for w in ns_rw.writes:
+                history.append((tx_num, txid, ns_rw.namespace, w.key,
+                                w.value, w.is_delete))
+    return history
+
+
 @dataclass
 class LedgerConfig:
-    # the reference's on-disk ledger directory; None = fully in-memory,
-    # the only store ported: KVLedger raises NotImplementedError otherwise
-    root: Optional[str] = None
+    root: Optional[str] = None          # None = fully in-memory
     enable_history: bool = True
+    snapshot_every: int = 256
     # key-hash stripe width for the state plane (statedb + historydb):
-    # independently locked shards; 1 = the flat store
+    # independently locked + independently flushable shards; 1 = the
+    # flat store (differential oracle)
     state_shards: int = 8
     # fused device validation (committer/device_validate.py): commit()
     # consumes the validator's prepared UpdateBatch via the registered
@@ -82,20 +113,106 @@ class KVLedger:
     def __init__(self, channel_id: str, config: Optional[LedgerConfig] = None):
         self.channel_id = channel_id
         self.config = config or LedgerConfig()
-        if self.config.root is not None:
-            raise NotImplementedError(
-                "a durable ledger (LedgerConfig.root) is not ported to "
-                "fabric_tpu_torch yet (ROADMAP A)")
-        self.blockstore = BlockStore()
-        self.statedb = StateDB(n_shards=self.config.state_shards)
-        self.historydb = (HistoryDB(n_shards=self.config.state_shards)
+        root = self.config.root
+        bdir = sdir = hdir = None
+        if root is not None:
+            base = os.path.join(root, channel_id)
+            bdir = os.path.join(base, "blocks")
+            sdir = os.path.join(base, "state")
+            hdir = os.path.join(base, "history")
+        self.blockstore = BlockStore(bdir)
+        self.statedb = self._new_statedb(sdir)
+        self.historydb = (self._new_historydb(hdir)
                           if self.config.enable_history else None)
         self._commit_hash = b"\x00" * 32
         self.last_stats = CommitStats()
+        # set by _recover: how much work reopening this ledger cost
+        self.last_recovery: Dict[str, int] = {
+            "replayed_blocks": 0, "start": 0, "height": 0}
         # DeviceValidator.take_prepared when device_validate is wired:
         # (number, flags_bytes, savepoint) -> (final_flags, batch,
         # history) | None
         self._prepared_source = None
+        self._recover()
+
+    # -- recovery (recovery.go) --------------------------------------------
+
+    def _new_statedb(self, sdir: Optional[str]) -> StateDB:
+        return StateDB(sdir, snapshot_every=self.config.snapshot_every,
+                       n_shards=self.config.state_shards,
+                       channel=self.channel_id)
+
+    def _new_historydb(self, hdir: Optional[str]) -> HistoryDB:
+        return HistoryDB(hdir, n_shards=self.config.state_shards,
+                         checkpoint_every=self.config.snapshot_every,
+                         channel=self.channel_id)
+
+    def _recover(self) -> None:
+        """Replay blocks above each derived DB's savepoint (bounded to
+        the post-checkpoint tail now that the derived DBs checkpoint)."""
+        height = self.blockstore.height
+        base = self.blockstore.base
+        self.last_recovery = {"replayed_blocks": 0, "start": height,
+                              "height": height}
+        if height == 0:
+            return
+        # restore the commit-hash chain: from the last block's metadata
+        # when stored, else from the snapshot-bootstrap marker (a freshly
+        # installed snapshot has base == height, no blocks yet)
+        if height - 1 >= base:
+            last = self.blockstore.get_by_number(height - 1)
+            self._commit_hash = last.metadata.items.get(
+                META_COMMIT_HASH, b"\x00" * 32)
+        elif self.blockstore.bootstrap_commit_hash is not None:
+            self._commit_hash = self.blockstore.bootstrap_commit_hash
+        # replay from the LOWEST derived-DB savepoint: a crash between the
+        # state commit and the history commit leaves history one block
+        # behind, and both commits are idempotent via their savepoint guards
+        savepoints = [self.statedb.savepoint]
+        if self.historydb is not None:
+            savepoints.append(self.historydb.savepoint)
+        lowest = min((-1 if sp is None else sp) for sp in savepoints)
+        start = lowest + 1
+        if start < base:
+            # blocks below the snapshot base are pruned; the installed
+            # state checkpoint is the only source for them.  If a derived
+            # DB lost its checkpoint this replay CANNOT reconstruct the
+            # pre-snapshot writes — re-bootstrap from a serving peer.
+            logger.warning(
+                "%s: derived-DB savepoint %d below snapshot base %d — "
+                "pre-snapshot history is pruned; replaying from base",
+                self.channel_id, lowest, base)
+            start = base
+        replayed = 0
+        for num in range(start, height):
+            block = self.blockstore.get_by_number(num)
+            self._apply_derived(block)
+            replayed += 1
+            logger.info("%s: recovered block %d into state/history",
+                        self.channel_id, num)
+        self.last_recovery = {"replayed_blocks": replayed, "start": start,
+                              "height": height}
+
+    def _apply_derived(self, block: Block) -> None:
+        """Recovery replay of one stored block (final txflags in metadata)
+        into the derived DBs.  If the block is already in the state DB
+        (<= its savepoint), MVCC must NOT re-run — the state already
+        contains this block's writes and every read would falsely
+        conflict; the stored flags are authoritative, so history writes
+        are extracted directly from the VALID txs."""
+        num = block.header.number
+        flags = TxFlags.from_bytes(block.metadata.items[META_TXFLAGS])
+        envelopes = _safe_envelopes(block)
+        state_has_it = (self.statedb.savepoint is not None
+                        and num <= self.statedb.savepoint)
+        if state_has_it:
+            history = _history_writes_from_flags(envelopes, flags)
+        else:
+            batch, history = self._validate_and_prepare(
+                num, envelopes, flags)
+            self.statedb.apply_updates(batch, num)
+        if self.historydb is not None:
+            self.historydb.commit(num, history)  # savepoint-guarded, idempotent
 
     def set_prepared_source(self, fn) -> None:
         """Register the device validator's prepared-batch source
@@ -128,6 +245,9 @@ class KVLedger:
         """Commit a block whose metadata txflags were finalized by the
         txvalidator.  MVCC runs here (ValidateAndPrepare), then the
         commit-hash chains, then block store, state, history."""
+        if self.paused:
+            raise RuntimeError(
+                f"channel {self.channel_id!r} is paused (resume() first)")
         if META_TXFLAGS not in block.metadata.items:
             raise ValueError("block metadata missing txflags "
                              "(txvalidator must run first)")
@@ -187,6 +307,8 @@ class KVLedger:
             self.historydb.commit(block.header.number, history)
             stats.history_commit_s = time.perf_counter() - t0
 
+        # the reference observes the apply's batch sizes here
+        # (_observe_apply); the port has no ops plane yet
         self.last_stats = stats
         logger.info(
             "[%s] committed block %d: %d/%d valid | validation=%.1fms "
@@ -218,3 +340,73 @@ class KVLedger:
         if self.historydb is None:
             raise RuntimeError("history DB disabled")
         return self.historydb.get_history(ns, key)
+
+    def state_status(self) -> dict:
+        """Shard/checkpoint/recovery introspection (the /state ops route)."""
+        out = {
+            "channel": self.channel_id,
+            "height": self.height,
+            "commit_hash": self._commit_hash.hex(),
+            "block_base": self.blockstore.base,
+            "last_recovery": dict(self.last_recovery),
+            "state": self.statedb.status(),
+        }
+        if self.historydb is not None:
+            out["history"] = self.historydb.status()
+        return out
+
+    # -- admin (reset.go / rollback.go / pause_resume.go / rebuild_dbs.go) --
+
+    @property
+    def paused(self) -> bool:
+        """pause_resume.go: a paused channel refuses commits until
+        resumed; the flag survives restarts via a marker file."""
+        if self.config.root is None:
+            return getattr(self, "_paused_mem", False)
+        return os.path.exists(os.path.join(self.config.root, "PAUSED"))
+
+    def pause(self) -> None:
+        if self.config.root is None:
+            self._paused_mem = True
+            return
+        with open(os.path.join(self.config.root, "PAUSED"), "w") as f:
+            f.write("paused")
+
+    def resume(self) -> None:
+        if self.config.root is None:
+            self._paused_mem = False
+            return
+        try:
+            os.unlink(os.path.join(self.config.root, "PAUSED"))
+        except FileNotFoundError:
+            pass
+
+    def rollback(self, target_height: int) -> None:
+        """Roll the channel back to `target_height` blocks and rebuild
+        the derived DBs from the retained chain (kvledger/rollback.go —
+        there the peer re-fetches dropped blocks from ordering; here the
+        deliver client does the same on restart)."""
+        if target_height >= self.height:
+            return
+        self.blockstore.truncate(target_height)
+        self.rebuild_dbs()
+
+    def reset(self) -> None:
+        """Reset to the genesis block only (kvledger/reset.go): all state
+        re-derivable, blocks re-fetched from ordering by the deliver
+        client."""
+        self.rollback(1 if self.height else 0)
+
+    def rebuild_dbs(self) -> None:
+        """Drop state+history and rebuild from the block store."""
+        sdir, hdir = self.statedb.root, None
+        if self.historydb is not None:
+            hdir = self.historydb.root
+        for d in (sdir, hdir):
+            if d and os.path.isdir(d):
+                shutil.rmtree(d)
+        self.statedb = self._new_statedb(sdir)
+        if self.config.enable_history:
+            self.historydb = self._new_historydb(hdir)
+        self._commit_hash = b"\x00" * 32
+        self._recover()

@@ -786,6 +786,150 @@ def test_two_block_stream_device_on_and_off(cuda_device, dev_orgs):
     assert out[True][0] == [[0] * 6, [0, 11, 0, 0]]
 
 
+def tree_bytes(root) -> dict:
+    import os
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            p = os.path.join(dirpath, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+@pytest.mark.cuda
+def test_durable_stream_kv7_reopen(cuda_device, dev_orgs, tmp_path):
+    """A durable ledger (root, 4 state shards, a checkpoint every block)
+    with KV7 on the card: two blocks, a reopen (the DeviceValidator of
+    the reopened ledger reads its recovered savepoint), a third block
+    through KV7; flags, state, commit hash and the whole directory equal
+    a durable host-MVCC stack's."""
+    from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
+                                            TxValidator)
+    from fabric_tpu_torch.committer.device_validate import DeviceValidator
+    from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.policy import parse_policy
+    from fabric_tpu_torch.protocol import KVRead, KVWrite, Version, wire
+    b0 = [endorsed(dev_orgs, writes=[KVWrite(f"k{i}", b"v")])
+          for i in range(6)]
+    b1 = [endorsed(dev_orgs, reads=[KVRead("k0", Version(0, 0))],
+                   writes=[KVWrite("k0", b"a")]),
+          endorsed(dev_orgs, reads=[KVRead("k0", Version(0, 0))])]
+    b2 = [endorsed(dev_orgs, reads=[KVRead("k0", Version(1, 0))],
+                   writes=[KVWrite("k0", b"b"), KVWrite("k2", b"", True)])]
+    raws = chained([b0, b1, b2])
+    sw = SoftwareProvider()
+
+    def stack(root, on):
+        pol = PolicyRegistry()
+        pol.set_policy("cc", parse_policy(
+            "AND('Org1.member', 'Org2.member')"))
+        lg = KVLedger("ch", LedgerConfig(root=str(root), device_validate=on,
+                                         state_shards=4, snapshot_every=1))
+        dv = None
+        if on:
+            dv = DeviceValidator(lg.statedb, "ch", device=cuda_device)
+            lg.set_prepared_source(dv.take_prepared)
+        msps = {o.mspid: CachedMSP(o.msp()) for o in dev_orgs}
+        return Committer(lg, TxValidator("ch", msps, sw, pol,
+                                         device_validate=dv)), dv
+
+    out = {}
+    for on in (False, True):
+        root = tmp_path / ("kv7" if on else "host")
+        before = kv7.block_validate_kernel.launches
+        committer, dv = stack(root, on)
+        codes = [committer.store_block(wire.parse_block(r)).final_flags
+                 .codes() for r in raws[:2]]
+        committer, dv = stack(root, on)
+        assert committer.ledger.height == 2
+        assert committer.ledger.last_recovery["replayed_blocks"] == 0
+        codes.append(committer.store_block(wire.parse_block(raws[2]))
+                     .final_flags.codes())
+        lg = committer.ledger
+        out[on] = (codes, lg.commit_hash,
+                   sorted(lg.statedb._data.items()), tree_bytes(root))
+        if on:
+            assert kv7.block_validate_kernel.launches == before + 3
+            assert dv.stats["validator_device_blocks_total"] == 1
+            assert dv.stats["validator_device_stash_misses_total"] == 0
+    assert out[False] == out[True]
+    assert out[True][0] == [[0] * 6, [0, 11], [0]]
+
+
+@pytest.mark.cuda
+def test_config_block_on_card(cuda_device, dev_orgs, tmp_path):
+    """A config update adding Org3, signed by the Admins of Org1 and
+    Org2, committed on a durable ledger through the CUDA provider: the
+    creator's and the admins' signatures launch the P-256 lanes, the
+    bundle moves to sequence 1, a tx endorsed by Org3 is refused before
+    and valid after, a non-admin update is INVALID_CONFIG_TRANSACTION,
+    and the config history survives a reopen."""
+    from fabric_tpu_torch import config as C
+    from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
+                                            TxValidator)
+    from fabric_tpu_torch.ledger import ConfigHistory, KVLedger, LedgerConfig
+    from fabric_tpu_torch.msp.ca import DevOrg
+    from fabric_tpu_torch.policy import parse_policy
+    from fabric_tpu_torch.protocol import KVWrite, NsRwSet, TxRwSet, build
+    from fabric_tpu_torch.protocol import wire
+    o1, o2 = dev_orgs
+    o3 = DevOrg("Org3")
+
+    def org(d):
+        mc = d.msp_config()
+        return C.OrgConfig(d.mspid, tuple(mc.root_certs_pem),
+                           tuple(mc.admin_certs_pem))
+
+    def config(devs, seq):
+        return C.ChannelConfig("ch", seq, tuple(org(d) for d in devs),
+                               C.default_policies([d.mspid for d in devs]))
+
+    def tx(key):
+        rws = TxRwSet((NsRwSet("cc", writes=(KVWrite(key, b"v"),)),))
+        return build.endorser_tx("ch", "cc", "1.0", rws,
+                                 o1.new_identity("c"),
+                                 [o3.new_identity("peer0")])
+
+    raws = chained([
+        [tx("before")],
+        [C.build_config_envelope(config([o1, o2, o3], 1),
+                                 [o1.admin, o2.admin])],
+        [tx("after")],
+        [C.build_config_envelope(config([o1, o2], 2),
+                                 [o1.new_identity("m"),
+                                  o2.new_identity("m2")])]])
+    prov = CudaProvider(device=cuda_device)
+    src = C.BundleSource(C.Bundle(config([o1, o2], 0)))
+
+    def stack():
+        lg = KVLedger("ch", LedgerConfig(root=str(tmp_path)))
+        ch = ConfigHistory(str(tmp_path / "ch" / "confighistory"))
+        pol = PolicyRegistry(parse_policy("OR('Org3.member')"))
+        return Committer(lg, TxValidator("ch", None, prov, pol,
+                                         bundle_source=src),
+                         bundle_source=src, provider=prov, confighistory=ch)
+
+    committer = stack()
+    codes = []
+    for i, raw in enumerate(raws):
+        before = p256.p256_verify.launches
+        codes.append(committer.store_block(wire.parse_block(raw))
+                     .final_flags.codes())
+        if i == 1:
+            assert p256.p256_verify.launches >= before + 2
+    assert codes == [[10], [0], [0], [6]]
+    assert src.current().sequence == 1
+    assert prov.stats["fallbacks"] == 0
+    reopened = stack()
+    assert reopened.confighistory.entries() == \
+        committer.confighistory.entries()
+    assert reopened.confighistory.latest_height() == 1
+    assert reopened.ledger.commit_hash == committer.ledger.commit_hash
+
+
 @pytest.mark.cuda
 def test_kv7_launch_error_propagates(cuda_device, dev_orgs, monkeypatch):
     """A KV7 launch the card refuses (here: more shared memory than a
