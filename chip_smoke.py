@@ -141,6 +141,40 @@ ends with one JSON line.  Phases:
              fsyncs by kind of file with their ms and bytes, the state
              WAL's appends, checkpoint writes, recovery on reopen.  Its
              launches are printed on its own lines
+12. classic — (run after 11, before the kernels line) the default peer's
+             commit tail: TxValidator's classic tail (key-level
+             endorsement read from the ledger's state, sbe.statedb_lookup)
+             with the verify-once cache (VerdictCache(65536)), no
+             DeviceValidator, on the factory's CUDA provider.  (a) phase
+             6's stream: flags, metadata flags, state, history and commit
+             hash equal phase 6's host stack after every block, flags
+             equal the labels, KP3/KP2 launches, items dispatched and
+             cache hits and misses per block, no fallback; (b) block 3
+             through the Python mirror of the C walker (collect_py),
+             equal; (c) verify-once: a SpeculativeVerifier on the cache,
+             its worker running, stamps block 2 in the reference
+             gateway's batches of 64 and fills every item (none dropped
+             from its queue); block 2 then commits with no item
+             dispatched and no KP3/KP2 launch, equal; a flipped cached
+             verdict is refused (mac) and that item re-verified; an
+             epoch bump re-verifies every item; (d) a seeded SBE stream
+             of three 1,000-tx blocks (key policies AND(Org1, Org2) and
+             OR(Org2) set and deleted by about 5% of the txs, a
+             same-block transition, a tx writing keys under both): flags
+             equal the labels on a channel with V1_3_KeyLevelEndorsement
+             and all valid on one without; (e) early abort
+             (EarlyAbortAnalyzer) on blocks 2 and 3, on the classic and
+             the KV7 tail: each doomed tx invalid without it and MVCC or
+             phantom with it, every other flag equal, state and history
+             equal, the commit hash equal unless a doomed tx's code
+             differs, items dispatched with and without; (f) phase 9's
+             idemix block through the classic tail, flags equal; (g)
+             block 2 warm on fresh ledgers at height 2, the default
+             peer's stack, the deep host and the deep KV7 stack and the
+             default peer's after a speculative fill, in turns, stage by
+             stage, and one profiled run of the default peer's.  Its
+             main-path launches are counted apart (the kernels line's
+             `classic_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -232,6 +266,21 @@ IDEMIX_TXS = 32
 IDEMIX_SIGNERS = 2             # per issuer, two issuers
 IDEMIX_BAD = {5: "nonce", 13: "forged", 21: "garbage"}
 IDEMIX_POLICY = "OR('Org1.member')"
+# the default peer's tail (phase 12): the verify-once cache's capacity
+# (the reference peer's default), the SBE stream's blocks and txs, its
+# chaincode policy (either org), its key policies by name, and the share
+# of its txs that set or delete a key policy
+CACHE_CAPACITY = 65536
+# envelopes a gateway batch hands to the speculative verifier: the
+# reference gateway's default max_batch (fabric_tpu/gateway/service.py:72)
+SPEC_BATCH = 64
+SPEC_DRAIN_S = 300.0         # bound on the worker's drain after a fill
+SBE_BLOCKS = 3
+SBE_TXS = 1000
+SBE_CC_POLICY = "OR('Org1.member', 'Org2.member')"
+SBE_POLICIES = {"and": "AND('Org1.member', 'Org2.member')",
+                "org2": "OR('Org2.member')"}
+SBE_POLICY_FRAC = 0.05
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
 # 64 per SM per clock (CUDA C Programming Guide, arithmetic instruction
@@ -804,6 +853,111 @@ def build_stream(n_txs: int, n_last: int, signers, endorsers, clients,
     return blocks, labels, counts
 
 
+def sbe_stream(n_blocks: int, n_txs: int, clients, seed: int):
+    """The key-level endorsement (SBE) stream -> ([block of tx specs],
+    [labels], {kind: count}).  A spec is (creator, endorser orgs,
+    nonce, written keys, [(key, key policy name or None)]): the creator
+    one of `clients`, the orgs 0 (Org1) and 1 (Org2).  Every write is
+    blind, so MVCC decides nothing.  Block 0 opens with a key under each
+    key policy; then about SBE_POLICY_FRAC of the txs set or delete a
+    key's policy, the rest write a key, under a key policy or not,
+    endorsed by one org or both.  Block 1 opens with a same-block
+    transition (tx 0 puts a fresh key under OR(Org2), tx 1 writes it
+    endorsed by Org1 alone), and the middle tx of every block writes two
+    keys under the two key policies.  The labels simulate the
+    reference's gate (validator_keylevel.go): a written key needs its
+    key policy, or the chaincode's when it has none; a policy update
+    needs the key's current policy, or the chaincode's; a valid tx's
+    updates hold for the later txs of its block.  0 valid, 10
+    ENDORSEMENT_POLICY_FAILURE; without the channel capability every tx
+    is valid (the chaincode policy takes any endorser)."""
+    rng = random.Random(seed)
+    sat = {"and": lambda e: 0 in e and 1 in e, "org2": lambda e: 1 in e,
+           None: bool}
+    committed: dict = {}                 # key -> its key policy's name
+    n_keys = [0]
+
+    def fresh():
+        n_keys[0] += 1
+        return f"sbe{n_keys[0]:06d}"
+
+    blocks, labels, counts = [], [], {}
+    for blk in range(n_blocks):
+        cur = dict(committed)
+        specs, lab = [], []
+        for t in range(n_txs):
+            ends = rng.choice(((0,), (1,), (0, 1)))
+            writes, meta = [], []
+            by_pol = {p: sorted(k for k, v in cur.items() if v == p)
+                      for p in SBE_POLICIES}
+            if blk == 0 and t < 2:
+                kind, ends = "set", (0, 1)
+                meta = [(fresh(), ("and", "org2")[t])]
+            elif blk == 1 and t == 0:
+                kind, ends = "transition_set", (0, 1)
+                trans = fresh()
+                meta = [(trans, "org2")]
+            elif blk == 1 and t == 1:
+                kind, ends, writes = "transition_write", (0,), [trans]
+            elif t == n_txs // 2 and all(by_pol.values()):
+                kind = "two_policies"
+                writes = [rng.choice(by_pol["and"]),
+                          rng.choice(by_pol["org2"])]
+            elif rng.random() < SBE_POLICY_FRAC:
+                if cur and rng.random() < 0.4:
+                    key = rng.choice(sorted(cur))
+                    pol = rng.choice((None, "and", "org2"))
+                else:
+                    key, pol = fresh(), rng.choice(("and", "org2"))
+                kind = "set" if pol else "delete"
+                meta = [(key, pol)]
+            elif cur and rng.random() < 0.3:
+                kind, writes = "write_policed", [rng.choice(sorted(cur))]
+            else:
+                kind, writes = "write", [fresh()]
+            counts[kind] = counts.get(kind, 0) + 1
+            ok = all(sat[cur.get(k)](ends) for k in writes) and all(
+                sat[cur.get(k)](ends) for k, _ in meta)
+            lab.append(0 if ok else 10)
+            if ok:
+                for k, pol in meta:
+                    if pol is None:
+                        cur.pop(k, None)
+                    else:
+                        cur[k] = pol
+            specs.append((rng.choice(clients), ends, rng.randbytes(24),
+                          writes, meta))
+        committed = cur
+        blocks.append(specs)
+        labels.append(lab)
+    return blocks, labels, counts
+
+
+def _sbe_envelope_job(job):
+    """Worker: (signers, org endorser indices, [SBE tx spec]) ->
+    [serialized envelope]; the key policies go to cc#meta as the shim's
+    SetStateValidationParameter writes them."""
+    from fabric_tpu_torch.committer import sbe
+    from fabric_tpu_torch.policy import parse_policy
+    from fabric_tpu_torch.protocol import KVWrite, NsRwSet, TxRwSet, build
+    signers, org_ends, specs = job
+    pols = {p: sbe.encode_policy(parse_policy(s))
+            for p, s in SBE_POLICIES.items()}
+    out = []
+    for creator, ends, nonce, writes, meta in specs:
+        ns = [NsRwSet("cc", writes=tuple(KVWrite(k, b"v") for k in writes))]
+        if meta:
+            ns.append(NsRwSet(sbe.meta_namespace("cc"), writes=tuple(
+                KVWrite(k, b"", True) if p is None else KVWrite(k, pols[p])
+                for k, p in meta)))
+        env = build.endorser_tx(
+            "ch", "cc", "1.0", TxRwSet(tuple(ns)), signers[creator],
+            [signers[org_ends[o]] for o in ends], nonce=nonce,
+            timestamp=COMMIT_TS)
+        out.append(env.serialize())
+    return out
+
+
 def chain_blocks(env_blocks):
     """Hash-chained wire bytes of the stream's blocks."""
     from fabric_tpu_torch.protocol import (Envelope, block_header_hash,
@@ -818,18 +972,25 @@ def chain_blocks(env_blocks):
 
 
 def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
-                 policy: str = COMMIT_POLICY):
-    """Committer -> TxValidator (deep path) -> DeviceValidator
-    (window=16384) or the host gate -> KVLedger (in memory, 8 state
-    shards) -> (committer, device validator or None).  msps: the orgs'
-    MSPs unless given."""
+                 policy: str = COMMIT_POLICY, classic: bool = False,
+                 cache=None, early_abort: bool = False, bundle=None):
+    """Committer -> TxValidator -> DeviceValidator (window=16384) or the
+    host gate -> KVLedger (in memory, 8 state shards) -> (committer,
+    device validator or None).  The validator's deep tail, or with
+    `classic` the default peer's: key-level endorsement read from the
+    ledger's state (sbe.statedb_lookup), so the classic tail.  cache: a
+    verify-once VerdictCache or None; early_abort: an
+    EarlyAbortAnalyzer on the ledger's state; msps: the orgs' MSPs
+    unless given; bundle: a BundleSource whose bundle gives the MSPs."""
     from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
-                                            TxValidator)
+                                            TxValidator, sbe)
     from fabric_tpu_torch.committer.device_validate import DeviceValidator
+    from fabric_tpu_torch.committer.parallel_commit import (
+        EarlyAbortAnalyzer)
     from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
     from fabric_tpu_torch.msp import CachedMSP
     from fabric_tpu_torch.policy import parse_policy
-    if msps is None:
+    if msps is None and bundle is None:
         msps = {o.mspid: CachedMSP(o.msp()) for o in orgs}
     policies = PolicyRegistry()
     policies.set_policy("cc", parse_policy(policy))
@@ -840,8 +1001,14 @@ def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
         dv = DeviceValidator(ledger.statedb, "ch", device=dev,
                              window=COMMIT_WINDOW)
         ledger.set_prepared_source(dv.take_prepared)
-    return Committer(ledger, TxValidator("ch", msps, provider, policies,
-                                         device_validate=dv)), dv
+    validator = TxValidator(
+        "ch", msps, provider, policies, bundle_source=bundle,
+        sbe_lookup=sbe.statedb_lookup(ledger.statedb) if classic else None,
+        verify_cache=cache, device_validate=dv,
+        early_abort=EarlyAbortAnalyzer(ledger.statedb, "ch")
+        if early_abort else None)
+    return Committer(ledger, validator, bundle_source=bundle,
+                     provider=provider if bundle is not None else None), dv
 
 
 def commit_stream(committer, raws, rows: bool = False):
@@ -1526,6 +1693,387 @@ def durable_phase(torch, args, provider, orgs, signers, clients, raws,
           bytes_written=fs["bytes"][0], card=name_power)
     shutil.rmtree(base, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the default peer's commit tail (phase 12)
+# ---------------------------------------------------------------------------
+
+def build_sbe_stream(signers, endorsers, clients, pool):
+    """The SBE stream (sbe_stream) signed in the pool -> (hash-chained
+    block bytes, labels, {kind: count})."""
+    # creators of Org1 and Org2 only: the SBE channel has no Org3
+    specs, labels, counts = sbe_stream(
+        SBE_BLOCKS, SBE_TXS, [c for i, c in enumerate(clients)
+                              if i % N_ORGS < 2], SEED + 14)
+    env_blocks = []
+    for blk in specs:
+        jobs = [(signers, endorsers[:2], blk[lo:lo + 250])
+                for lo in range(0, len(blk), 250)]
+        env_blocks.append([e for part in pool.map(_sbe_envelope_job, jobs)
+                           for e in part])
+    return chain_blocks(env_blocks), labels, counts
+
+
+class _Dispatches:
+    """A provider that counts the items the validator dispatches
+    (batch_verify_async) and passes everything to `inner`."""
+
+    def __init__(self, inner):
+        self.inner, self.items = inner, 0
+
+    def batch_verify_async(self, items):
+        items = list(items)
+        self.items += len(items)
+        return self.inner.batch_verify_async(items)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def at_height(committer, raws, mem_rows, n: int):
+    """Set-up: blocks 0..n-1 straight into the committer's ledger with
+    the flags phase 6 gave them (MVCC re-runs on them), checked against
+    phase 6's commit hash."""
+    from fabric_tpu_torch.protocol import wire
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    for num in range(n):
+        block = wire.parse_block(raws[num])
+        block.metadata.items[META_TXFLAGS] = mem_rows[num][1]
+        committer.ledger.commit(block)
+    check(committer.ledger.commit_hash == mem_rows[n - 1][2][2],
+          f"set-up at height {n}: commit hash != phase 6's")
+    return committer
+
+
+def spec_fill(cache, provider, msps, raw: bytes) -> dict:
+    """A SpeculativeVerifier on `cache`, its worker started, takes the
+    block's envelopes as the reference gateway hands them over: batches
+    of SPEC_BATCH, back to back, the highest rate a gateway gives.  Each
+    stamp verifies its batch's creators in one dispatch and queues the
+    endorsement sets; the worker verifies what it finds queued.  Once
+    the queue is empty the verifier is stopped, which lets the worker
+    finish what it holds.  The queue keeps 4,096 envelopes and drops the
+    oldest beyond: `dropped` counts the block's unique endorsement items
+    left without a verdict -> its counts."""
+    from fabric_tpu_torch.protocol import Block
+    from fabric_tpu_torch.verify_plane import (SpeculativeVerifier,
+                                               derive_items, item_digest)
+    envs = Block.deserialize(raw).data
+    spec = SpeculativeVerifier(cache, lambda: provider,
+                               lambda cid: msps).start()
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + SPEC_DRAIN_S
+    attested = 0
+    try:
+        for lo in range(0, len(envs), SPEC_BATCH):
+            batch = envs[lo:lo + SPEC_BATCH]
+            attested += sum(map(bool, spec.stamp(batch,
+                                                 ["ch"] * len(batch))))
+        stamp_s = time.perf_counter() - t0
+        while spec._queue and time.monotonic() < deadline:
+            time.sleep(0.001)
+    finally:
+        spec.stop()
+    while spec._thread.is_alive() and time.monotonic() < deadline:
+        time.sleep(0.001)
+    fill_s = time.perf_counter() - t0
+    check(not spec._queue and not spec._thread.is_alive(),
+          f"speculative fill: the worker did not drain in {SPEC_DRAIN_S} s")
+    memo, endorse = {}, {}
+    for env in envs:
+        for it in derive_items(env, "ch", msps, memo)[1]:
+            endorse[item_digest(it)] = it
+    return {"stamped": len(envs), "batches": -(-len(envs) // SPEC_BATCH),
+            "attested": attested, "dispatched": spec.dispatched,
+            "endorsement_items": len(endorse),
+            "dropped": sum(cache.peek(it) is None
+                           for it in endorse.values()),
+            "stamp_ms": round(stamp_s * 1e3, 3),
+            "fill_ms": round(fill_s * 1e3, 3)}
+
+
+def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
+                  sbe, idemix, fns, name_power, dev) -> dict:
+    """Phase 12.  The default peer's commit tail on the card: the classic
+    tail (key-level endorsement read from the ledger's state) with the
+    verify-once cache, on the factory's CUDA provider, no
+    DeviceValidator.  mem_rows: phase 6's KV7 stack after each block,
+    (codes, metadata flags, (state, history, commit hash)), which phase
+    6 held equal to its host stack; sbe: (raws, labels, counts) of the
+    SBE stream; idemix: (configs, block bytes, labels) of phase 9.  ->
+    {kernel: launches} of its main-path runs (each count set to 0 just
+    before a run and read just after)."""
+    from fabric_tpu_torch import config as C
+    from fabric_tpu_torch.bccsp.sw import SoftwareProvider
+    from fabric_tpu_torch.idemix.msp import IdemixMSP
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.protocol import wire
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    from fabric_tpu_torch.protocol import Block
+    from fabric_tpu_torch.verify_plane import (VerdictCache, derive_items,
+                                               item_digest)
+    counted = {**fns, "block_validate": kv7.block_validate_kernel}
+    main = dict.fromkeys(counted, 0)
+    kp = ("p256_verify_rows", "p256_verify")
+    fb0 = provider.stats["fallbacks"]
+
+    def run(fn, count: bool = True):
+        """fn() with every count set to 0 just before and read just
+        after -> (its result, {kernel: launches})."""
+        for f in counted.values():
+            f.launches = 0
+        out = fn()
+        launches = {n: f.launches for n, f in counted.items()}
+        if count:
+            for n in main:
+                main[n] += launches[n]
+        return out, launches
+
+    def commit_one(committer, raw):
+        block = wire.parse_block(raw)
+        t0 = time.perf_counter()
+        res = committer.store_block(block)
+        return res, time.perf_counter() - t0, bytes(
+            block.metadata.items[META_TXFLAGS])
+
+    def stack(**kw):
+        """-> (committer, its item-counting provider)."""
+        prov = _Dispatches(provider)
+        return commit_stack(prov, orgs, kw.pop("kv7", False), dev,
+                            **kw)[0], prov
+
+    # (a) the stream through the default peer's stack, held to phase 6
+    cache = VerdictCache(CACHE_CAPACITY, owner="peer0")
+    peer, prov = stack(classic=True, cache=cache)
+    unique = []                  # each block's unique items
+    for num, raw in enumerate(raws):
+        h0, m0, i0 = (cache.stats["verify_cache_hits_total"],
+                      cache.stats["verify_cache_misses_total"], prov.items)
+        (res, secs, meta), launches = run(lambda: commit_one(peer, raw))
+        codes = res.final_flags.codes()
+        unique.append(res.validation.n_unique_items)
+        mcodes, mmeta, mrows = mem_rows[num]
+        check(codes == mcodes, f"classic block {num}: flags != phase 6's")
+        check(codes == labels[num], f"classic block {num}: flags != labels")
+        check((*ledger_rows(peer.ledger), peer.ledger.commit_hash) == mrows,
+              f"classic block {num}: state, history or commit hash != "
+              "phase 6's")
+        check(meta == mmeta,
+              f"classic block {num}: metadata flags != phase 6's")
+        check_launches(f"classic block {num}", launches, kp[:1], kp[1:])
+        phase("classic", block=num, txs=len(codes), valid=codes.count(0),
+              kp3=launches["p256_verify_rows"], kp2=launches["p256_verify"],
+              items_dispatched=prov.items - i0,
+              cache_hits=cache.stats["verify_cache_hits_total"] - h0,
+              cache_misses=cache.stats["verify_cache_misses_total"] - m0,
+              validate_commit_s=round(secs, 4))
+    check(provider.stats["fallbacks"] == fb0, "classic: fallbacks != 0")
+    phase("classic", stream="equal to phase 6's host stack after every "
+          "block (flags, metadata flags, state, history, commit hash) "
+          "and to the labels", fallbacks=0, cache_size=len(cache))
+
+    # (b) block 3 through the Python mirror of the C walker
+    mirror, _ = stack(classic=True, cache=VerdictCache(CACHE_CAPACITY))
+    at_height(mirror, raws, mem_rows, len(raws) - 1)
+    mirror.validator.force_python_collect = True
+    (res, secs, _), launches = run(lambda: commit_one(mirror, raws[-1]))
+    check(res.final_flags.codes() == mem_rows[-1][0]
+          and (*ledger_rows(mirror.ledger), mirror.ledger.commit_hash)
+          == mem_rows[-1][2], "classic block 3 on collect_py != phase 6's")
+    phase("classic", python_mirror=f"block {len(raws) - 1} equal",
+          collect_ms=round(res.validation.collect_s * 1e3, 3),
+          kp3=launches["p256_verify_rows"], kp2=launches["p256_verify"])
+
+    # (c) verify-once: block 2 on a ledger at height 2 after a
+    # speculative fill of its items, then a flipped entry and an epoch bump
+    cache = VerdictCache(CACHE_CAPACITY, owner="peer0")
+    spec, prov = stack(classic=True, cache=cache)
+    at_height(spec, raws, mem_rows, 2)
+    msps = spec.validator.msps
+    filled, fill_launches = run(lambda: spec_fill(cache, provider, msps,
+                                                  raws[2]), count=False)
+    check(filled["dropped"] == 0, f"speculative fill of block 2: "
+          f"{filled['dropped']} of {filled['endorsement_items']} "
+          "endorsement items without a verdict (the queue dropped them)")
+    h0, m0 = (cache.stats["verify_cache_hits_total"],
+              cache.stats["verify_cache_misses_total"])
+    (res, secs, _), launches = run(lambda: commit_one(spec, raws[2]))
+    check(all(launches[k] == 0 for k in kp) and prov.items == 0
+          and cache.stats["verify_cache_misses_total"] == m0,
+          f"spec-filled block 2 dispatched: {launches}, {prov.items} items")
+    check(res.final_flags.codes() == mem_rows[2][0]
+          and spec.ledger.commit_hash == mem_rows[2][2][2],
+          "spec-filled block 2: flags or commit hash != phase 6's")
+    phase("classic", spec_fill=filled, fill_launches={
+        k: fill_launches[k] for k in kp}, block=2,
+        cache_hits=cache.stats["verify_cache_hits_total"] - h0,
+        cache_misses=0, unique_items=res.validation.n_unique_items,
+        items_dispatched=0, kp3=0, kp2=0,
+        validate_commit_s=round(secs, 4))
+    # block 3 filled too, one entry's verdict flipped: refused (mac),
+    # that one item re-dispatched
+    spec_fill(cache, provider, msps, raws[3])
+    creators, _ = derive_items(Block.deserialize(raws[3]).data[1], "ch",
+                               msps)
+    d = item_digest(creators[0])
+    mac, verdict, scope, epoch, trace = cache._data[d]
+    cache._data[d] = (mac, not verdict, scope, epoch, trace)
+    rej0 = dict(cache.stats["verify_cache_rejects_total"])
+    (res, _, _), launches = run(lambda: commit_one(spec, raws[3]))
+    rej = {k: v - rej0[k] for k, v in
+           cache.stats["verify_cache_rejects_total"].items()}
+    check(rej == {"mac": 1, "stale": 0} and prov.items == 1,
+          f"flipped entry: rejects {rej}, {prov.items} items dispatched")
+    check(res.final_flags.codes() == mem_rows[3][0],
+          "flipped entry: block 3 flags != phase 6's")
+    phase("classic", flipped_entry="refused (mac) and re-verified",
+          items_dispatched=prov.items, kp3=launches["p256_verify_rows"],
+          kp2=launches["p256_verify"])
+    # the same cache, the channel's epoch bumped: block 3 on a fresh
+    # ledger re-verifies every item
+    bump, prov = stack(classic=True, cache=cache)
+    at_height(bump, raws, mem_rows, 3)
+    cache.set_epoch(1, scope="ch")
+    rej0 = dict(cache.stats["verify_cache_rejects_total"])
+    (res, _, _), launches = run(lambda: commit_one(bump, raws[3]))
+    stale = cache.stats["verify_cache_rejects_total"]["stale"] - \
+        rej0["stale"]
+    n3 = res.validation.n_unique_items
+    check(stale == n3 and prov.items == n3,
+          f"epoch bump: {stale} stale of {n3}, {prov.items} dispatched")
+    check(res.final_flags.codes() == mem_rows[3][0],
+          "epoch bump: block 3 flags != phase 6's")
+    phase("classic", epoch_bump=f"{stale} stale entries re-verified",
+          items_dispatched=prov.items, kp3=launches["p256_verify_rows"],
+          kp2=launches["p256_verify"])
+
+    # (d) the SBE stream, the channel capability on and off
+    sbe_raws, sbe_labels, sbe_counts = sbe
+    o12 = orgs[:2]
+    phase("classic", sbe_blocks=len(sbe_raws), txs=len(sbe_labels[0]),
+          kinds=sbe_counts, cc_policy=SBE_CC_POLICY, key_policies=SBE_POLICIES)
+    for caps in ((C.CAP_V2_0, C.CAP_KEY_LEVEL_ENDORSEMENT), (C.CAP_V2_0,)):
+        src = C.BundleSource(C.Bundle(C.ChannelConfig(
+            "ch", 0, tuple(org_config(C, o) for o in o12),
+            C.default_policies([o.mspid for o in o12]), capabilities=caps)))
+        sbe_c, _ = stack(classic=True, cache=VerdictCache(CACHE_CAPACITY),
+                            bundle=src, policy=SBE_CC_POLICY)
+        for num, raw in enumerate(sbe_raws):
+            (res, secs, _), launches = run(lambda: commit_one(sbe_c, raw))
+            codes = res.final_flags.codes()
+            want = (sbe_labels[num] if len(caps) == 2
+                    else [0] * len(sbe_labels[num]))
+            check(codes == want, f"SBE block {num} (capabilities {caps}): "
+                  f"flags != labels, first "
+                  f"{[(i, c, w) for i, (c, w) in enumerate(zip(codes, want)) if c != w][:5]}")
+            phase("classic", sbe_block=num, capabilities=list(caps),
+                  valid=codes.count(0), policy_failures=codes.count(10),
+                  flags_vs_labels="equal", kp3=launches["p256_verify_rows"],
+                  kp2=launches["p256_verify"],
+                  validate_commit_s=round(secs, 4))
+
+    # (e) early abort on blocks 2 and 3, on the classic and the KV7 tail
+    for tail in ("classic", "kv7"):
+        kw = ({"classic": True, "cache": VerdictCache(CACHE_CAPACITY)}
+              if tail == "classic" else {"kv7": True})
+        ea, prov = stack(early_abort=True, **kw)
+        at_height(ea, raws, mem_rows, 2)
+        an = ea.validator.early_abort
+        seen = []
+        real = an.doomed
+
+        def spy(block, overlay=None, real=real, seen=seen):
+            got = real(block, overlay=overlay)
+            seen.append(got)
+            return got
+
+        an.doomed = spy
+        for num in (2, 3):
+            i0 = prov.items
+            (res, secs, _), launches = run(lambda: commit_one(ea, raws[num]))
+            doomed = seen[-1]
+            codes = res.final_flags.codes()
+            base = mem_rows[num][0]
+            for t, (c, b) in enumerate(zip(codes, base)):
+                if t in doomed:
+                    check(b != 0 and c in (11, 12), f"early abort {tail} "
+                          f"block {num} tx {t}: doomed {c}, without {b}")
+                else:
+                    check(c == b, f"early abort {tail} block {num} tx {t}:"
+                          f" {c} != {b} without early abort")
+            rows = ledger_rows(ea.ledger)
+            check(rows == mem_rows[num][2][:2], f"early abort {tail} block "
+                  f"{num}: state or history != phase 6's")
+            same = codes == base
+            check((ea.ledger.commit_hash == mem_rows[num][2][2]) == same,
+                  f"early abort {tail} block {num}: the commit hash differs "
+                  "other than where a doomed tx's code does")
+            phase("classic", early_abort=tail, block=num, doomed=len(doomed),
+                  doomed_codes_differ=sum(c != b for c, b in
+                                          zip(codes, base)),
+                  items_dispatched=prov.items - i0,
+                  items_without=unique[num],
+                  kp3=launches["p256_verify_rows"],
+                  kp2=launches["p256_verify"],
+                  kv7=launches["block_validate"],
+                  validate_commit_s=round(secs, 4))
+
+    # (f) phase 9's idemix block, once through the classic tail
+    configs, id_raw, id_labels = idemix
+    id_msps = {orgs[0].mspid: CachedMSP(orgs[0].msp()),
+               **{c.mspid: IdemixMSP(c) for c in configs}}
+    idc, _ = stack(classic=True, cache=VerdictCache(CACHE_CAPACITY),
+                      msps=id_msps, policy=IDEMIX_POLICY)
+    (res, secs, _), launches = run(lambda: commit_one(idc, id_raw))
+    check(res.final_flags.codes() == id_labels,
+          "idemix block on the classic tail: flags != phase 9's")
+    check_launches("classic idemix block", launches, ("bn254_pairing",),
+                   kp)
+    phase("classic", idemix_block=len(id_labels), flags="equal to phase 9's",
+          kb8=launches["bn254_pairing"], kp3=launches["p256_verify_rows"],
+          validate_commit_s=round(secs, 3))
+    check(provider.stats["fallbacks"] == fb0, "classic: fallbacks != 0")
+
+    # (g) block 2 warm on fresh ledgers at height 2, the stacks in turns
+    stacks = {"classic+cache": {"classic": True},
+              "deep host": {}, "deep kv7": {"kv7": True},
+              "classic spec-filled": {"classic": True}}
+    times = {k: [] for k in stacks}
+    for _ in range(args.trials):
+        for name, kw in stacks.items():
+            cache = VerdictCache(CACHE_CAPACITY)
+            c, _ = stack(cache=cache if kw.get("classic") else None, **kw)
+            at_height(c, raws, mem_rows, 2)
+            if name == "classic spec-filled":
+                spec_fill(cache, provider, c.validator.msps, raws[2])
+            res, secs, _ = commit_one(c, raws[2])
+            vr = res.validation
+            times[name].append({"total": secs, "collect": vr.collect_s,
+                                "dispatch_wait": vr.dispatch_s,
+                                "gate": vr.gate_s, "commit": res.commit_s,
+                                **{k.removesuffix("_s"): v for k, v in
+                                   c.validator.last_timings.items()}})
+    for name, rows in times.items():
+        med = {k: statistics.median(r[k] for r in rows) * 1e3
+               for k in rows[0]}
+        phase("classic", block=2, stack=name, warm=True, trials=args.trials,
+              validate_commit_ms=round(med.pop("total"), 3),
+              **{f"{k}_ms": round(v, 3) for k, v in med.items()},
+              card=name_power)
+    # one profiled run of the default peer's block 2 (the spec-filled
+    # block launches nothing for the profiler to see)
+    c, _ = stack(classic=True, cache=VerdictCache(CACHE_CAPACITY))
+    at_height(c, raws, mem_rows, 2)
+    busy_ms, wall_ms, top = device_busy(torch, {"classic": lambda: (
+        commit_one(c, raws[2]), torch.cuda.synchronize())})["classic"]
+    phase("classic", profiled="block 2, classic+cache", wall_ms=round(
+        wall_ms, 3), device_busy_ms=round(busy_ms, 3),
+        device_idle_share=round(1 - busy_ms / wall_ms, 4),
+        top_device_ops=top)
+    phase("classic", launches=main)
+    return main
 
 
 # ---------------------------------------------------------------------------
@@ -2600,6 +3148,9 @@ def main(argv=None) -> int:
         idemix_raw, idemix_labels = build_idemix_block(
             id_signers, id_forged, signers[0], pool)
         idemix_sign_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sbe = build_sbe_stream(signers, endorsers, clients, pool)
+        sbe_s = time.perf_counter() - t0
     n_p256 = 4 * args.txs
     fast_idx, well_formed, hot_keys = fast_lane_items(
         items, kinds, n_p256, p256_tables.on_curve)
@@ -3200,6 +3751,14 @@ def main(argv=None) -> int:
     # --- 11. durable ---------------------------------------------------------
     durable_phase(torch, args, provider, orgs, signers, clients, commit_raws,
                   mem_rows, fns, name_power, dev)
+
+    # --- 12. classic ---------------------------------------------------------
+    phase("classic", cache_capacity=CACHE_CAPACITY, sbe_sign_s=round(
+        sbe_s, 2), stack="classic tail, sbe_lookup=statedb_lookup, "
+        "VerdictCache, no DeviceValidator", card=name_power)
+    classic_launches = classic_phase(
+        torch, args, provider, orgs, commit_raws, commit_labels, mem_rows,
+        sbe, (id_configs, idemix_raw, idemix_labels), fns, name_power, dev)
     del mem_rows
 
     # --- 8. kernels ----------------------------------------------------------
@@ -3249,6 +3808,9 @@ def main(argv=None) -> int:
          "ms_block": ke5_block_ms, **ke5_chain, **ke5_res},
         *experiment_rows(exp_results, total, field_err),
     ]
+    for row in kernels:
+        # phase 12's main-path launches, in their own count
+        row["classic_launches"] = classic_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

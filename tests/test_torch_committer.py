@@ -211,16 +211,18 @@ POLICY_FAIL = int(ValidationCode.ENDORSEMENT_POLICY_FAILURE)
 BADSIG = int(ValidationCode.BAD_CREATOR_SIGNATURE)
 
 
-def test_ww_chain_same_key(providers, orgs):
+# the corpora: orgs -> the blocks' envelopes (block 0 first); the
+# classic-tail tests (test_torch_classic.py) run each of them too
+
+
+def corpus_ww_chain(orgs):
     envs1 = [make_tx(orgs, rw(reads=[KVRead("k00", Version(0, 0))],
                               writes=[KVWrite("k00", bytes([i]))]))
              for i in range(5)]
-    codes = assert_four_way(providers, orgs, [seed_block(orgs), envs1],
-                            device_blocks=2, demotions={})
-    assert codes[1] == [V, MVCC, MVCC, MVCC, MVCC]
+    return [seed_block(orgs), envs1]
 
 
-def test_delete_then_read(providers, orgs):
+def corpus_delete_then_read(orgs):
     envs1 = [make_tx(orgs, rw(writes=[KVWrite("k01", b"", True)]))]
     envs2 = [
         make_tx(orgs, rw(reads=[KVRead("k01", Version(0, 1))])),
@@ -230,13 +232,10 @@ def test_delete_then_read(providers, orgs):
                          writes=[KVWrite("k02", b"", True)])),
         make_tx(orgs, rw(reads=[KVRead("k02", Version(0, 2))])),
     ]
-    codes = assert_four_way(providers, orgs,
-                            [seed_block(orgs), envs1, envs2],
-                            device_blocks=3, demotions={})
-    assert codes[2] == [MVCC, V, V, MVCC]
+    return [seed_block(orgs), envs1, envs2]
 
 
-def test_phantom_range_query_demotes(providers, orgs):
+def corpus_phantom_range(orgs):
     seed = seed_block(orgs, 4)
     ok_set = tuple(KVRead(f"k{i:02d}", Version(0, i)) for i in range(3))
     envs1 = [
@@ -246,40 +245,28 @@ def test_phantom_range_query_demotes(providers, orgs):
                                                 ok_set[:2])])),
     ]
     envs2 = [make_tx(orgs, rw(writes=[KVWrite("k09", b"x")]))]
-    codes = assert_four_way(providers, orgs, [seed, envs1, envs2],
-                            device_blocks=2,
-                            demotions={"range_query": 1})
-    assert codes[1] == [V, PHANTOM]
+    return [seed, envs1, envs2]
 
 
-def test_engineered_hash_collision_demotes(providers, orgs):
-    """djb2-64("ab") == djb2-64("bA"): the lanes flag the collision and
-    the block demotes, never a wrong verdict."""
+def corpus_hash_collision(orgs):
     envs0 = [make_tx(orgs, rw(writes=[KVWrite("ab", b"1")])),
              make_tx(orgs, rw(writes=[KVWrite("bA", b"2")]))]
     envs1 = [make_tx(orgs, rw(reads=[KVRead("ab", Version(0, 0)),
                                      KVRead("bA", Version(0, 1))],
                               writes=[KVWrite("k05", b"x")]))]
-    codes = assert_four_way(providers, orgs, [envs0, envs1],
-                            device_blocks=0,
-                            demotions={"hash_collision": 2})
-    assert codes == [[V, V], [V]]
+    return [envs0, envs1]
 
 
-def test_zero_and_full_conflict(providers, orgs):
+def corpus_zero_and_full_conflict(orgs):
     envs_ok = [make_tx(orgs, rw(reads=[KVRead(f"k{i:02d}", Version(0, i))],
                                 writes=[KVWrite(f"k{i:02d}", b"v1")]))
                for i in range(6)]
     envs_bad = [make_tx(orgs, rw(reads=[KVRead(f"k{i:02d}", Version(9, 9))]))
                 for i in range(6)]
-    codes = assert_four_way(providers, orgs,
-                            [seed_block(orgs), envs_ok, envs_bad],
-                            device_blocks=3, demotions={})
-    assert codes[1] == [V] * 6
-    assert codes[2] == [MVCC] * 6
+    return [seed_block(orgs), envs_ok, envs_bad]
 
 
-def test_policy_and_signature_failures(providers, orgs):
+def corpus_policy_and_signature_failures(orgs):
     org1, _org2 = orgs
     good = make_tx(orgs, rw(reads=[KVRead("k00", Version(0, 0))],
                             writes=[KVWrite("k00", b"a")]))
@@ -290,23 +277,18 @@ def test_policy_and_signature_failures(providers, orgs):
     bad = Envelope(bad.payload, bad.signature[:-2] + b"\x00\x01")
     chaser = make_tx(orgs, rw(reads=[KVRead("k00", Version(0, 0))],
                               writes=[KVWrite("k00", b"d")]))
-    codes = assert_four_way(
-        providers, orgs, [seed_block(orgs), [good, only1, bad, chaser]],
-        device_blocks=2, demotions={})
-    assert codes[1] == [V, POLICY_FAIL, BADSIG, MVCC]
+    return [seed_block(orgs), [good, only1, bad, chaser]]
 
 
-def test_garbage_endorser_payload(providers, orgs):
+def corpus_garbage_endorser_payload(orgs):
     org1, _ = orgs
     junk = build.signed_envelope("endorser_transaction", "ch",
                                  {"not": "a tx"}, org1.new_identity("j"))
     good = make_tx(orgs, rw(writes=[KVWrite("k07", b"g")]))
-    codes = assert_four_way(providers, orgs, [[good, junk]], demotions={})
-    assert codes[0][0] == V
-    assert codes[0][1] != V
+    return [[good, junk]]
 
 
-def test_seeded_random_blocks(providers, orgs):
+def corpus_seeded_random(orgs):
     rng = random.Random(0xFAB11)
     keys = [f"k{i:02d}" for i in range(8)]
     env_blocks = [seed_block(orgs, 8)]
@@ -331,8 +313,74 @@ def test_seeded_random_blocks(providers, orgs):
                     writes.append(KVWrite(k, bytes([blk, rng.randint(0, 9)])))
             envs.append(make_tx(orgs, rw(reads=reads, writes=writes)))
         env_blocks.append(envs)
-    assert_four_way(providers, orgs, env_blocks, device_blocks=4,
-                    demotions={})
+    return env_blocks
+
+
+CORPORA = {"ww_chain": corpus_ww_chain,
+           "delete_then_read": corpus_delete_then_read,
+           "phantom_range": corpus_phantom_range,
+           "hash_collision": corpus_hash_collision,
+           "zero_and_full_conflict": corpus_zero_and_full_conflict,
+           "policy_and_signature_failures":
+               corpus_policy_and_signature_failures,
+           "garbage_endorser_payload": corpus_garbage_endorser_payload,
+           "seeded_random": corpus_seeded_random}
+
+
+def test_ww_chain_same_key(providers, orgs):
+    codes = assert_four_way(providers, orgs, corpus_ww_chain(orgs),
+                            device_blocks=2, demotions={})
+    assert codes[1] == [V, MVCC, MVCC, MVCC, MVCC]
+
+
+def test_delete_then_read(providers, orgs):
+    codes = assert_four_way(providers, orgs, corpus_delete_then_read(orgs),
+                            device_blocks=3, demotions={})
+    assert codes[2] == [MVCC, V, V, MVCC]
+
+
+def test_phantom_range_query_demotes(providers, orgs):
+    codes = assert_four_way(providers, orgs, corpus_phantom_range(orgs),
+                            device_blocks=2,
+                            demotions={"range_query": 1})
+    assert codes[1] == [V, PHANTOM]
+
+
+def test_engineered_hash_collision_demotes(providers, orgs):
+    """djb2-64("ab") == djb2-64("bA"): the lanes flag the collision and
+    the block demotes, never a wrong verdict."""
+    codes = assert_four_way(providers, orgs, corpus_hash_collision(orgs),
+                            device_blocks=0,
+                            demotions={"hash_collision": 2})
+    assert codes == [[V, V], [V]]
+
+
+def test_zero_and_full_conflict(providers, orgs):
+    codes = assert_four_way(providers, orgs,
+                            corpus_zero_and_full_conflict(orgs),
+                            device_blocks=3, demotions={})
+    assert codes[1] == [V] * 6
+    assert codes[2] == [MVCC] * 6
+
+
+def test_policy_and_signature_failures(providers, orgs):
+    codes = assert_four_way(
+        providers, orgs, corpus_policy_and_signature_failures(orgs),
+        device_blocks=2, demotions={})
+    assert codes[1] == [V, POLICY_FAIL, BADSIG, MVCC]
+
+
+def test_garbage_endorser_payload(providers, orgs):
+    codes = assert_four_way(providers, orgs,
+                            corpus_garbage_endorser_payload(orgs),
+                            demotions={})
+    assert codes[0][0] == V
+    assert codes[0][1] != V
+
+
+def test_seeded_random_blocks(providers, orgs):
+    assert_four_way(providers, orgs, corpus_seeded_random(orgs),
+                    device_blocks=4, demotions={})
 
 
 def test_stash_miss_falls_back(providers, orgs):

@@ -1354,3 +1354,126 @@ def test_capture_device_trace_holds_kernel_events(cuda_device, tmp_path):
     assert any("ed25519_verify_kernel" in k for k in out["kernels"])
     with open(out["trace"]) as f:
         assert "traceEvents" in json.load(f)
+
+
+# -- the default peer's commit tail (classic tail, SBE, verify-once cache,
+# early abort) on the card ---------------------------------------------------
+
+
+class _InProcess:
+    """chip_smoke's signing jobs run in this process (a pool's map)."""
+
+    @staticmethod
+    def map(fn, jobs):
+        return [fn(j) for j in jobs]
+
+
+@pytest.fixture(scope="module")
+def stream500():
+    """chip_smoke's commit stream at 500 txs (150, 150, 150, 50), its
+    labels and the host stack's rows after each block (the deep tail on
+    the software provider): (orgs, raws, labels, rows)."""
+    import chip_smoke as cs
+    init_factories(FactoryOpts(default="SW"))
+    orgs, signers, endorsers, clients = cs.commit_identities()
+    env_blocks, labels, _ = cs.build_stream(150, 50, signers, endorsers,
+                                            clients, _InProcess)
+    raws = cs.chain_blocks(env_blocks)
+    host, _ = cs.commit_stack(SoftwareProvider(), orgs, False, "cpu")
+    rows = [(r.final_flags.codes(), meta, after) for r, meta, _s, after in
+            cs.commit_stream(host, raws, rows=True)]
+    assert [codes for codes, _m, _r in rows] == labels
+    return orgs, raws, labels, rows
+
+
+def _classic(cs, provider, orgs, device, **kw):
+    from fabric_tpu_torch.verify_plane import VerdictCache
+    cache = VerdictCache(cs.CACHE_CAPACITY)
+    prov = cs._Dispatches(provider)
+    c, dv = cs.commit_stack(prov, orgs, False, device, classic=True,
+                            cache=cache, **kw)
+    return c, cache, prov
+
+
+@pytest.mark.cuda
+def test_classic_tail_on_card_matches_host_stack(cuda_device, stream500):
+    """The default peer's stack (classic tail, key policies from the
+    ledger's state, the verify-once cache) on the CUDA provider: after
+    every block the flags, metadata flags, state, history and commit
+    hash of the host stack, flags equal to the labels, KP3 launched."""
+    import chip_smoke as cs
+    orgs, raws, labels, rows = stream500
+    provider = CudaProvider(device=cuda_device)
+    c, cache, prov = _classic(cs, provider, orgs, cuda_device)
+    before = p256_fixed.p256_verify_rows.launches
+    got = [(r.final_flags.codes(), meta, after) for r, meta, _s, after in
+           cs.commit_stream(c, raws, rows=True)]
+    assert got == rows
+    assert p256_fixed.p256_verify_rows.launches > before
+    assert prov.items == sum(cache.stats[
+        "verify_plane_device_verifications_total"].values()) > 0
+    assert provider.stats["fallbacks"] == 0
+
+
+@pytest.mark.cuda
+def test_speculatively_filled_block_launches_no_kp3_kp2(cuda_device,
+                                                         stream500):
+    """Block 2 after a speculative fill of its items commits with no item
+    dispatched and no KP3/KP2 launch, with the host stack's flags and
+    commit hash."""
+    import chip_smoke as cs
+    orgs, raws, labels, rows = stream500
+    provider = CudaProvider(device=cuda_device)
+    c, cache, prov = _classic(cs, provider, orgs, cuda_device)
+    cs.at_height(c, raws, rows, 2)
+    filled = cs.spec_fill(cache, provider, c.validator.msps, raws[2])
+    assert filled["dispatched"] > 0 and filled["dropped"] == 0
+    counts = (p256_fixed.p256_verify_rows.launches, p256.p256_verify.launches)
+    res = cs.commit_stream(c, raws[2:3], rows=True)[0]
+    assert (p256_fixed.p256_verify_rows.launches,
+            p256.p256_verify.launches) == counts
+    assert prov.items == 0
+    assert res[0].final_flags.codes() == rows[2][0]
+    assert res[3] == rows[2][2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", ["classic", "kv7"])
+def test_early_abort_on_card_dispatches_fewer_items(cuda_device, stream500,
+                                                   tail):
+    """Blocks 2 and 3 on one tail with early abort and without: fewer
+    items dispatched with it; each doomed tx invalid without it and MVCC
+    or phantom with it; every other flag, the state and the history
+    equal; the commit hash equal unless a doomed tx's code differs."""
+    import chip_smoke as cs
+    orgs, raws, labels, rows = stream500
+    provider = CudaProvider(device=cuda_device)
+    runs, seen = {}, []
+    for early in (False, True):
+        if tail == "classic":
+            c, _cache, prov = _classic(cs, provider, orgs, cuda_device,
+                                       early_abort=early)
+        else:
+            prov = cs._Dispatches(provider)
+            c, _ = cs.commit_stack(prov, orgs, True, cuda_device,
+                                   early_abort=early)
+        cs.at_height(c, raws, rows, 2)
+        if early:
+            real = c.validator.early_abort.doomed
+            c.validator.early_abort.doomed = lambda block, overlay=None: (
+                seen.append(real(block, overlay=overlay)) or seen[-1])
+        out = cs.commit_stream(c, raws[2:], rows=True)
+        runs[early] = ([r.final_flags.codes() for r, _m, _s, _a in out],
+                       [a for _r, _m, _s, a in out], prov.items)
+    (base, base_rows, n_off), (codes, after, n_on) = runs[False], runs[True]
+    assert base == [r[0] for r in rows[2:]]
+    assert sum(map(len, seen)) > 0 and n_on < n_off
+    for blk, doomed in enumerate(seen):
+        for t, (got, want) in enumerate(zip(codes[blk], base[blk])):
+            if t in doomed:
+                assert want != 0 and got in (11, 12)
+            else:
+                assert got == want
+        assert after[blk][:2] == base_rows[blk][:2]
+        assert (after[blk][2] == base_rows[blk][2]) == (
+            codes[blk] == base[blk])
