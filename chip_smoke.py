@@ -175,6 +175,41 @@ ends with one JSON line.  Phases:
              stage, and one profiled run of the default peer's.  Its
              main-path launches are counted apart (the kernels line's
              `classic_launches`)
+13. window — (run after 12, before the kernels line) the cross-block
+             commit window, (c) first: (a) phase 6's stream through
+             PipelinedCommitter on KVLedger(commit_window=W), W 2 and 4,
+             the parallel commit off and on (commit_workers=4,
+             adaptive), on the deep host and the KV7 tail (four runs:
+             each W with each tail, each with the parallel commit off and
+             on), early abort on the window's pending overlay: after
+             every block the flags
+             (a doomed tx's MVCC or phantom where phase 6's is invalid),
+             metadata flags, state, history and commit hash equal phase
+             6's, each block's KP3/KP2 launches equal a serial run's, KV7
+             demoted only as the reference does (`savepoint` with a
+             predecessor in flight, `range_query`); the wavefront
+             scheduler on the serial path, equal to phase 6, with its
+             wave widths, workers and fallbacks; (b) (c)'s first stream on
+             phase 11's durable configuration at W=4, its directory byte
+             for byte the serial durable stack's; a retire failure injected
+             in block 2 fails block 2's and block 3's futures, leaves the
+             block store at blocks 0-1, and the redelivery finishes
+             blocks 2 and 3 once each to the serial hash and directory;
+             (c) the stream's wall time serial, W=2 and W=4, on memory
+             and on the durable ledger, fresh ledgers, in turns, medians
+             of at least 3 with the spread, each block's early and
+             deferred txs, overlap_frac, the stages summed; the device
+             idle share of the stream at W=4 (profiled in phase 7's
+             session);
+             (d) snapshot export (every file through serve_chunk),
+             install into a fresh root, open: height, state, history and
+             commit hash, blocks below the base pruned; phase 11's
+             post-crash blocks on the KV7 stack over it to phase 11's
+             commit hash; (e) the ACL gate on the CUDA provider, each
+             decision equal to the software provider's, a config block
+             through the pipeline retargeting peer/Propose to Admins at
+             its boundary.  Its main-path launches are counted apart (the
+             kernels line's `window_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -281,6 +316,18 @@ SBE_CC_POLICY = "OR('Org1.member', 'Org2.member')"
 SBE_POLICIES = {"and": "AND('Org1.member', 'Org2.member')",
                 "org2": "OR('Org2.member')"}
 SBE_POLICY_FRAC = 0.05
+# phase 13: the commit windows driven (W blocks admitted but not
+# retired), the wavefront scheduler's worker cap (the reference's
+# commit_workers default) and the KV7 demotion reasons the reference
+# gives for a windowed block (device_validate.py:218-220: a predecessor
+# still in flight; block 3's range query)
+WINDOWS = (2, 4)
+# (W, parallel commit, KV7 tail) of phase 13 (a)'s pipelined runs: each
+# W with each tail once, and each with the parallel commit off and on
+WINDOW_RUNS = ((2, False, False), (2, True, True), (4, False, True),
+               (4, True, False))
+WINDOW_WORKERS = 4
+WINDOW_DEMOTIONS = ("savepoint", "range_query")
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
 # 64 per SM per clock (CUDA C Programming Guide, arithmetic instruction
@@ -973,20 +1020,19 @@ def chain_blocks(env_blocks):
 
 def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
                  policy: str = COMMIT_POLICY, classic: bool = False,
-                 cache=None, early_abort: bool = False, bundle=None):
+                 cache=None, early_abort: bool = False, bundle=None,
+                 **ledger_kw):
     """Committer -> TxValidator -> DeviceValidator (window=16384) or the
     host gate -> KVLedger (in memory, 8 state shards) -> (committer,
     device validator or None).  The validator's deep tail, or with
     `classic` the default peer's: key-level endorsement read from the
     ledger's state (sbe.statedb_lookup), so the classic tail.  cache: a
     verify-once VerdictCache or None; early_abort: an
-    EarlyAbortAnalyzer on the ledger's state; msps: the orgs' MSPs
-    unless given; bundle: a BundleSource whose bundle gives the MSPs."""
-    from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
-                                            TxValidator, sbe)
-    from fabric_tpu_torch.committer.device_validate import DeviceValidator
-    from fabric_tpu_torch.committer.parallel_commit import (
-        EarlyAbortAnalyzer)
+    EarlyAbortAnalyzer on the ledger's state (on a windowed ledger fed
+    its pending overlay); msps: the orgs' MSPs unless given; bundle: a
+    BundleSource whose bundle gives the MSPs; ledger_kw: more
+    LedgerConfig fields (commit_window, parallel_commit, ...)."""
+    from fabric_tpu_torch.committer import PolicyRegistry
     from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
     from fabric_tpu_torch.msp import CachedMSP
     from fabric_tpu_torch.policy import parse_policy
@@ -995,20 +1041,37 @@ def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
     policies = PolicyRegistry()
     policies.set_policy("cc", parse_policy(policy))
     ledger = KVLedger("ch", LedgerConfig(device_validate=device_validate,
-                                         state_shards=8))
+                                         state_shards=8, **ledger_kw))
+    return wire_stack(ledger, provider, policies, msps, dev, classic=classic,
+                      cache=cache, early_abort=early_abort, bundle=bundle)
+
+
+def wire_stack(ledger, provider, policies, msps, dev, classic=False,
+               cache=None, early_abort=False, bundle=None, history=None):
+    """The validator and committer over `ledger` -> (committer, device
+    validator or None): a DeviceValidator (KV7, window=16384) when the
+    ledger's config asks for device validation."""
+    from fabric_tpu_torch.committer import Committer, TxValidator, sbe
+    from fabric_tpu_torch.committer.device_validate import DeviceValidator
+    from fabric_tpu_torch.committer.parallel_commit import (
+        EarlyAbortAnalyzer)
     dv = None
-    if device_validate:
+    if ledger.config.device_validate:
         dv = DeviceValidator(ledger.statedb, "ch", device=dev,
                              window=COMMIT_WINDOW)
         ledger.set_prepared_source(dv.take_prepared)
+    overlay = (ledger.pending_overlay if ledger.config.commit_window
+               else None)
     validator = TxValidator(
         "ch", msps, provider, policies, bundle_source=bundle,
         sbe_lookup=sbe.statedb_lookup(ledger.statedb) if classic else None,
         verify_cache=cache, device_validate=dv,
-        early_abort=EarlyAbortAnalyzer(ledger.statedb, "ch")
+        early_abort=EarlyAbortAnalyzer(ledger.statedb, "ch",
+                                       overlay_source=overlay)
         if early_abort else None)
     return Committer(ledger, validator, bundle_source=bundle,
-                     provider=provider if bundle is not None else None), dv
+                     provider=provider if bundle is not None else None,
+                     confighistory=history), dv
 
 
 def commit_stream(committer, raws, rows: bool = False):
@@ -1262,16 +1325,15 @@ def org_config(C, org):
                        tuple(mc.intermediate_certs_pem), tuple(mc.crls_pem))
 
 
-def durable_stack(provider, dev, root, msps=None, bundle=None, history=None):
+def durable_stack(provider, dev, root, msps=None, bundle=None, history=None,
+                  **ledger_kw):
     """Committer -> TxValidator (deep path) -> DeviceValidator (KV7,
     window=16384) -> KVLedger(root, 8 state shards, a checkpoint every
     DURABLE_SNAPSHOT_EVERY blocks) -> (committer, device validator).
     msps: a static MSP set; bundle: a BundleSource whose current bundle
     gives the MSPs and takes committed config blocks (with `history`, a
-    ConfigHistory)."""
-    from fabric_tpu_torch.committer import (Committer, PolicyRegistry,
-                                            TxValidator)
-    from fabric_tpu_torch.committer.device_validate import DeviceValidator
+    ConfigHistory); ledger_kw: more LedgerConfig fields."""
+    from fabric_tpu_torch.committer import PolicyRegistry
     from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
     from fabric_tpu_torch.policy import parse_policy
     policies = PolicyRegistry()
@@ -1279,15 +1341,9 @@ def durable_stack(provider, dev, root, msps=None, bundle=None, history=None):
     policies.set_policy("cc4", parse_policy(ORG4_POLICY))
     ledger = KVLedger("ch", LedgerConfig(
         root=root, device_validate=True, state_shards=DURABLE_SHARDS,
-        snapshot_every=DURABLE_SNAPSHOT_EVERY))
-    dv = DeviceValidator(ledger.statedb, "ch", device=dev,
-                         window=COMMIT_WINDOW)
-    ledger.set_prepared_source(dv.take_prepared)
-    validator = TxValidator("ch", msps, provider, policies,
-                            bundle_source=bundle, device_validate=dv)
-    return Committer(ledger, validator, bundle_source=bundle,
-                     provider=provider if bundle is not None else None,
-                     confighistory=history), dv
+        snapshot_every=DURABLE_SNAPSHOT_EVERY, **ledger_kw))
+    return wire_stack(ledger, provider, policies, msps, dev, bundle=bundle,
+                      history=history)
 
 
 def _crash_child(root, raw_path, msp_configs, ready, dev_name):
@@ -1598,6 +1654,7 @@ def durable_phase(torch, args, provider, orgs, signers, clients, raws,
             "config": [0], "org4_after": [0] * DURABLE_ORG4_TXS,
             "config_unauthorized": [6], "config_stale": [6]}
     fb0 = provider.stats["fallbacks"]
+    out["tail"], out["tail_codes"] = tail, {}
     for what, raw in [("block3", raws[3])] + tail:
         for fn in all_fns:
             fn.launches = 0
@@ -1608,6 +1665,7 @@ def durable_phase(torch, args, provider, orgs, signers, clients, raws,
         res = c.store_block(wire.parse_block(raw))
         secs = time.perf_counter() - t0
         codes = res.final_flags.codes()
+        out["tail_codes"][what] = codes
         got = launches_now()
         dem = {k: v - dem0[k] for k, v in
                dv.stats["validator_device_demotions_total"].items()
@@ -1640,6 +1698,7 @@ def durable_phase(torch, args, provider, orgs, signers, clients, raws,
         phase("durable", **row)
     check(src.current().sequence == 1, "an invalid config tx was applied")
     check(provider.stats["fallbacks"] == fb0 == 0, "durable: fallbacks")
+    out["final_hash"] = lg.commit_hash
     entries = ConfigHistory(hist_dir).entries()
     check(entries == [(5, cfg1.serialize())],
           f"config history after a reopen: {[e[0] for e in entries]}")
@@ -2073,6 +2132,534 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
         device_idle_share=round(1 - busy_ms / wall_ms, 4),
         top_device_ops=top)
     phase("classic", launches=main)
+    return main
+
+
+# ---------------------------------------------------------------------------
+# the wavefront window and the pipelined committer (phase 13)
+# ---------------------------------------------------------------------------
+
+def pipeline_stream(committer, raws, rows: bool = False, counted=None):
+    """The blocks through a PipelinedCommitter over `committer` (whose
+    ledger has a commit window): every block submitted, then every
+    future awaited -> ([(result, metadata flag bytes, (state rows,
+    history rows, commit hash) after the block when `rows` else None,
+    {kernel: launches during its submit} when `counted` else None)],
+    wall seconds of the submits and waits).  The blocks are parsed
+    before the clock starts; with `rows` a commit listener reads each
+    block's rows on the retire thread right after its commit."""
+    from fabric_tpu_torch.committer import PipelinedCommitter
+    from fabric_tpu_torch.protocol import wire
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    after = {}
+    if rows:
+        def listener(block, final):
+            lg = committer.ledger
+            after[int(block.header.number)] = (*ledger_rows(lg),
+                                               lg.commit_hash)
+        committer.add_commit_listener(listener)
+    blocks = [wire.parse_block(raw) for raw in raws]
+    counted = counted or {}
+    pipe = PipelinedCommitter(committer)
+    futs, launches = [], []
+    try:
+        t0 = time.perf_counter()
+        for block in blocks:
+            before = {n: f.launches for n, f in counted.items()}
+            futs.append(pipe.submit(block))
+            launches.append({n: f.launches - before[n]
+                             for n, f in counted.items()})
+        results = [f.result(timeout=600) for f in futs]
+        secs = time.perf_counter() - t0
+    finally:
+        pipe.close()
+    return [(res, bytes(b.metadata.items[META_TXFLAGS]),
+             after.get(int(b.header.number)), n if counted else None)
+            for res, b, n in zip(results, blocks, launches)], secs
+
+
+def serial_stream(committer, raws, counted=None, rows: bool = False):
+    """The blocks through committer.store_block, parsed before the
+    clock starts -> the shape of pipeline_stream's result."""
+    from fabric_tpu_torch.protocol import wire
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    blocks = [wire.parse_block(raw) for raw in raws]
+    counted = counted or {}
+    out, secs = [], 0.0
+    for block in blocks:
+        before = {n: f.launches for n, f in counted.items()}
+        t0 = time.perf_counter()
+        res = committer.store_block(block)
+        secs += time.perf_counter() - t0
+        lg = committer.ledger
+        out.append((res, bytes(block.metadata.items[META_TXFLAGS]),
+                    (*ledger_rows(lg), lg.commit_hash) if rows else None,
+                    {n: f.launches - before[n] for n, f in counted.items()}
+                    if counted else None))
+    return out, secs
+
+
+def spy_doomed(committer) -> dict:
+    """{block number: the early-abort analyzer's doom set}, filled as the
+    validator asks it."""
+    an, seen = committer.validator.early_abort, {}
+    real = an.doomed
+
+    def doomed(block, overlay=None):
+        got = real(block, overlay=overlay)
+        seen[int(block.header.number)] = got
+        return got
+
+    an.doomed = doomed
+    return seen
+
+
+def spy_admits(ledger) -> list:
+    """[(block, early txs, deferred txs, admit ms)] of the window's
+    admits, filled as they happen."""
+    win, log = ledger._commit_window, []
+    real = win.admit
+
+    def admit(*a, **k):
+        e = real(*a, **k)
+        log.append((e.num, e.early_n, e.deferred_n,
+                    round(e.validate_s * 1e3, 3)))
+        return e
+
+    win.admit = admit
+    return log
+
+
+def hold_to_phase6(run: str, out, mem_rows, doomed: dict) -> int:
+    """Each block of a run against phase 6's KV7 stack (equal to its host
+    stack and the labels): every flag equal but a doomed tx's, which is
+    invalid there and MVCC or phantom here; state and history equal;
+    metadata flags and the commit hash equal while every flag so far is
+    -> the flags that differ."""
+    differ, same = 0, True
+    for num, (res, meta, rows, _n) in enumerate(out):
+        codes = res.final_flags.codes()
+        mcodes, mmeta, mrows = mem_rows[num]
+        d = doomed.get(num, {})
+        for t, (c, m) in enumerate(zip(codes, mcodes)):
+            if t in d:
+                check(m != 0 and c in (11, 12), f"{run} block {num} tx {t}:"
+                      f" doomed {c}, phase 6 {m}")
+            else:
+                check(c == m, f"{run} block {num} tx {t}: {c} != phase 6's "
+                      f"{m}")
+        differ += sum(c != m for c, m in zip(codes, mcodes))
+        same = same and codes == mcodes
+        check(rows[0] == mrows[0], f"{run} block {num}: state rows")
+        check(rows[1] == mrows[1], f"{run} block {num}: history rows")
+        check((meta == mmeta) == (codes == mcodes),
+              f"{run} block {num}: metadata flags")
+        check((rows[2] == mrows[2]) == same, f"{run} block {num}: commit "
+              "hash differs other than where a flag does")
+    return differ
+
+
+def tree_digest(root: str) -> dict:
+    """{path relative to root: (bytes, sha256)} of every file under root."""
+    out = {}
+    for d, _s, fs in os.walk(root):
+        for f in fs:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                data = fh.read()
+            out[os.path.relpath(path, root)] = (
+                len(data), hashlib.sha256(data).hexdigest())
+    return out
+
+
+def window_phase(torch, args, provider, orgs, signers, raws, labels,
+                 mem_rows, durable_out, profiled, fns, name_power,
+                 dev) -> dict:
+    """Phase 13.  The cross-block window on the card: the stream's wall
+    time serial and windowed, in turns; the commit stream through
+    PipelinedCommitter on windowed ledgers, held to phase 6; the durable
+    window's directory against the serial one's, a retire failure and
+    its redelivery; snapshot export and install; the ACL gate.
+    durable_out: phase 11's numbers (its post-crash blocks, their flags,
+    the final commit hash); profiled: phase 7's session's run of the
+    windowed stream.  -> {kernel: launches} of its main-path runs."""
+    import shutil
+    import threading
+    from fabric_tpu_torch import config as C
+    from fabric_tpu_torch.bccsp.sw import SoftwareProvider
+    from fabric_tpu_torch.committer import PipelinedCommitter
+    from fabric_tpu_torch.ledger import BlockStoreError, ConfigHistory
+    from fabric_tpu_torch.ledger import snapshot
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.policy import ACLError, ACLProvider, SignedData
+    from fabric_tpu_torch.protocol import block_header_hash, build, wire
+    counted = {**fns, "block_validate": kv7.block_validate_kernel}
+    kp = ("p256_verify_rows", "p256_verify")
+    main = dict.fromkeys(counted, 0)
+    fb0 = provider.stats["fallbacks"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(here, "build", "window")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    msps = {o.mspid: CachedMSP(o.msp()) for o in orgs}
+    phase("window", windows=list(WINDOWS), commit_workers=WINDOW_WORKERS,
+          host_cpus=os.cpu_count(), card=name_power)
+
+    def run(fn):
+        """fn() with every count set to 0 just before and read just after,
+        added to the phase's main-path launches."""
+        for f in counted.values():
+            f.launches = 0
+        out = fn()
+        for n, f in counted.items():
+            main[n] += f.launches
+        return out
+
+    # (c) the stream's wall time, serial and windowed, on memory and on
+    # the durable ledger, fresh ledgers, in turns (the KV7 stack, no early
+    # abort); the window's admits and overlap.  Trial 0's durable ledgers
+    # stay for (b) and (d), its serial in-memory run gives the KV7 tail's
+    # KP3/KP2 launches each block for (a)
+    cells = [(ledger, W) for ledger in ("memory", "durable")
+             for W in (0, *WINDOWS)]
+    times = {cell: [] for cell in cells}
+    stages = {cell: [] for cell in cells}
+    admits, overlap, kept, serial_kp = {}, {}, {}, {}
+    for trial in range(max(3, args.trials)):
+        for ledger, W in cells:
+            kw = {"commit_window": W} if W else {}
+            root = os.path.join(base, f"t{trial}_{W}")
+            if ledger == "memory":
+                c, _ = commit_stack(provider, orgs, True, dev, **kw)
+            else:
+                c, _ = durable_stack(provider, dev, root, msps=msps, **kw)
+            if W:
+                log = spy_admits(c.ledger)
+                out, secs = run(lambda: pipeline_stream(c, raws))
+                admits[ledger, W] = log
+                overlap.setdefault((ledger, W), []).append(
+                    c.ledger._commit_window.overlap_frac())
+            else:
+                out, secs = run(lambda: serial_stream(c, raws, counted))
+            check([r.final_flags.codes() for r, *_x in out]
+                  == [m[0] for m in mem_rows]
+                  and c.ledger.commit_hash == mem_rows[-1][2][2],
+                  f"{ledger} W={W}: flags or commit hash != phase 6's")
+            times[ledger, W].append(secs * 1e3)
+            # the stream's stages summed over its blocks: pass 1, the
+            # dispatch wait, the gate (the submitting thread's), and the
+            # ledger's commit (the retire thread's when windowed)
+            vrs = [(r.validation, r.commit_s) for r, *_x in out]
+            stages[ledger, W].append({
+                "collect": sum(v.collect_s for v, _c in vrs),
+                "dispatch_wait": sum(v.dispatch_s for v, _c in vrs),
+                "gate": sum(v.gate_s for v, _c in vrs),
+                "commit": sum(c_ for _v, c_ in vrs)})
+            if trial == 0 and ledger == "durable":
+                kept[W] = (root, c)
+            elif ledger == "durable":
+                shutil.rmtree(root)
+            if trial == 0 and (ledger, W) == ("memory", 0):
+                serial_kp[True] = [{k: n[k] for k in kp} for *_x, n in out]
+    print(name_power, flush=True)
+    for (ledger, W), ms in times.items():
+        row = {"stream": ledger, "window": W or "serial",
+               "trials": len(ms), "median_ms": round(statistics.median(ms),
+                                                     3),
+               "min_ms": round(min(ms), 3), "max_ms": round(max(ms), 3),
+               "runs_ms": [round(v, 3) for v in ms],
+               **{f"{k}_ms": round(statistics.median(
+                   r[k] for r in stages[ledger, W]) * 1e3, 3)
+                  for k in stages[ledger, W][0]}}
+        if W:
+            row.update(overlap_frac=[round(v, 4) for v in overlap[ledger, W]],
+                       last_admits=admits[ledger, W])
+        phase("window", **row, card=name_power)
+    for label, (b_ms, w_ms, tp) in profiled.items():
+        phase("window", profiled=label, wall_ms=round(w_ms, 3),
+              device_busy_ms=round(b_ms, 3),
+              device_idle_share=round(1 - b_ms / w_ms, 4),
+              top_device_ops=tp)
+
+    # (a) the stream through the pipeline, early abort on the window's
+    # overlay, held to phase 6 after every block and to the serial runs'
+    # KP3/KP2 launches each block: W 2 and 4, the parallel commit off and
+    # on, the deep host and the KV7 tail, each value of each met twice
+    # (every pair of W and tail once).  First the serial host stack with
+    # the wavefront scheduler and early abort, held to phase 6
+    c, _ = commit_stack(provider, orgs, False, dev, early_abort=True,
+                        parallel_commit=True, commit_workers=WINDOW_WORKERS)
+    doomed = spy_doomed(c)
+    out, secs = run(lambda: serial_stream(c, raws, counted, rows=True))
+    serial_kp[False] = [{k: n[k] for k in kp} for *_x, n in out]
+    differ = hold_to_phase6("serial, parallel_commit", out, mem_rows, doomed)
+    phase("window", run="serial, parallel_commit, early abort",
+          vs_phase6="equal (flags but doomed, metadata, state, history, "
+          "commit hash)", doomed=[len(doomed.get(i, {}))
+                                  for i in range(len(raws))],
+          doomed_codes_differ=differ, stream_s=round(secs, 4),
+          **c.ledger._commit_scheduler.stats())
+    for W, parallel, kv7_on in WINDOW_RUNS:
+        name = (f"W={W} {'parallel' if parallel else 'serial MVCC'}"
+                f" {'kv7' if kv7_on else 'host'}")
+        c, dv = commit_stack(
+            provider, orgs, kv7_on, dev, early_abort=True, commit_window=W,
+            parallel_commit=parallel, commit_workers=WINDOW_WORKERS)
+        doomed = spy_doomed(c)
+        log = spy_admits(c.ledger)
+        out, secs = run(lambda: pipeline_stream(c, raws, True, counted))
+        differ = hold_to_phase6(name, out, mem_rows, doomed)
+        for num, (res, _m, _r, n) in enumerate(out):
+            check({k: n[k] for k in kp} == serial_kp[kv7_on][num],
+                  f"{name} block {num}: KP3/KP2 launches {n} != the serial "
+                  f"run's {serial_kp[kv7_on][num]}")
+        row = {"run": name, "blocks": len(out),
+               "doomed": [len(doomed.get(i, {})) for i in range(len(raws))],
+               "doomed_codes_differ": differ, "admits": log,
+               "stream_s": round(secs, 4),
+               "launches": [{k: v for k, v in n.items() if v}
+                            for *_x, n in out]}
+        if dv is not None:
+            dem = {k: v for k, v in dv.stats[
+                "validator_device_demotions_total"].items() if v}
+            check(set(dem) <= set(WINDOW_DEMOTIONS),
+                  f"{name}: KV7 demotions {dem}")
+            row.update(kv7_blocks=dv.stats["validator_device_blocks_total"],
+                       demotions=dem)
+        if parallel:
+            row["scheduler"] = c.ledger._commit_scheduler.stats()
+        st = c.ledger._commit_window.stats()
+        row["window"] = {k: st[k] for k in (
+            "admitted", "retired", "early_txs", "deferred_txs",
+            "overlap_frac")}
+        phase("window", vs_phase6="equal (flags but doomed, metadata, "
+              "state, history, commit hash)", **row)
+    check(provider.stats["fallbacks"] == fb0, "window: fallbacks != 0")
+
+    # (b) the durable window: (c)'s first durable W=4 directory against
+    # its serial one, byte for byte; then a retire failure in block 2 and
+    # the redelivery
+    serial_tree = tree_digest(kept[0][0])
+    window_tree = tree_digest(kept[4][0])
+    differ = sorted(k for k in set(serial_tree) | set(window_tree)
+                    if serial_tree.get(k) != window_tree.get(k))
+    check(not differ, f"durable W=4 directory != the serial one's: {differ}")
+    phase("window", durable="W=4", vs_phase6="equal (flags, commit hash)",
+          directory="equal to the serial durable stack's, byte for byte "
+          f"({len(serial_tree)} files, "
+          f"{sum(v[0] for v in serial_tree.values())} bytes)")
+    cf, _ = durable_stack(provider, dev, os.path.join(base, "fail"),
+                          msps=msps, commit_window=4)
+    lg = cf.ledger
+    go, finished = threading.Event(), []
+    real_finish = lg._commit_window.finish
+
+    def failing_finish(db, entry):
+        if entry.num == 2 and 2 not in finished:
+            go.wait(600)
+            finished.append(2)
+            raise RuntimeError("injected retire failure")
+        finished.append(entry.num)
+        return real_finish(db, entry)
+
+    lg._commit_window.finish = failing_finish
+    pipe = PipelinedCommitter(cf)
+    futs = [pipe.submit(wire.parse_block(raw)) for raw in raws]
+    go.set()
+    outcome = []
+    for f in futs:
+        try:
+            f.result(timeout=600)
+            outcome.append("ok")
+        except RuntimeError as exc:
+            outcome.append(str(exc).split(":")[0])
+    pipe.close()
+    check(outcome == ["ok", "ok", "injected retire failure",
+                      "pipeline broken at block 2"],
+          f"retire failure: futures {outcome}")
+    check(lg.blockstore.height == 2 and lg.height == 2
+          and lg._commit_window.depth() == 0,
+          f"retire failure: block store at height {lg.blockstore.height}")
+    pipe = PipelinedCommitter(cf)
+    try:
+        again = [pipe.submit(wire.parse_block(raw)) for raw in raws[1:]]
+        res = [f.result(timeout=600) for f in again]
+    finally:
+        pipe.close()
+    check(res[0].commit_stats is None, "redelivered block 1 recommitted")
+    check(finished == [0, 1, 2, 2, 3], f"finishes {finished}")
+    check((*ledger_rows(lg), lg.commit_hash) == mem_rows[-1][2],
+          "after the redelivery: state, history or commit hash != phase 6")
+    check(tree_digest(os.path.join(base, "fail")) == serial_tree,
+          "after the redelivery: directory != the serial one's")
+    phase("window", retire_failure="block 2: its future and block 3's "
+          "failed, the block store stayed at blocks 0-1; redelivered: "
+          "block 1 acknowledged, blocks 2 and 3 finished once each",
+          futures=outcome, finishes=finished,
+          vs_serial="equal (commit hash, state, history, directory)")
+
+    # (d) snapshot: export (c)'s first durable W=4 ledger, every file
+    # through serve_chunk, install into a fresh root, open; then phase
+    # 11's post-crash blocks on the KV7 stack over the installed ledger
+    src_lg = kept[4][1].ledger
+    installed = os.path.join(base, "installed")
+    t0 = time.perf_counter()
+    meta = snapshot.export_meta(src_lg)
+    export_s = time.perf_counter() - t0
+    payloads, chunks, nbytes = {"state": [], "history": []}, 0, 0
+    t0 = time.perf_counter()
+    for ent in meta["files"]:
+        buf = bytearray()
+        while True:
+            resp = snapshot.serve_chunk(src_lg, ent["db"], ent["gen"],
+                                        ent["file"], len(buf))
+            buf += resp["data"]
+            chunks += 1
+            if resp["eof"]:
+                break
+        check(hashlib.sha256(bytes(buf)).hexdigest() == ent["sha256"],
+              f"snapshot file {ent['file']}: sha256")
+        payloads[ent["db"]].append(bytes(buf))
+        nbytes += len(buf)
+    serve_s = time.perf_counter() - t0
+    check(snapshot.needs_bootstrap(installed, "ch"),
+          "snapshot: a fresh root needs no bootstrap")
+    t0 = time.perf_counter()
+    snapshot.install(installed, "ch", meta, payloads)
+    install_s = time.perf_counter() - t0
+    h = int(meta["height"])
+    bsrc = C.BundleSource(C.Bundle(C.ChannelConfig(
+        "ch", 0, tuple(org_config(C, o) for o in orgs),
+        C.default_policies([o.mspid for o in orgs]))))
+    t0 = time.perf_counter()
+    ci, dvi = durable_stack(provider, dev, installed, bundle=bsrc,
+                            history=ConfigHistory(os.path.join(
+                                installed, "ch", "confighistory")))
+    open_s = time.perf_counter() - t0
+    ilg = ci.ledger
+    check(ilg.height == h and ilg.commit_hash == meta["commit_hash"]
+          and ilg.commit_hash == mem_rows[h - 1][2][2],
+          "installed snapshot: height or commit hash")
+    check(ledger_rows(ilg) == mem_rows[h - 1][2][:2],
+          "installed snapshot: state or history != phase 6 at its height")
+    try:
+        ilg.blockstore.get_by_number(0)
+        pruned = False
+    except BlockStoreError as exc:
+        pruned = "pruned" in str(exc)
+    check(pruned, "installed snapshot: block 0 does not read as pruned")
+    phase("window", snapshot_height=h, files=len(meta["files"]),
+          chunks=chunks, bytes=nbytes, export_ms=round(export_s * 1e3, 3),
+          serve_ms=round(serve_s * 1e3, 3),
+          install_ms=round(install_s * 1e3, 3),
+          open_ms=round(open_s * 1e3, 3), below_base="pruned",
+          vs_phase6="equal (state, history, commit hash)", card=name_power)
+    tail = [(f"block{n}", raws[n]) for n in range(h, len(raws))]
+    tail += durable_out["tail"]
+    want = {**{f"block{n}": mem_rows[n][0] for n in range(len(raws))},
+            **durable_out["tail_codes"]}
+
+    def post_crash():
+        for what, raw in tail:
+            got = ci.store_block(wire.parse_block(raw)).final_flags.codes()
+            check(got == want[what], f"installed: {what} flags")
+
+    run(post_crash)
+    check(ilg.commit_hash == durable_out["final_hash"],
+          "installed: commit hash after phase 11's post-crash blocks != "
+          "the ledger that took no snapshot")
+    phase("window", installed=f"{len(tail)} blocks committed on the KV7 "
+          "stack over the installed ledger", kv7_blocks=dvi.stats[
+              "validator_device_blocks_total"],
+          commit_hash="equal to phase 11's", sequence=bsrc.current().sequence)
+
+    # (e) the ACL gate on the CUDA provider, each decision against the
+    # software provider's, a config block retargeting peer/Propose
+    acl_src = C.BundleSource(C.Bundle(C.ChannelConfig(
+        "ch", 0, tuple(org_config(C, o) for o in orgs),
+        C.default_policies([o.mspid for o in orgs]))))
+    acl = ACLProvider(acl_src, provider)
+    sw_acl = ACLProvider(acl_src, SoftwareProvider())
+    member, admin = orgs[0].new_identity("acl-member"), orgs[0].admin
+    acl_launches = dict.fromkeys(kp, 0)
+
+    def sd(ident, flip=False):
+        sig = bytearray(ident.sign(b"proposal"))
+        if flip:
+            sig[-1] ^= 1
+        return SignedData(b"proposal", ident.serialize(), bytes(sig))
+
+    def decide(resource, data, want):
+        out = []
+        for a in (acl, sw_acl):
+            for f in counted.values():
+                f.launches = 0
+            try:
+                a.check_acl(resource, data)
+                out.append("allow")
+            except ACLError:
+                out.append("deny")
+            if a is acl:
+                for k in kp:
+                    acl_launches[k] += counted[k].launches
+                    main[k] += counted[k].launches
+        check(out == [want, want], f"ACL {resource}: {out}, want {want}")
+        return out[0]
+
+    cases = [("peer/Propose member", decide("peer/Propose", sd(member),
+                                            "allow")),
+             ("peer/Propose flipped", decide("peer/Propose",
+                                             sd(member, True), "deny")),
+             ("cscc/JoinChain member", decide("cscc/JoinChain", sd(member),
+                                              "deny"))]
+    # Admins is a majority of the orgs' admins: one admin's signature
+    # satisfies it on a channel of Org1 alone, as in the reference's test
+    three = (acl, sw_acl)
+    one = C.BundleSource(C.Bundle(C.ChannelConfig(
+        "ch1", 0, (org_config(C, orgs[0]),),
+        C.default_policies([orgs[0].mspid]))))
+    acl, sw_acl = ACLProvider(one, provider), ACLProvider(
+        one, SoftwareProvider())
+    cases += [("cscc/JoinChain member, Org1 alone", decide(
+                  "cscc/JoinChain", sd(member), "deny")),
+              ("cscc/JoinChain admin, Org1 alone", decide(
+                  "cscc/JoinChain", sd(admin), "allow")),
+              ("cscc/JoinChain admin, Org1-Org3", "deny")]
+    acl, sw_acl = three
+    decide("cscc/JoinChain", sd(admin), "deny")
+    cc, _ = commit_stack(provider, orgs, False, dev, bundle=acl_src,
+                         commit_window=2)
+    cfg = C.ChannelConfig("ch", 1, tuple(org_config(C, o) for o in orgs),
+                          C.default_policies([o.mspid for o in orgs]),
+                          acls={"peer/Propose": "Admins"})
+    env = C.build_config_envelope(cfg, [signers[0], *[o.admin
+                                                      for o in orgs]])
+    cfg_block = build.new_block(1, block_header_hash(
+        wire.parse_block(raws[0]).header), [env]).serialize()
+    pipe = PipelinedCommitter(cc)
+    try:
+        f0 = run(lambda: pipe.submit(wire.parse_block(raws[0])))
+        before = decide("peer/Propose", sd(member), "allow")
+        f1 = run(lambda: pipe.submit(wire.parse_block(cfg_block)))
+        check(f0.done() and f1.result(timeout=600).final_flags.codes()
+              == [0], "ACL config block: not committed valid")
+    finally:
+        pipe.close()
+    cases += [("peer/Propose member, before the config block", before),
+              ("peer/Propose member, after", decide(
+                  "peer/Propose", sd(member), "deny")),
+              ("peer/Propose one admin, after (Admins: a majority of "
+               "Org1-Org3's)", decide("peer/Propose", sd(admin), "deny"))]
+    check(acl_src.current().sequence == 1 and acl.policy_name(
+        "peer/Propose") == "Admins", "ACL config block not applied")
+    check(acl_launches["p256_verify_rows"] + acl_launches["p256_verify"]
+          > 0, f"ACL checks launched no KP3/KP2: {acl_launches}")
+    phase("window", acl=dict(cases), vs_sw="equal", launches=acl_launches,
+          config_block="retargets peer/Propose to Admins at its boundary")
+    check(provider.stats["fallbacks"] == fb0 == 0, "window: fallbacks")
+    shutil.rmtree(base, ignore_errors=True)
+    phase("window", launches=main, fallbacks=0)
     return main
 
 
@@ -3029,7 +3616,7 @@ def main(argv=None) -> int:
                     help="Ed25519 signatures of BASELINE config 2")
     ap.add_argument("--gen", type=int, default=4096,
                     help="Ed25519 items of the generic load")
-    ap.add_argument("--trials", type=int, default=5,
+    ap.add_argument("--trials", type=int, default=3,
                     help="timed repetitions per measurement")
     ap.add_argument("--commit-txs", type=int, default=10_000,
                     help="transactions in blocks 0-2 of the commit stream")
@@ -3638,9 +4225,15 @@ def main(argv=None) -> int:
                    ) / HBM_BYTES_PER_S
     ke5_bound_ms = max(ke5_ops_s, ke5_bytes_s) * 1e3
 
+    # phase 13's stream through the window (W=4), on a fresh KV7 stack,
+    # in the same profiled session
+    stream_w4, _ = commit_stack(provider, orgs, True, dev, commit_window=4)
     profiled = device_busy(torch, {
         "block": lambda: provider.batch_verify(items),
-        "config2": lambda: provider.batch_verify(c2_items)})
+        "config2": lambda: provider.batch_verify(c2_items),
+        "stream W=4": lambda: pipeline_stream(stream_w4, commit_raws)})
+    profiled_stream = {"stream W=4": profiled.pop("stream W=4")}
+    del stream_w4
 
     print(name_power, flush=True)
     phase("times", block_items=len(items), warm=True,
@@ -3749,8 +4342,9 @@ def main(argv=None) -> int:
                host_tables, fns, name_power)
 
     # --- 11. durable ---------------------------------------------------------
-    durable_phase(torch, args, provider, orgs, signers, clients, commit_raws,
-                  mem_rows, fns, name_power, dev)
+    durable_out = durable_phase(torch, args, provider, orgs, signers,
+                                clients, commit_raws, mem_rows, fns,
+                                name_power, dev)
 
     # --- 12. classic ---------------------------------------------------------
     phase("classic", cache_capacity=CACHE_CAPACITY, sbe_sign_s=round(
@@ -3759,6 +4353,11 @@ def main(argv=None) -> int:
     classic_launches = classic_phase(
         torch, args, provider, orgs, commit_raws, commit_labels, mem_rows,
         sbe, (id_configs, idemix_raw, idemix_labels), fns, name_power, dev)
+
+    # --- 13. window ----------------------------------------------------------
+    window_launches = window_phase(
+        torch, args, provider, orgs, signers, commit_raws, commit_labels,
+        mem_rows, durable_out, profiled_stream, fns, name_power, dev)
     del mem_rows
 
     # --- 8. kernels ----------------------------------------------------------
@@ -3809,8 +4408,9 @@ def main(argv=None) -> int:
         *experiment_rows(exp_results, total, field_err),
     ]
     for row in kernels:
-        # phase 12's main-path launches, in their own count
+        # phases 12's and 13's main-path launches, each in its own count
         row["classic_launches"] = classic_launches.get(row["name"], 0)
+        row["window_launches"] = window_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,5 @@
 from .txvalidator import TxValidator, PolicyRegistry, ValidationResult
-from .committer import Committer
+from .committer import Committer, PipelinedCommitter
 
-__all__ = ["TxValidator", "PolicyRegistry", "ValidationResult", "Committer"]
+__all__ = ["TxValidator", "PolicyRegistry", "ValidationResult", "Committer",
+           "PipelinedCommitter"]

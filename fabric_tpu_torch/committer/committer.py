@@ -7,14 +7,17 @@ coordinator.StoreBlock -> txvalidator.Validate -> CommitLegacy).
 Counterpart of `fabric_tpu/committer/committer.py`: `store_block` with
 the idempotent-replay check, validation, commit-time config-block
 application (`bundle_source`, `provider`, `confighistory`; the
-`_precommit` / `_postcommit` split) and the commit listeners.  Not
-ported yet: `PipelinedCommitter`, and the ops-plane structured logs,
-spans and metrics.
+`_precommit` / `_postcommit` split), the commit listeners, and the
+cross-block pipeline over a windowed ledger (`PipelinedCommitter`).
+Not ported yet: the ops-plane structured logs, spans and metrics, each
+marked where the reference emits it.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -228,3 +231,190 @@ class Committer:
     @property
     def height(self) -> int:
         return self.ledger.height
+
+
+class PipelinedCommitter:
+    """Cross-block wavefront pipeline driver over a windowed ledger
+    (LedgerConfig.commit_window > 0): the SUBMITTING thread runs the
+    deep-C validate path + commit_begin — collect/verify/graph and the
+    block's EARLY waves — while a single RETIRE thread finishes blocks
+    strictly in admit order (deferred waves + batched apply).  Adjacent
+    blocks therefore overlap: block N+1 validates while block N's state
+    apply is still running.
+
+    submit(block) -> Future[BlockCommitResult].  Admission is bounded by
+    the ledger's window depth (submit blocks when the window is full).
+    Config blocks cannot pipeline — channel config takes effect at the
+    block boundary, so every successor must validate under it: submit
+    drains the window, commits the config block serially, and resumes.
+
+    A retire-side failure breaks the pipeline: the failing block's
+    future carries the exception, every queued successor is failed too
+    (their early validation ran against an overlay that never landed),
+    and the window is aborted — none of the dropped blocks reached the
+    block store, so redelivery replays them exactly once."""
+
+    def __init__(self, committer: Committer):
+        if getattr(committer.ledger, "_commit_window", None) is None:
+            raise RuntimeError(
+                "PipelinedCommitter needs LedgerConfig.commit_window > 0")
+        self.committer = committer
+        self.ledger = committer.ledger
+        window = self.ledger._commit_window
+        self.depth = window.max_window
+        self._sem = threading.Semaphore(self.depth)
+        self._queue: queue.Queue = queue.Queue()
+        self._lock = threading.Lock()
+        self._idle = threading.Condition(self._lock)
+        self._inflight = 0
+        self._broken: Optional[BaseException] = None
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._retire_loop, daemon=True,
+            name=f"commit-retire-{committer.validator.channel_id}")
+        self._thread.start()
+
+    # -- submit (the admitting thread) --------------------------------------
+
+    def submit(self, block: Block) -> "_CommitFuture":
+        fut = _CommitFuture(int(block.header.number))
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("pipeline closed")
+            if self._broken is not None:
+                raise RuntimeError(
+                    "commit pipeline broken (abort_window + redeliver): "
+                    f"{self._broken}")
+        if self._is_config(block):
+            # drain, then the serial path end-to-end: the config must be
+            # applied before any successor validates
+            self.drain()
+            try:
+                fut._set(self.committer.store_block(block))
+            except BaseException as exc:  # noqa: BLE001 — future carries it
+                fut._fail(exc)
+            return fut
+        pre = self.committer._precommit(block)
+        if isinstance(pre, BlockCommitResult):
+            fut._set(pre)                 # idempotent replay, nothing queued
+            return fut
+        vr, new_cfg = pre
+        self._sem.acquire()               # bounds admits to the window depth
+        try:
+            ticket = self.ledger.commit_begin(block)
+        except BaseException:
+            self._sem.release()
+            raise
+        with self._lock:
+            self._inflight += 1
+        self._queue.put((fut, block, ticket, vr, new_cfg))
+        return fut
+
+    def _is_config(self, block: Block) -> bool:
+        if self.committer.bundle_source is None:
+            return False
+        try:
+            from fabric_tpu_torch.config import config_envelope_of
+            return config_envelope_of(block) is not None
+        except Exception:
+            return False
+
+    # -- retire (the single finishing thread) -------------------------------
+
+    def _retire_loop(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            fut, block, ticket, vr, new_cfg = item
+            try:
+                t_commit = time.perf_counter()
+                stats = self.ledger.commit_finish(ticket)
+                result = self.committer._postcommit(
+                    block, vr, stats, new_cfg, t_commit)
+                fut._set(result)
+            except BaseException as exc:  # noqa: BLE001
+                self._break(exc, fut)
+            finally:
+                self._sem.release()
+                with self._idle:
+                    self._inflight -= 1
+                    self._idle.notify_all()
+
+    def _break(self, exc: BaseException, fut: "_CommitFuture") -> None:
+        logger.exception("commit pipeline broken at block %d", fut.block_num)
+        # the reference also emits a structured log record
+        # (committer.pipeline_broken) here
+        with self._lock:
+            self._broken = exc
+        fut._fail(exc)
+        dropped = self.ledger.abort_window()
+        # every queued successor validated against an overlay that never
+        # landed — fail them all; redelivery replays from the chain tip
+        while True:
+            try:
+                nfut, _b, _t, _vr, _cfg = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            nfut._fail(RuntimeError(
+                f"pipeline broken at block {fut.block_num}: {exc}"))
+            self._sem.release()
+            with self._idle:
+                self._inflight -= 1
+                self._idle.notify_all()
+        # the reference adds one to commit_pipeline_breaks_total here
+        logger.warning("aborted commit window (%d blocks dropped)", dropped)
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def drain(self, timeout: Optional[float] = None) -> None:
+        """Block until every submitted block has retired (or failed)."""
+        with self._idle:
+            if not self._idle.wait_for(lambda: self._inflight == 0,
+                                       timeout=timeout):
+                raise TimeoutError("commit pipeline drain timed out")
+
+    def close(self) -> None:
+        """Drain and stop the retire thread; the pipeline cannot be
+        reused afterwards (build a new one to resume)."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self.drain()
+        self._queue.put(None)
+        self._thread.join(timeout=30)
+
+    @property
+    def broken(self) -> Optional[BaseException]:
+        return self._broken
+
+
+class _CommitFuture:
+    """Minimal single-shot future for PipelinedCommitter.submit."""
+
+    __slots__ = ("block_num", "_event", "_result", "_exc")
+
+    def __init__(self, block_num: int):
+        self.block_num = block_num
+        self._event = threading.Event()
+        self._result: Optional[BlockCommitResult] = None
+        self._exc: Optional[BaseException] = None
+
+    def _set(self, result: BlockCommitResult) -> None:
+        self._result = result
+        self._event.set()
+
+    def _fail(self, exc: BaseException) -> None:
+        self._exc = exc
+        self._event.set()
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def result(self, timeout: Optional[float] = None) -> BlockCommitResult:
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"block {self.block_num} not retired in time")
+        if self._exc is not None:
+            raise self._exc
+        return self._result

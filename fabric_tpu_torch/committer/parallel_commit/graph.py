@@ -28,8 +28,7 @@ the overlay retires.  Cross-block ww hits are counted but never defer:
 retirement is strictly in order, so same-key writes serialize at apply
 time regardless of when the later block validated.
 
-Counterpart of `fabric_tpu/committer/parallel_commit/graph.py`, whole;
-`ConflictGraph` and `footprint_of` wait for the commit-side scheduler.
+Counterpart of `fabric_tpu/committer/parallel_commit/graph.py`, whole.
 """
 
 from __future__ import annotations

@@ -11,15 +11,17 @@ Reference parity: core/ledger/kvledger/kv_ledger.go —
 The block store is the source of truth; state/history are derived and
 self-heal on open (recoverDBs).
 
-Counterpart of `fabric_tpu/ledger/kvledger.py`: the serial commit, the
-fused device validation's prepared-batch hand-off
-(`set_prepared_source`), a durable ledger under `LedgerConfig.root`
-with its recovery on open, and the admin operations.  The directory
-each writes is the reference's, byte for byte.  Not ported yet, and not
-accepted by `LedgerConfig`: the wavefront parallel commit, the
-cross-block commit window (`commit_begin`, `commit_finish`,
-`abort_window`), snapshot export and bootstrap; and the ops-plane
-observer of the apply sizes.
+Counterpart of `fabric_tpu/ledger/kvledger.py`, whole: the serial
+commit, the fused device validation's prepared-batch hand-off
+(`set_prepared_source`), the wavefront parallel commit
+(`parallel_commit`), the cross-block commit window (`commit_window`:
+`pending_overlay`, `commit_begin`, `commit_finish`, `abort_window`),
+`snapshot_export`, a durable ledger under `LedgerConfig.root` with its
+recovery on open, and the admin operations.  The directory each writes
+is the reference's, byte for byte.  `LedgerConfig` takes every field
+the reference's does, with the same defaults.  Left out until the port
+has an ops plane: the observer of the apply sizes (`_observe_apply`),
+marked where the reference calls it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import hashlib
 import logging
 import os
 import shutil
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -88,6 +91,29 @@ class LedgerConfig:
     # independently locked + independently flushable shards; 1 = the
     # flat store (differential oracle)
     state_shards: int = 8
+    # parallel MVCC commit plane (committer/parallel_commit/): wavefront
+    # scheduler replaces the serial validate_and_prepare_batch walk —
+    # bit-identical output, enforced differentially.  Must be configured
+    # uniformly across the peers of a channel only as an operational
+    # convention (the OUTPUT is identical; only timing differs).
+    parallel_commit: bool = False
+    commit_workers: int = 4             # static cap on the worker pool
+    # adaptive sizing: the pool tracks the rolling max conflict-graph
+    # wave width, clamped to commit_workers (scheduler.target_workers)
+    commit_adaptive: bool = True
+    # serial fallback: run the oracle walk directly (and count it) when
+    # the wave machinery cannot pay off — 1-core host, or the adaptive
+    # pool would provision a single worker anyway.  Differential tests
+    # that must exercise the wave path set this False.
+    commit_serial_fallback: bool = True
+    # cross-block wavefront pipelining (committer/parallel_commit
+    # CommitWindow): W > 0 enables the commit_begin/commit_finish entry
+    # points with at most W blocks admitted-but-unretired.  The serial
+    # commit() stays available (and is the differential oracle) but
+    # refuses to run while window blocks are in flight.  Output is
+    # bit-identical to serial commits of the same stream; only timing
+    # differs.  0 = disabled.
+    commit_window: int = 0
     # fused device validation (committer/device_validate.py): commit()
     # consumes the validator's prepared UpdateBatch via the registered
     # prepared-source instead of re-running host MVCC — the flags in
@@ -133,6 +159,27 @@ class KVLedger:
         # (number, flags_bytes, savepoint) -> (final_flags, batch,
         # history) | None
         self._prepared_source = None
+        self._commit_scheduler = None
+        if self.config.parallel_commit:
+            # function-level import: ledger <- committer.parallel_commit
+            # <- ledger.mvcc would otherwise cycle at module load
+            from fabric_tpu_torch.committer.parallel_commit import (
+                ParallelCommitScheduler)
+            self._commit_scheduler = ParallelCommitScheduler(
+                max_workers=self.config.commit_workers,
+                channel_id=channel_id,
+                adaptive=self.config.commit_adaptive,
+                serial_fallback=self.config.commit_serial_fallback)
+        self._commit_window = None
+        if self.config.commit_window > 0:
+            from fabric_tpu_torch.committer.parallel_commit import (
+                CommitWindow)
+            self._commit_window = CommitWindow(
+                channel_id=channel_id,
+                max_window=self.config.commit_window)
+        # serializes commit_finish calls (one finishing thread is the
+        # intended shape; the lock makes a second one safe, not fast)
+        self._finish_lock = threading.Lock()
         self._recover()
 
     # -- recovery (recovery.go) --------------------------------------------
@@ -235,9 +282,14 @@ class KVLedger:
             return None
 
     def _validate_and_prepare(self, num: int, envelopes, flags: TxFlags):
-        """MVCC pass: the serial oracle."""
+        """MVCC pass: the wavefront scheduler when parallel_commit is
+        on, the serial oracle otherwise — identical output either way."""
+        if self._commit_scheduler is not None:
+            return self._commit_scheduler.validate_and_prepare_batch(
+                self.statedb, num, envelopes, flags)
         return validate_and_prepare_batch(self.statedb, num,
                                           envelopes, flags)
+
 
     # -- commit (kv_ledger.go:425-508) -------------------------------------
 
@@ -248,6 +300,10 @@ class KVLedger:
         if self.paused:
             raise RuntimeError(
                 f"channel {self.channel_id!r} is paused (resume() first)")
+        if self._commit_window is not None and self._commit_window.depth():
+            raise RuntimeError(
+                "serial commit while the pipelined window has blocks in "
+                "flight (commit_finish them or abort_window() first)")
         if META_TXFLAGS not in block.metadata.items:
             raise ValueError("block metadata missing txflags "
                              "(txvalidator must run first)")
@@ -280,7 +336,7 @@ class KVLedger:
             batch, history = self._validate_and_prepare(
                 block.header.number, envelopes, flags)
         # split the batch by shard before the apply takes shard locks
-        # (the device-validate plane does the same)
+        # (the parallel-commit / device-validate planes do the same)
         batch.preshard(self.statedb.n_shards)
         stats.state_validation_s = time.perf_counter() - t0
         stats.valid_txs = flags.valid_count()
@@ -319,6 +375,125 @@ class KVLedger:
             stats.history_commit_s * 1e3)
         return stats
 
+    # -- pipelined commit (the cross-block wavefront window) ----------------
+
+    def pending_overlay(self):
+        """Frozen write-set snapshot of the window's in-flight blocks
+        (PendingOverlay; empty when the window is idle, None when the
+        pipelined window is disabled).  The early-abort analyzer's
+        overlay_source, and the dooming bound for admit-time waves."""
+        if self._commit_window is None:
+            return None
+        return self._commit_window.pending_overlay()
+
+    def commit_begin(self, block: Block):
+        """Admit `block` to the pipelined commit window and validate its
+        EARLY waves — the txs whose footprints provably avoid every
+        in-flight predecessor's pending write set — typically while the
+        predecessor's apply is still running on the finishing thread.
+        Returns the window ticket for commit_finish.  Single admitting
+        thread; blocks must arrive in chain order."""
+        if self._commit_window is None:
+            raise RuntimeError(
+                "pipelined commit disabled (LedgerConfig.commit_window)")
+        if self.paused:
+            raise RuntimeError(
+                f"channel {self.channel_id!r} is paused (resume() first)")
+        if META_TXFLAGS not in block.metadata.items:
+            raise ValueError("block metadata missing txflags "
+                             "(txvalidator must run first)")
+        from fabric_tpu_torch.protocol import block_header_hash
+        tail = self._commit_window.tail()
+        if tail is not None:
+            expected_num = tail.num + 1
+            expected_prev = tail.header_hash
+        else:
+            # window empty: no concurrent finish can be in flight, so
+            # the chain tip is stable here
+            info = self.blockstore.chain_info()
+            expected_num = info.height
+            expected_prev = (info.current_hash if info.height
+                             else b"\x00" * 32)
+        if block.header.number != expected_num:
+            raise ValueError(
+                f"out-of-order commit_begin: got block "
+                f"{block.header.number}, expected {expected_num}")
+        if block.header.previous_hash != expected_prev:
+            raise ValueError(
+                f"block {block.header.number} previous_hash mismatch")
+        flags = TxFlags.from_bytes(block.metadata.items[META_TXFLAGS])
+        envelopes = _safe_envelopes(block)
+        entry = self._commit_window.admit(
+            self.statedb, block.header.number,
+            block_header_hash(block.header), envelopes, flags)
+        # the block rides the ticket un-mutated: metadata (final flags,
+        # commit hash) is only stamped at finish, so an aborted window
+        # leaves it pristine for the exactly-once replay
+        return (entry, block)
+
+    def commit_finish(self, ticket) -> CommitStats:
+        """Promote the ticket's deferred waves, then retire it: rebuild
+        the final batch in strict tx order, chain the commit hash, store
+        the block, and apply state + history.  Strictly in admit order
+        (head of window only) — that ordering is what keeps the windowed
+        stream bit-identical to serial commits."""
+        entry, block = ticket
+        with self._finish_lock:
+            t0 = time.perf_counter()
+            batch, history = self._commit_window.finish(
+                self.statedb, entry)
+            batch.preshard(self.statedb.n_shards)
+            flags = entry.flags
+            stats = CommitStats(block_num=entry.num,
+                                total_txs=len(block.data))
+            stats.state_validation_s = (entry.validate_s
+                                        + time.perf_counter() - t0)
+            stats.valid_txs = flags.valid_count()
+            block.metadata.items[META_TXFLAGS] = flags.to_bytes()
+            self._commit_hash = hashlib.sha256(
+                self._commit_hash + block.header.data_hash
+                + flags.to_bytes()).digest()
+            block.metadata.items[META_COMMIT_HASH] = self._commit_hash
+
+            # the retirement tail is the window's overlap counterpart:
+            # admits of successor blocks time their validation against
+            # this span
+            self._commit_window.apply_started()
+            try:
+                t1 = time.perf_counter()
+                self.blockstore.add_block(block)
+                stats.block_commit_s = time.perf_counter() - t1
+
+                t1 = time.perf_counter()
+                self.statedb.apply_updates(batch, entry.num)
+                stats.state_commit_s = time.perf_counter() - t1
+
+                if self.historydb is not None:
+                    t1 = time.perf_counter()
+                    self.historydb.commit(entry.num, history)
+                    stats.history_commit_s = time.perf_counter() - t1
+            finally:
+                self._commit_window.apply_ended()
+            self._commit_window.retire(entry)
+
+            # the reference observes the apply's batch sizes here
+            # (_observe_apply); the port has no ops plane yet
+            self.last_stats = stats
+            logger.info(
+                "[%s] committed block %d (windowed, %d early / %d "
+                "deferred): %d/%d valid",
+                self.channel_id, stats.block_num, entry.early_n,
+                entry.deferred_n, stats.valid_txs, stats.total_txs)
+            return stats
+
+    def abort_window(self) -> int:
+        """Drop every admitted-but-unfinished window block (pipeline
+        teardown or error recovery).  None of them reached the block
+        store, so they replay later exactly once; returns the count."""
+        if self._commit_window is None:
+            return 0
+        return self._commit_window.reset()
+
     # -- queries ------------------------------------------------------------
 
     @property
@@ -353,7 +528,21 @@ class KVLedger:
         }
         if self.historydb is not None:
             out["history"] = self.historydb.status()
+        if self._commit_scheduler is not None:
+            out["commit_serial_fallbacks"] = (
+                self._commit_scheduler.serial_fallbacks)
+        if self._commit_window is not None:
+            out["commit_window"] = self._commit_window.stats()
         return out
+
+    def snapshot_export(self):
+        """Force a checkpoint of both derived DBs so a consistent
+        (manifest + shard files) set exists on disk for state transfer.
+        -> (state_manifest, history_manifest|None); None when in-memory
+        or before the first block."""
+        sm = self.statedb.checkpoint()
+        hm = self.historydb.checkpoint() if self.historydb is not None else None
+        return sm, hm
 
     # -- admin (reset.go / rollback.go / pause_resume.go / rebuild_dbs.go) --
 

@@ -18,6 +18,8 @@ verdict bitmap instead of calling ECDSA per endorsement.
 from .policy import SignedData, PolicyError, SignaturePolicy, signed_by, n_out_of
 from .dsl import parse_policy
 from .evaluator import PolicyEvaluator, CollectResult
+from .aclmgmt import ACLError, ACLProvider, DEFAULT_ACLS
 
 __all__ = ["SignedData", "PolicyError", "SignaturePolicy", "signed_by",
-           "n_out_of", "parse_policy", "PolicyEvaluator", "CollectResult"]
+           "n_out_of", "parse_policy", "PolicyEvaluator", "CollectResult",
+           "ACLError", "ACLProvider", "DEFAULT_ACLS"]

@@ -1477,3 +1477,77 @@ def test_early_abort_on_card_dispatches_fewer_items(cuda_device, stream500,
         assert after[blk][:2] == base_rows[blk][:2]
         assert (after[blk][2] == base_rows[blk][2]) == (
             codes[blk] == base[blk])
+
+
+# ---------------------------------------------------------------------------
+# the cross-block commit window and the ACL gate on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv7", [False, True], ids=["host", "kv7"])
+def test_pipelined_stream_on_card_matches_serial(cuda_device, stream500,
+                                                 kv7):
+    """chip_smoke's stream at 500 txs through PipelinedCommitter on a
+    windowed ledger (W=2, early abort on the window's overlay) on the
+    CUDA provider: after every block the serial host stack's flags (a
+    doomed tx's MVCC or phantom), metadata flags, state, history and
+    commit hash; KP3 launched every block; KV7 demoted only as the
+    reference does."""
+    import chip_smoke as cs
+    from fabric_tpu_torch.ops import block_validate
+    orgs, raws, labels, rows = stream500
+    provider = CudaProvider(device=cuda_device)
+    c, dv = cs.commit_stack(provider, orgs, kv7, cuda_device,
+                            early_abort=True, commit_window=2)
+    doomed = cs.spy_doomed(c)
+    counted = {"p256_verify_rows": p256_fixed.p256_verify_rows,
+               "p256_verify": p256.p256_verify,
+               "block_validate": block_validate.block_validate_kernel}
+    out, _secs = cs.pipeline_stream(c, raws, rows=True, counted=counted)
+    cs.hold_to_phase6("card", out, rows, doomed)
+    assert all(n["p256_verify_rows"] == 1 for *_x, n in out)
+    if kv7:
+        dem = {k for k, v in
+               dv.stats["validator_device_demotions_total"].items() if v}
+        assert dem <= set(cs.WINDOW_DEMOTIONS)
+        assert dv.stats["validator_device_blocks_total"] == sum(
+            n["block_validate"] for *_x, n in out) >= 1
+    assert c.ledger._commit_window.stats()["retired"] == len(raws)
+    assert provider.stats["fallbacks"] == 0
+
+
+@pytest.mark.cuda
+def test_check_acl_on_card_through_kp3_kp2(cuda_device):
+    """ACLProvider on the CUDA provider: a member's proposal allowed, the
+    same with a flipped signature byte denied, each decision the
+    software provider's, the signature checks launched on the card."""
+    from fabric_tpu_torch import config as C
+    from fabric_tpu_torch.msp.ca import DevOrg
+    from fabric_tpu_torch.policy import ACLError, ACLProvider, SignedData
+    org = DevOrg("Org1")
+    mc = org.msp_config()
+    src = C.BundleSource(C.Bundle(C.ChannelConfig(
+        "ch", 0, (C.OrgConfig("Org1", tuple(mc.root_certs_pem),
+                              tuple(mc.admin_certs_pem)),),
+        C.default_policies(["Org1"]))))
+    member = org.new_identity("m")
+    sig = member.sign(b"p")
+    cases = [SignedData(b"p", member.serialize(), sig),
+             SignedData(b"p", member.serialize(),
+                        sig[:-1] + bytes([sig[-1] ^ 1]))]
+
+    def decide(acl, sd):
+        try:
+            acl.check_acl("peer/Propose", sd)
+            return True
+        except ACLError:
+            return False
+
+    provider = CudaProvider(device=cuda_device)
+    before = p256_fixed.p256_verify_rows.launches + p256.p256_verify.launches
+    got = [decide(ACLProvider(src, provider), sd) for sd in cases]
+    launched = (p256_fixed.p256_verify_rows.launches
+                + p256.p256_verify.launches - before)
+    want = [decide(ACLProvider(src, SoftwareProvider()), sd) for sd in cases]
+    assert got == want == [True, False]
+    assert launched == 2 and provider.stats["fallbacks"] == 0
