@@ -73,7 +73,22 @@ ends with one JSON line.  Phases:
              depth; KV7 timed on block 2 whole and by phase (the gate
              fold's grid-wide launches, the walk), with its bound from
              the depth; block 2 timed warm on fresh stacks, stage by
-             stage, with one profiled run
+             stage, with one profiled run, and in turns with it the KV7
+             stack's block 2 with the tracer on and off, which first
+             alternating by trial, each after a full garbage collection
+             (`ops_plane_cost_ms`: the median traced minus untraced,
+             with each's min and max);
+             the ops plane read back (`ops_phase6`): one more warm block
+             2 on a fresh KV7 stack, the tracer on, an OperationsServer
+             on port 0 with the trace and resource routes, /metrics,
+             /traces and /resources fetched over HTTP: the block's trace
+             holds every span of OPS_SPANS under its parent,
+             provider_device_sigs_total grew by the items the provider
+             took, each lane's provider_lane_slots_total on cuda:0 by its
+             launch's grid slots, the dispatch queue is back to 0,
+             validator_device_dispatches_total grew by KV7's launches,
+             ledger_height is 3, cuda_allocated_bytes is positive,
+             provenance() says "gpu" and the card's name
 7. times   — medians of repeated runs (CUDA events for kernels); each
              kernel's plain version is timed by its one comparison call
              on the path's own batch for that kernel; KP2 at two sizes,
@@ -189,7 +204,15 @@ ends with one JSON line.  Phases:
              demoted only as the reference does (`savepoint` with a
              predecessor in flight, `range_query`); the wavefront
              scheduler on the serial path, equal to phase 6, with its
-             wave widths, workers and fallbacks; (b) (c)'s first stream on
+             wave widths, workers and fallbacks, and its ops-plane series
+             (commit_graph_waves_total, the wave widths, the edges by
+             kind, commit_serial_fallbacks_total,
+             commit_workers_effective) equal to its own counts; the first
+             W=4 run traced, each submit under a root span: one
+             mvcc.window.admit span a block with the block's early and
+             deferred txs, commit_window_admitted_total,
+             commit_window_txs_total and the cross-block edges equal to
+             the run's own window; (b) (c)'s first stream on
              phase 11's durable configuration at W=4, its directory byte
              for byte the serial durable stack's; a retire failure injected
              in block 2 fails block 2's and block 3's futures, leaves the
@@ -232,6 +255,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--txs N] [--ed N] [--gen N] [--trials K]
                           [--commit-txs N] [--commit-last N]
+    python3 chip_smoke.py --ops-only   # phase 6's ops-plane check alone
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -240,11 +264,14 @@ result line.  It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import hashlib
 import json
 import multiprocessing
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -1144,6 +1171,199 @@ def kv7_variants(ln, num: int) -> dict:
     return {"hot slot": hot, "wide txs": wide}
 
 
+# ---------------------------------------------------------------------------
+# the ops plane: what phase 6 and phase 13 read back from it
+# ---------------------------------------------------------------------------
+
+# one block's trace on phase 6's KV7 stack, each span under its parent:
+# the reference's tree (tests/test_torch_ops_wiring.py holds the port's
+# to it on the CPU).  The validator's stages, the provider's batch and
+# the ledger's phases are all children of the block's root span: the
+# stages are recorded after the fact and the batch's span runs from the
+# enqueue in pass 1 to the resolve in the dispatch wait
+OPS_ROOT = "committer.store_block"
+OPS_SPANS = {OPS_ROOT: None,
+             **dict.fromkeys(("validator.collect", "bccsp.batch_verify",
+                              "validator.dispatch_wait", "validator.gate",
+                              "ledger.mvcc", "ledger.block_commit",
+                              "ledger.state_commit", "ledger.history_commit",
+                              "committer.notify"), OPS_ROOT)}
+_SAMPLE = re.compile(r"^([A-Za-z_:][\w:]*)(?:\{(.*)\})? (\S+)$")
+_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def get_url(url: str) -> str:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.read().decode()
+
+
+def scrape(url: str) -> dict:
+    """A /metrics page -> {name: {((label, value), ...): value}}."""
+    return parse_metrics(get_url(url))
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus exposition text -> {name: {((label, value), ...):
+    value}}."""
+    out = {}
+    for line in text.splitlines():
+        m = _SAMPLE.match(line)
+        if m is None:
+            continue
+        labels = tuple(sorted(_LABEL.findall(m.group(2) or "")))
+        out.setdefault(m.group(1), {})[labels] = float(m.group(3))
+    return out
+
+
+def moved_by(m0: dict, m1: dict, name: str, **labels) -> float:
+    """What one series gained between two scrapes."""
+    key = tuple(sorted(labels.items()))
+    return m1.get(name, {}).get(key, 0.0) - m0.get(name, {}).get(key, 0.0)
+
+
+class Traced:
+    """Inside: the port's tracer on at a sample rate of 1.0 with an empty
+    flight recorder; after: as it was, the recorder emptied again."""
+
+    def __enter__(self):
+        from fabric_tpu_torch.ops_plane import tracing
+        self.t = tracing.tracer
+        self.was = (self.t.enabled, self.t.sample_rate)
+        self.t.reset()
+        self.t.configure({"enabled": True, "sample_rate": 1.0})
+        return self.t
+
+    def __exit__(self, *exc):
+        self.t.enabled, self.t.sample_rate = self.was
+        self.t.reset()
+        return False
+
+
+def trace_spans(url: str, root: str) -> list:
+    """The traces the ops server's /traces lists under `root` -> [{span
+    name: (parent's name, args)}], each fetched from /traces/<id>."""
+    out = []
+    for rec in json.loads(get_url(url + "/traces"))["recent"]:
+        if rec["root"] != root:
+            continue
+        doc = json.loads(get_url(f"{url}/traces/{rec['trace_id']}?follow=0"))
+        evs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        names = {e["args"]["span_id"]: e["name"] for e in evs}
+        out.append({e["name"]: (names.get(e["args"]["parent_id"]), e["args"])
+                    for e in evs})
+    return out
+
+
+def ops_phase6(torch, provider, orgs, raws, dev) -> dict:
+    """Phase 6's ops check: one more warm block 2 on a fresh KV7 stack
+    holding blocks 0 and 1, the tracer on, an OperationsServer on port 0
+    with the trace and resource routes and a ResourceCollector; /metrics
+    before and after the block, /traces and /resources after, over HTTP.
+    Fails unless the block's trace holds every span of OPS_SPANS under
+    its parent, provider_device_sigs_total grew by the items the provider
+    took (launched and refused on the host), each lane's
+    provider_lane_slots_total on cuda:0 by its launches' grid slots (at
+    least its items), the dispatch queue is back to 0,
+    validator_device_dispatches_total grew by KV7's launches, the ledger
+    height is 3, cuda_allocated_bytes is positive and provenance() names
+    the card.  -> the numbers read."""
+    from fabric_tpu_torch.bccsp.cuda import grid_slots
+    from fabric_tpu_torch.device import with_index
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.ops_plane import (OperationsServer,
+                                            ResourceCollector, provenance,
+                                            register_resource_routes,
+                                            register_trace_routes)
+    c, _dv = commit_stack(provider, orgs, True, dev)
+    commit_stream(c, raws[:2])
+    srv = OperationsServer(port=0)
+    col = ResourceCollector({"interval_s": 60.0})
+    register_trace_routes(srv)
+    register_resource_routes(srv, col)
+    srv.start()
+    url = "http://%s:%d" % srv.addr
+    try:
+        m0 = scrape(url + "/metrics")
+        st0, k0 = dict(provider.stats), kv7.block_validate_kernel.launches
+        with Traced():
+            (res, _meta, secs, _rows), = commit_stream(c, raws[2:3])
+            traces = trace_spans(url, OPS_ROOT)
+        m1 = scrape(url + "/metrics")
+        resources = json.loads(get_url(url + "/resources"))
+    finally:
+        srv.stop()
+    kv7_launches = kv7.block_validate_kernel.launches - k0
+    launched = provider.stats["device_sigs"] - st0["device_sigs"]
+    refused = provider.stats["host_rejects"] - st0["host_rejects"]
+    check(len(traces) == 1, f"ops: {len(traces)} block traces, expected 1")
+    spans = traces[0]
+    missing = {n: p for n, p in OPS_SPANS.items()
+               if n not in spans or spans[n][0] != p}
+    check(not missing, f"ops: spans missing or under another parent: "
+          f"{missing} (got {({n: v[0] for n, v in spans.items()})})")
+    check(spans[OPS_ROOT][1]["block"] == 2, "ops: the trace is not block 2's")
+    sigs = moved_by(m0, m1, "provider_device_sigs_total")
+    n_items = res.validation.n_unique_items
+    check(sigs == launched + refused == n_items,
+          f"ops: provider_device_sigs_total grew {sigs}, the provider "
+          f"launched {launched} and refused {refused} of {n_items} items")
+    card = str(with_index(dev))
+    lanes = {}
+    for kind, lane in (("p256-rows", "rows"), ("p256", "generic")):
+        slots = moved_by(m0, m1, "provider_lane_slots_total", device=card,
+                         lane=lane)
+        pads = moved_by(m0, m1, "provider_pad_slots_total", device=card,
+                        lane=lane)
+        real = slots - pads
+        check(slots >= real >= 0 and slots == grid_slots(kind, int(real),
+                                                         dev),
+              f"ops: lane {lane} on {card}: {slots} slots for {real} items")
+        lanes[lane] = (int(real), int(slots))
+    check(sum(r for r, _ in lanes.values()) == launched and lanes["rows"][0],
+          f"ops: lane items {lanes} != the {launched} launched")
+    depth = m1.get("provider_dispatch_queue_depth", {}).get(())
+    check(depth == 0.0, f"ops: provider_dispatch_queue_depth {depth} != 0")
+    dispatches = moved_by(m0, m1, "validator_device_dispatches_total",
+                          channel="ch")
+    check(dispatches == kv7_launches == 1,
+          f"ops: validator_device_dispatches_total grew {dispatches}, KV7 "
+          f"launched {kv7_launches} times")
+    height = m1.get("ledger_height", {}).get((("channel", "ch"),))
+    check(height == 3, f"ops: ledger_height {height} != 3")
+    check(resources.get("cuda_allocated_bytes", 0) > 0,
+          f"ops: cuda_allocated_bytes {resources.get('cuda_allocated_bytes')}")
+    prov = provenance()
+    check(prov["platform"] == "gpu"
+          and prov["device_kind"] == torch.cuda.get_device_name(0),
+          f"ops: provenance {prov}")
+    return {"spans": sorted(spans), "device_sigs": int(sigs),
+            "launched": launched, "refused": refused, "lanes": lanes,
+            "queue_depth": depth, "kv7_dispatches": int(dispatches),
+            "ledger_height": int(height),
+            "cuda_allocated_bytes": int(resources["cuda_allocated_bytes"]),
+            "provenance": {k: prov[k] for k in ("platform", "device_kind",
+                                                "n_devices")},
+            "block_s": round(secs, 4)}
+
+
+def ops_only(torch, args) -> int:
+    """`--ops-only`: the commit stream, the factory's CUDA provider and
+    `ops_phase6` alone (the kernels build on first use)."""
+    from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
+        orgs, signers, endorsers, clients = commit_identities()
+        env_blocks, _labels, _kinds = build_stream(
+            args.commit_txs, args.commit_last, signers, endorsers, clients,
+            pool)
+    raws = chain_blocks(env_blocks)
+    provider = init_factories(FactoryOpts(default="CUDA"))
+    phase("commit", ops_plane="checked", **ops_phase6(
+        torch, provider, orgs, raws, torch.device("cuda")))
+    return 0
+
+
 def commit_phase(torch, args, provider, orgs, raws, labels, fns,
                  clock_hz: float) -> tuple:
     """Phase 7: the stream through two port stacks, KV7 on and off; the
@@ -1256,9 +1476,21 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
     serial_ms = d["T"] * SHMEM_CYCLES / clock_hz * 1e3
 
     # block 2, warm, on fresh stacks holding blocks 0 and 1: validate +
-    # commit, its stages, and one profiled run
+    # commit, its stages, and one profiled run; and in turns with them
+    # the ops plane's cost: the KV7 stack's block 2 with the tracer on
+    # and off (its registry writes are always on, its spans only when
+    # traced), which side goes first alternating by trial, each after a
+    # full garbage collection
     stages = {True: [], False: []}
+    cost = {True: [], False: []}
     for trial in range(args.trials):
+        for traced in ((True, False) if trial % 2 == 0 else (False, True)):
+            c, _ = commit_stack(provider, orgs, True, dev)
+            commit_stream(c, raws[:2])
+            gc.collect()
+            with Traced() if traced else contextlib.nullcontext():
+                (_res, _meta, secs, _rows), = commit_stream(c, raws[2:3])
+            cost[traced].append(secs * 1e3)
         for on in (True, False):
             c, dvt = commit_stack(provider, orgs, on, dev)
             commit_stream(c, raws[:2])
@@ -1297,6 +1529,17 @@ def commit_phase(torch, args, provider, orgs, raws, labels, fns,
           device_busy_ms=round(busy_ms, 3),
           device_idle_share=round(1 - busy_ms / wall_ms, 4),
           top_device_ops=top)
+    traced_ms, untraced_ms = cost[True], cost[False]
+    phase("commit", block=2, kv7="on", ops_plane_cost_ms=round(
+        statistics.median(traced_ms) - statistics.median(untraced_ms), 3),
+          traced_ms=round(statistics.median(traced_ms), 3),
+          traced_min_max=[round(min(traced_ms), 3), round(max(traced_ms), 3)],
+          untraced_ms=round(statistics.median(untraced_ms), 3),
+          untraced_min_max=[round(min(untraced_ms), 3),
+                            round(max(untraced_ms), 3)],
+          trials=args.trials)
+    phase("commit", ops_plane="checked", **ops_phase6(torch, provider, orgs,
+                                                      raws, dev))
     phase("commit", library="none: no PyTorch call computes the gate fold "
           "and the in-order MVCC walk")
     return {"name": "block_validate", "route": "cuda",
@@ -1873,7 +2116,16 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
     from fabric_tpu_torch.protocol import Block
     from fabric_tpu_torch.verify_plane import (VerdictCache, derive_items,
                                                item_digest)
+    from fabric_tpu_torch.verify_plane.cache import _m
     counted = {**fns, "block_validate": kv7.block_validate_kernel}
+
+    def cached():
+        """The verify-once plane's counters in the ops plane's registry
+        (process-wide: read as deltas around one cache's work)."""
+        m = _m()
+        return {"hits": m["hits"].total(), "misses": m["misses"].total(),
+                "mac": m["rejects"].value(reason="mac"),
+                "stale": m["rejects"].value(reason="stale")}
     main = dict.fromkeys(counted, 0)
     kp = ("p256_verify_rows", "p256_verify")
     fb0 = provider.stats["fallbacks"]
@@ -1908,8 +2160,7 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
     peer, prov = stack(classic=True, cache=cache)
     unique = []                  # each block's unique items
     for num, raw in enumerate(raws):
-        h0, m0, i0 = (cache.stats["verify_cache_hits_total"],
-                      cache.stats["verify_cache_misses_total"], prov.items)
+        c0, i0 = cached(), prov.items
         (res, secs, meta), launches = run(lambda: commit_one(peer, raw))
         codes = res.final_flags.codes()
         unique.append(res.validation.n_unique_items)
@@ -1925,8 +2176,8 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
         phase("classic", block=num, txs=len(codes), valid=codes.count(0),
               kp3=launches["p256_verify_rows"], kp2=launches["p256_verify"],
               items_dispatched=prov.items - i0,
-              cache_hits=cache.stats["verify_cache_hits_total"] - h0,
-              cache_misses=cache.stats["verify_cache_misses_total"] - m0,
+              cache_hits=cached()["hits"] - c0["hits"],
+              cache_misses=cached()["misses"] - c0["misses"],
               validate_commit_s=round(secs, 4))
     check(provider.stats["fallbacks"] == fb0, "classic: fallbacks != 0")
     phase("classic", stream="equal to phase 6's host stack after every "
@@ -1956,18 +2207,17 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
     check(filled["dropped"] == 0, f"speculative fill of block 2: "
           f"{filled['dropped']} of {filled['endorsement_items']} "
           "endorsement items without a verdict (the queue dropped them)")
-    h0, m0 = (cache.stats["verify_cache_hits_total"],
-              cache.stats["verify_cache_misses_total"])
+    c0 = cached()
     (res, secs, _), launches = run(lambda: commit_one(spec, raws[2]))
     check(all(launches[k] == 0 for k in kp) and prov.items == 0
-          and cache.stats["verify_cache_misses_total"] == m0,
+          and cached()["misses"] == c0["misses"],
           f"spec-filled block 2 dispatched: {launches}, {prov.items} items")
     check(res.final_flags.codes() == mem_rows[2][0]
           and spec.ledger.commit_hash == mem_rows[2][2][2],
           "spec-filled block 2: flags or commit hash != phase 6's")
     phase("classic", spec_fill=filled, fill_launches={
         k: fill_launches[k] for k in kp}, block=2,
-        cache_hits=cache.stats["verify_cache_hits_total"] - h0,
+        cache_hits=cached()["hits"] - c0["hits"],
         cache_misses=0, unique_items=res.validation.n_unique_items,
         items_dispatched=0, kp3=0, kp2=0,
         validate_commit_s=round(secs, 4))
@@ -1979,10 +2229,9 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
     d = item_digest(creators[0])
     mac, verdict, scope, epoch, trace = cache._data[d]
     cache._data[d] = (mac, not verdict, scope, epoch, trace)
-    rej0 = dict(cache.stats["verify_cache_rejects_total"])
+    c0 = cached()
     (res, _, _), launches = run(lambda: commit_one(spec, raws[3]))
-    rej = {k: v - rej0[k] for k, v in
-           cache.stats["verify_cache_rejects_total"].items()}
+    rej = {k: cached()[k] - c0[k] for k in ("mac", "stale")}
     check(rej == {"mac": 1, "stale": 0} and prov.items == 1,
           f"flipped entry: rejects {rej}, {prov.items} items dispatched")
     check(res.final_flags.codes() == mem_rows[3][0],
@@ -1995,10 +2244,9 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
     bump, prov = stack(classic=True, cache=cache)
     at_height(bump, raws, mem_rows, 3)
     cache.set_epoch(1, scope="ch")
-    rej0 = dict(cache.stats["verify_cache_rejects_total"])
+    c0 = cached()
     (res, _, _), launches = run(lambda: commit_one(bump, raws[3]))
-    stale = cache.stats["verify_cache_rejects_total"]["stale"] - \
-        rej0["stale"]
+    stale = cached()["stale"] - c0["stale"]
     n3 = res.validation.n_unique_items
     check(stale == n3 and prov.items == n3,
           f"epoch bump: {stale} stale of {n3}, {prov.items} dispatched")
@@ -2139,7 +2387,8 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
 # the wavefront window and the pipelined committer (phase 13)
 # ---------------------------------------------------------------------------
 
-def pipeline_stream(committer, raws, rows: bool = False, counted=None):
+def pipeline_stream(committer, raws, rows: bool = False, counted=None,
+                    root: str = None):
     """The blocks through a PipelinedCommitter over `committer` (whose
     ledger has a commit window): every block submitted, then every
     future awaited -> ([(result, metadata flag bytes, (state rows,
@@ -2147,8 +2396,12 @@ def pipeline_stream(committer, raws, rows: bool = False, counted=None):
     {kernel: launches during its submit} when `counted` else None)],
     wall seconds of the submits and waits).  The blocks are parsed
     before the clock starts; with `rows` a commit listener reads each
-    block's rows on the retire thread right after its commit."""
+    block's rows on the retire thread right after its commit; with
+    `root` each submit runs under a root span of that name (as a
+    deliver loop opens one), so the admit's spans are recorded."""
+    import contextlib
     from fabric_tpu_torch.committer import PipelinedCommitter
+    from fabric_tpu_torch.ops_plane import tracing
     from fabric_tpu_torch.protocol import wire
     from fabric_tpu_torch.protocol.types import META_TXFLAGS
     after = {}
@@ -2166,7 +2419,9 @@ def pipeline_stream(committer, raws, rows: bool = False, counted=None):
         t0 = time.perf_counter()
         for block in blocks:
             before = {n: f.launches for n, f in counted.items()}
-            futs.append(pipe.submit(block))
+            with (tracing.tracer.start_span(root) if root
+                  else contextlib.nullcontext()):
+                futs.append(pipe.submit(block))
             launches.append({n: f.launches - before[n]
                              for n, f in counted.items()})
         results = [f.result(timeout=600) for f in futs]
@@ -2272,6 +2527,124 @@ def tree_digest(root: str) -> dict:
     return out
 
 
+def sched_row(sched) -> dict:
+    """The wavefront scheduler's own counts: fallbacks, the pool it
+    provisioned, the last block's graph and the rolling widths."""
+    return {"serial_fallbacks": sched.serial_fallbacks,
+            "max_workers": sched.max_workers, "workers": sched._pool_size,
+            "last_waves": sched.last_waves, "last_edges": sched.last_edges,
+            "last_max_width": sched.last_max_width,
+            "widths": list(sched._widths)}
+
+
+def spy_graphs(sched) -> list:
+    """[(waves, edges)] of each block the scheduler validates on its
+    wave path, filled as it goes."""
+    real, log = sched.validate_and_prepare_batch, []
+
+    def validate(db, num, envelopes, flags):
+        fb = sched.serial_fallbacks
+        out = real(db, num, envelopes, flags)
+        if sched.serial_fallbacks == fb:
+            log.append((sched.last_waves, sched.last_edges))
+        return out
+
+    sched.validate_and_prepare_batch = validate
+    return log
+
+
+def ops_scheduler(m0: dict, m1: dict, sched, graphs: list) -> dict:
+    """Phase 13's read of the wavefront scheduler's series, held to the
+    scheduler's own counts: commit_graph_waves_total, the wave-width
+    observations and the in-block edges by kind sum to its blocks'
+    waves and edges; commit_serial_fallbacks_total to its fallbacks;
+    commit_workers_effective is its pool."""
+    from fabric_tpu_torch.committer.parallel_commit.graph import EDGE_KINDS
+    waves = sum(w for w, _e in graphs)
+    edges = sum(e for _w, e in graphs)
+    got_waves = moved_by(m0, m1, "commit_graph_waves_total", channel="ch")
+    got_widths = moved_by(m0, m1, "commit_graph_wave_width_count",
+                          channel="ch")
+    got_edges = {k: moved_by(m0, m1, "commit_graph_edges_total", kind=k,
+                             channel="ch") for k in EDGE_KINDS}
+    fallbacks = sum(v - m0.get("commit_serial_fallbacks_total", {}).get(
+        k, 0.0) for k, v in m1.get("commit_serial_fallbacks_total",
+                                   {}).items() if ("channel", "ch") in k)
+    workers = m1.get("commit_workers_effective", {}).get(
+        (("channel", "ch"),), 0.0)
+    check(got_waves == got_widths == waves,
+          f"window ops: commit_graph_waves_total {got_waves}, wave widths "
+          f"{got_widths}, the scheduler's waves {waves}")
+    check(sum(got_edges.values()) == edges,
+          f"window ops: commit_graph_edges_total {got_edges} != the "
+          f"scheduler's {edges} edges")
+    check(fallbacks == sched.serial_fallbacks,
+          f"window ops: commit_serial_fallbacks_total {fallbacks} != "
+          f"{sched.serial_fallbacks}")
+    check(workers == sched._pool_size,
+          f"window ops: commit_workers_effective {workers} != the pool's "
+          f"{sched._pool_size}")
+    return {"waves": int(waves), "edges": {k: int(v) for k, v in
+                                           got_edges.items() if v},
+            "serial_fallbacks": int(fallbacks), "workers": int(workers)}
+
+
+def spy_xblock(ledger) -> list:
+    """[each admitted block's cross-block edge counts by kind], filled as
+    the window admits."""
+    win, log = ledger._commit_window, []
+    real = win.admit
+
+    def admit(*a, **k):
+        e = real(*a, **k)
+        log.append(dict(e.graph.xblock_counts))
+        return e
+
+    win.admit = admit
+    return log
+
+
+def ops_window(m0: dict, m1: dict, window, admits: list, spans: list,
+               xblock: list, W: int) -> dict:
+    """Phase 13's read of a windowed run's series and admit spans, held
+    to the run's own CommitWindow: one mvcc.window.admit span a block
+    with the block's early and deferred txs (the admit log's),
+    commit_window_admitted_total and commit_window_txs_total by timing
+    equal the window's counts, the cross-block edges by kind the admits'
+    graphs', the depth gauge within 1..W, the overlap fraction in
+    [0, 1]."""
+    from fabric_tpu_torch.committer.parallel_commit.graph import XBLOCK_KINDS
+    st = window.stats()
+    got = sorted((a["block"], a["early"], a["deferred"]) for a in spans)
+    want = sorted((num, e, d) for num, e, d, _ms in admits)
+    check(got == want and len(got) == st["admitted"],
+          f"window ops: admit spans {got} != the admits {want}")
+    admitted = moved_by(m0, m1, "commit_window_admitted_total",
+                        channel="ch")
+    early = moved_by(m0, m1, "commit_window_txs_total", timing="early",
+                     channel="ch")
+    deferred = moved_by(m0, m1, "commit_window_txs_total",
+                        timing="deferred", channel="ch")
+    check((admitted, early, deferred) == (st["admitted"], st["early_txs"],
+                                          st["deferred_txs"]),
+          f"window ops: admitted/early/deferred {admitted}/{early}/"
+          f"{deferred} != the window's {st}")
+    xb = {k: moved_by(m0, m1, "commit_graph_edges_total", kind=k,
+                      channel="ch") for k in XBLOCK_KINDS}
+    want_xb = {k: sum(x[k] for x in xblock) for k in XBLOCK_KINDS}
+    check(xb == want_xb, f"window ops: cross-block edges {xb} != the "
+          f"admits' {want_xb}")
+    depth = m1.get("commit_window_depth", {}).get((("channel", "ch"),))
+    frac = m1.get("commit_window_overlap_frac", {}).get(
+        (("channel", "ch"),))
+    check(depth is not None and 1 <= depth <= W and 0 <= frac <= 1,
+          f"window ops: commit_window_depth {depth}, overlap_frac {frac}")
+    return {"admit_spans": len(spans), "admitted": int(admitted),
+            "early": int(early), "deferred": int(deferred),
+            "xblock_edges": {k: int(v) for k, v in xb.items() if v},
+            "depth": int(depth), "overlap_frac": round(frac, 4)}
+
+
 def window_phase(torch, args, provider, orgs, signers, raws, labels,
                  mem_rows, durable_out, profiled, fns, name_power,
                  dev) -> dict:
@@ -2323,9 +2696,11 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
     # KP3/KP2 launches each block for (a)
     cells = [(ledger, W) for ledger in ("memory", "durable")
              for W in (0, *WINDOWS)]
+    from fabric_tpu_torch.ops_plane import registry
     times = {cell: [] for cell in cells}
     stages = {cell: [] for cell in cells}
     admits, overlap, kept, serial_kp = {}, {}, {}, {}
+    m0 = parse_metrics(registry.expose_text())
     for trial in range(max(3, args.trials)):
         for ledger, W in cells:
             kw = {"commit_window": W} if W else {}
@@ -2362,6 +2737,16 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
                 shutil.rmtree(root)
             if trial == 0 and (ledger, W) == ("memory", 0):
                 serial_kp[True] = [{k: n[k] for k in kp} for *_x, n in out]
+    m1 = parse_metrics(registry.expose_text())
+    # the KV7 stacks' demotions over (c)'s runs, read from the ops plane:
+    # `savepoint` (a predecessor still in flight) depends on the runs'
+    # timing, so (c)'s KV7 launches do too
+    phase("window", timed_runs_kv7_demotions={
+        dict(k)["reason"]: int(v - m0.get(
+            "validator_device_demotions_total", {}).get(k, 0.0))
+        for k, v in m1.get("validator_device_demotions_total", {}).items()
+        if ("channel", "ch") in k and v > m0.get(
+            "validator_device_demotions_total", {}).get(k, 0.0)})
     print(name_power, flush=True)
     for (ledger, W), ms in times.items():
         row = {"stream": ledger, "window": W or "serial",
@@ -2391,6 +2776,9 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
     c, _ = commit_stack(provider, orgs, False, dev, early_abort=True,
                         parallel_commit=True, commit_workers=WINDOW_WORKERS)
     doomed = spy_doomed(c)
+    sched = c.ledger._commit_scheduler
+    graphs = spy_graphs(sched)
+    m0 = parse_metrics(registry.expose_text())
     out, secs = run(lambda: serial_stream(c, raws, counted, rows=True))
     serial_kp[False] = [{k: n[k] for k in kp} for *_x, n in out]
     differ = hold_to_phase6("serial, parallel_commit", out, mem_rows, doomed)
@@ -2399,7 +2787,9 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
           "commit hash)", doomed=[len(doomed.get(i, {}))
                                   for i in range(len(raws))],
           doomed_codes_differ=differ, stream_s=round(secs, 4),
-          **c.ledger._commit_scheduler.stats())
+          **sched_row(sched), ops=ops_scheduler(
+              m0, parse_metrics(registry.expose_text()), sched, graphs))
+    ops_read = False
     for W, parallel, kv7_on in WINDOW_RUNS:
         name = (f"W={W} {'parallel' if parallel else 'serial MVCC'}"
                 f" {'kv7' if kv7_on else 'host'}")
@@ -2408,7 +2798,24 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
             parallel_commit=parallel, commit_workers=WINDOW_WORKERS)
         doomed = spy_doomed(c)
         log = spy_admits(c.ledger)
-        out, secs = run(lambda: pipeline_stream(c, raws, True, counted))
+        ops = None
+        if W == 4 and not ops_read:
+            # the ops plane's read of the first W=4 run: its series and
+            # admit spans against its own window
+            ops_read = True
+            xblock = spy_xblock(c.ledger)
+            m0 = parse_metrics(registry.expose_text())
+            with Traced() as tracer:
+                out, secs = run(lambda: pipeline_stream(
+                    c, raws, True, counted, root="pipeline.submit"))
+                spans = [s["attributes"] for r in
+                         tracer.recorder.list()["recent"]
+                         for s in tracer.recorder.get(r["trace_id"])["spans"]
+                         if s["name"] == "mvcc.window.admit"]
+            ops = ops_window(m0, parse_metrics(registry.expose_text()),
+                             c.ledger._commit_window, log, spans, xblock, W)
+        else:
+            out, secs = run(lambda: pipeline_stream(c, raws, True, counted))
         differ = hold_to_phase6(name, out, mem_rows, doomed)
         for num, (res, _m, _r, n) in enumerate(out):
             check({k: n[k] for k in kp} == serial_kp[kv7_on][num],
@@ -2428,13 +2835,16 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
             row.update(kv7_blocks=dv.stats["validator_device_blocks_total"],
                        demotions=dem)
         if parallel:
-            row["scheduler"] = c.ledger._commit_scheduler.stats()
+            row["scheduler"] = sched_row(c.ledger._commit_scheduler)
+        if ops is not None:
+            row["ops"] = ops
         st = c.ledger._commit_window.stats()
         row["window"] = {k: st[k] for k in (
             "admitted", "retired", "early_txs", "deferred_txs",
             "overlap_frac")}
         phase("window", vs_phase6="equal (flags but doomed, metadata, "
               "state, history, commit hash)", **row)
+    check(ops_read, "window: no W=4 run read the ops plane")
     check(provider.stats["fallbacks"] == fb0, "window: fallbacks != 0")
 
     # (b) the durable window: (c)'s first durable W=4 directory against
@@ -3622,6 +4032,10 @@ def main(argv=None) -> int:
                     help="transactions in blocks 0-2 of the commit stream")
     ap.add_argument("--commit-last", type=int, default=1_000,
                     help="transactions in block 3 of the commit stream")
+    ap.add_argument("--ops-only", action="store_true",
+                    help="phase 6's ops-plane check alone (the commit "
+                    "stream, then a warm block 2 read back over HTTP); "
+                    "prints no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3650,6 +4064,8 @@ def main(argv=None) -> int:
           sms=sms, max_sm_mhz=max_clock_mhz, torch=torch.__version__,
           cuda=torch.version.cuda)
     print(name_power, flush=True)
+    if args.ops_only:
+        return ops_only(torch, args)
 
     # --- 2. build ----------------------------------------------------------
     built = _build.build_all(force=True)

@@ -60,9 +60,23 @@ launch of an earlier batch that reads it, on any stream (`DeviceBank`).
 Unlike the reference, nothing falls back: a failed build of the C parser
 or of a kernel, a failed launch or a failed resolve raises, and
 `stats["fallbacks"]` stays 0.  The reference's (R, C) row grids, its
-bucket padding, its per-issuer idemix dispatches and its lane telemetry
-have no counterpart here (ROADMAP C5, C9).  The `stats` keys are the
-reference's, because the degrading wrapper of a later slice reads them.
+bucket padding and its per-issuer idemix dispatches have no counterpart
+here (ROADMAP C5, C9).  The `stats` keys are the reference's, because
+the degrading wrapper of a later slice reads them.
+
+Telemetry, as the reference's (`jaxtpu.py` `_observe_lane`,
+`batch_verify_async`): a `bccsp.batch_verify` span per call;
+`provider_dispatch_queue_depth` while launches wait for `resolve()`;
+`provider_resolve_seconds`, `provider_device_sync_seconds` and
+`provider_device_sigs_total` at resolve; and per launch, under the
+reference's lane names (`generic`: KP2, KE5; `rows`: KP3, KE6;
+`idemix`: KB8), `provider_lane_fill_fraction`, `provider_pad_slots_total`,
+`provider_lane_slots_total` and `provider_lane_fill`.  The port pads to
+no buckets, so a launch's slots are the item slots its grid carries:
+blocks x items a block (`GRID_ITEMS`; KE5 and KE6 count signatures, four
+threads each), and on the CPU's plain path the items themselves.  Each
+device is labelled `str(with_index(device))` ("cuda:0"); under a mesh
+each shard's slots go to its own device.
 """
 
 from __future__ import annotations
@@ -76,7 +90,7 @@ import torch
 
 from .. import native
 from ..crypto import decode_dss_signature
-from ..device import resolve_device
+from ..device import resolve_device, with_index
 from ..idemix import bn254 as hbn
 from ..ops import bn254 as kb8
 from ..ops import ed25519, ed25519_tables, p256_fixed, p256_tables
@@ -90,6 +104,27 @@ from .sw import SoftwareProvider
 
 MAX_CHUNK = 1 << 17
 _ZERO32 = b"\x00" * 32
+
+# items a block of each lane's kernel grid (the launch functions of
+# ops/csrc: 128 threads a block, one a P-256 signature or pairing check,
+# four an Ed25519 signature), by the mesh's lane names
+GRID_ITEMS = {"p256": 128, "p256-rows": 128, "ed25519": 32,
+              "ed25519-rows": 32, "idemix-pair": 128}
+# the reference's telemetry label of each lane
+LANE_LABELS = {"p256": "generic", "p256-rows": "rows", "ed25519": "generic",
+               "ed25519-rows": "rows", "idemix-pair": "idemix"}
+# lane-fill histogram bins (the reference's)
+_FILL_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0,
+                 float("inf"))
+
+
+def grid_slots(kind: str, n: int, device: torch.device) -> int:
+    """The item slots one launch of `n` items carries on `device`: blocks
+    x items a block on CUDA, the items themselves on the CPU."""
+    if device.type != "cuda":
+        return n
+    per = GRID_ITEMS[kind]
+    return -(-n // per) * per
 
 
 def parse_p256(items: Sequence[VerifyItem], idxs: Sequence[int]):
@@ -381,6 +416,54 @@ class CudaProvider(prov.Provider):
                             r_sign[gsel], s[:, gsel], k[:, gsel]])
         return out
 
+    def _per_device_slots(self, kind: str, n: int) -> list:
+        """[(device label, real, slots)] of one launch of n items: the
+        provider's device, or under a mesh each device's shards
+        (`mesh.shard_bounds`; an empty shard launches nothing)."""
+        if self.mesh is None:
+            return [(str(with_index(self.device)), n,
+                     grid_slots(kind, n, self.device))]
+        per = {}
+        for (lo, hi), dev in zip(meshmod.shard_bounds(n, len(self.mesh)),
+                                 self.mesh.devices):
+            if hi > lo:
+                r, sl = per.get(str(dev), (0, 0))
+                per[str(dev)] = (r + hi - lo, sl + grid_slots(kind, hi - lo,
+                                                             dev))
+        return [(dev, r, sl) for dev, (r, sl) in per.items()]
+
+    def _observe_lane(self, kind: str, n: int) -> None:
+        """Per-launch batching-economics telemetry (the reference's
+        `_observe_lane`): lane fill fraction and slots carrying no item,
+        per device.  Guarded: observability must never break the dispatch
+        hot path."""
+        try:
+            from ..ops_plane import registry
+            lane = LANE_LABELS[kind]
+            per_device = self._per_device_slots(kind, n)
+            slots = sum(sl for _, _, sl in per_device)
+            fill_g = registry.gauge(
+                "provider_lane_fill_fraction",
+                "real signatures / padded device slots, last dispatch")
+            pad_c = registry.counter(
+                "provider_pad_slots_total",
+                "padded device slots carrying no real signature")
+            slot_c = registry.counter(
+                "provider_lane_slots_total",
+                "device slots dispatched (real + pad)")
+            for dev, r_d, s_d in per_device:
+                fill_g.set((r_d / s_d) if s_d else 1.0,
+                           lane=lane, device=dev)
+                pad_c.add(float(s_d - r_d), lane=lane, device=dev)
+                slot_c.add(float(s_d), lane=lane, device=dev)
+            registry.histogram(
+                "provider_lane_fill",
+                "per-dispatch lane fill fraction",
+                buckets=_FILL_BUCKETS).observe(
+                    (n / slots) if slots else 1.0, lane=lane)
+        except Exception:
+            pass
+
     def _upload(self, arrays, lo, hi):
         """Columns lo:hi of each host array (the last axis indexes the
         signatures) -> tensors on the device (under a mesh, host tensors:
@@ -393,10 +476,11 @@ class CudaProvider(prov.Provider):
                      for w in words]
         return words
 
-    def _launch_lane(self, lane, launch, pending) -> None:
-        """Upload and launch one lane in chunks of at most MAX_CHUNK
-        signatures.  lane: (keep, arrays) or, for a fixed-key lane,
-        (keep, arrays, slot); launch(*words[, slot]) -> (B,) bool."""
+    def _launch_lane(self, kind, lane, launch, pending) -> None:
+        """Upload and launch one lane (`kind`, a key of GRID_ITEMS) in
+        chunks of at most MAX_CHUNK signatures.  lane: (keep, arrays) or,
+        for a fixed-key lane, (keep, arrays, slot); launch(*words[, slot])
+        -> (B,) bool."""
         keep, arrays = lane[0], lane[1]
         slot = lane[2] if len(lane) > 2 else None
         for lo in range(0, len(keep), MAX_CHUNK):
@@ -409,11 +493,13 @@ class CudaProvider(prov.Provider):
             out = launch(*args)
             self.stats["dispatches"] += 1
             self.stats["device_sigs"] += hi - lo
+            self._observe_lane(kind, hi - lo)
             pending.append((keep[lo:hi], out))
 
-    def _run_lanes(self, batch, bank, fast, generic, pending) -> None:
-        """Launch a host pass's two lanes: fast(*words, slot, bank) for
-        the fixed-key lane, generic(*words) for the other; bank is the
+    def _run_lanes(self, kind, batch, bank, fast, generic, pending) -> None:
+        """Launch a host pass's two lanes (`kind`, "p256" or "ed25519"):
+        fast(*words, slot, bank) for the fixed-key lane, generic(*words)
+        for the other; bank is the
         bank's tensor, or under a mesh its {device: replica} map.  The
         batch's bank pins are released once the fixed-key launches are
         enqueued (on the current stream, or on the mesh's shard streams),
@@ -425,25 +511,25 @@ class CudaProvider(prov.Provider):
         try:
             if batch.fast is not None:
                 arr = bank.array() if self.mesh is None else bank.replicas()
-                self._launch_lane(batch.fast, lambda *a: fast(*a, arr),
-                                  pending)
+                self._launch_lane(kind + "-rows", batch.fast,
+                                  lambda *a: fast(*a, arr), pending)
         finally:
             bank.unpin(batch.pinned, streams)
         if batch.generic is not None:
-            self._launch_lane(batch.generic, generic, pending)
+            self._launch_lane(kind, batch.generic, generic, pending)
 
     def _verify_p256(self, items, idxs, pending) -> None:
         batch = self.pass_p256(items, idxs)
         if self.mesh is not None:
             rows, gen = self._sharded["p256-rows"], self._sharded["p256"]
             self._run_lanes(
-                batch, self.key_tables,
+                "p256", batch, self.key_tables,
                 lambda *a: rows(*a, self._g_tables)[0],
                 lambda *w: gen(*w, self._g_tables)[0], pending)
             return
         low_s = self.require_low_s
         self._run_lanes(
-            batch, self.key_tables,
+            "p256", batch, self.key_tables,
             lambda r, s, e, slot, bank: p256_fixed.p256_verify_rows(
                 r, s, e, slot, bank, self._g_table, require_low_s=low_s),
             lambda *w: p256mod.p256_verify(*w, self._g_table,
@@ -455,12 +541,12 @@ class CudaProvider(prov.Provider):
             rows = self._sharded["ed25519-rows"]
             gen = self._sharded["ed25519"]
             self._run_lanes(
-                batch, self.ed_key_tables,
+                "ed25519", batch, self.ed_key_tables,
                 lambda *a: rows(*a, self._b_tables)[0],
                 lambda *w: gen(*w, self._b_tables)[0], pending)
             return
         self._run_lanes(
-            batch, self.ed_key_tables,
+            "ed25519", batch, self.ed_key_tables,
             lambda ry, r_sign, s, k, slot, bank: ed25519.ed25519_verify_rows(
                 ry, r_sign, s, k, slot, bank, self._b_table),
             lambda *w: ed25519.ed25519_verify(*w, self._b_table), pending)
@@ -525,6 +611,7 @@ class CudaProvider(prov.Provider):
             out = check(flags, lines, slot, *args)
             self.stats["dispatches"] += 1
             self.stats["device_sigs"] += hi - lo
+            self._observe_lane("idemix-pair", hi - lo)
             pending.append((keep[lo:hi], out))
 
     def idemix_pair_probe(self, batch: int):
@@ -557,35 +644,108 @@ class CudaProvider(prov.Provider):
                 dict(self._idemix_line_reps))
 
     def batch_verify_async(self, items: Sequence[VerifyItem]):
-        """Enqueue the device work and return resolve() -> bool[N]."""
+        """Enqueue the device work and return resolve() -> bool[N].
+
+        One `bccsp.batch_verify` span a call, started at enqueue on the
+        caller's trace and ended by whichever thread resolves it, with
+        the reference's attributes; a failure at enqueue or at resolve
+        ends it as an error and raises."""
+        from ..ops_plane import tracing
         items = list(items)
         verdicts = np.zeros(len(items), dtype=bool)
+        span = tracing.tracer.start_span(
+            "bccsp.batch_verify", require_parent=True,
+            attributes={"provider": self.name, "batch_size": len(items)})
+        snap0 = self.stats_snapshot() if span.recording else None
         by_scheme = {}
         for i, it in enumerate(items):
             by_scheme.setdefault(it.scheme, []).append(i)
         pending = []
-        for scheme, idxs in by_scheme.items():
-            if scheme == SCHEME_P256:
-                self._verify_p256(items, idxs, pending)
-            elif scheme == SCHEME_ED25519:
-                self._verify_ed25519(items, idxs, pending)
-            elif scheme == SCHEME_IDEMIX:
-                self._verify_idemix(items, idxs, pending)
-            else:
-                self.stats["host_rejects"] += len(idxs)
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+        try:
+            for scheme, idxs in by_scheme.items():
+                if scheme == SCHEME_P256:
+                    self._verify_p256(items, idxs, pending)
+                elif scheme == SCHEME_ED25519:
+                    self._verify_ed25519(items, idxs, pending)
+                elif scheme == SCHEME_IDEMIX:
+                    self._verify_idemix(items, idxs, pending)
+                else:
+                    self.stats["host_rejects"] += len(idxs)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        except BaseException as exc:
+            span.set_attribute("error", repr(exc))
+            span.end(status="ERROR")
+            raise
+        self._queue_depth_add(len(pending))
 
         def resolve():
-            if done is not None:
-                done.synchronize()
-            for keep, out in pending:
-                verdicts[np.asarray(keep)] = out.cpu().numpy()
+            import time as _time
+            t0 = _time.perf_counter()
+            try:
+                if done is not None:
+                    done.synchronize()
+                for keep, out in pending:
+                    verdicts[np.asarray(keep)] = out.cpu().numpy()
+            except BaseException as exc:
+                self._queue_depth_add(-len(pending))
+                span.set_attribute("error", repr(exc))
+                span.end(status="ERROR")
+                raise
+            wall = _time.perf_counter() - t0
+            self._queue_depth_add(-len(pending))
+            if span.recording:
+                snap1 = self.stats_snapshot()
+                span.set_attribute("block_until_ready_s", round(wall, 6))
+                span.set_attribute(
+                    "dispatches", snap1.dispatches - snap0.dispatches)
+                span.set_attribute(
+                    "device_sigs", snap1.device_sigs - snap0.device_sigs)
+                span.set_attribute(
+                    "fast_key_sigs",
+                    snap1.fast_key_sigs - snap0.fast_key_sigs)
+                span.set_attribute(
+                    "table_builds",
+                    (snap1.p256_table_builds - snap0.p256_table_builds)
+                    + (snap1.ed25519_table_builds
+                       - snap0.ed25519_table_builds))
+                span.end()
+            try:
+                # the always-on device-phase numbers (torch.profiler is
+                # the deep view): resolve wall time ~= the device tail
+                # not hidden by overlap
+                from ..ops_plane import registry
+                registry.histogram(
+                    "provider_resolve_seconds",
+                    "batch_verify device resolve wait").observe(wall)
+                registry.gauge(
+                    "provider_device_sync_seconds",
+                    "last batch_verify device-sync (resolve) wait"
+                    ).set(wall)
+                registry.counter(
+                    "provider_device_sigs_total",
+                    "signatures resolved on device").add(len(items))
+            except Exception:
+                pass
             return verdicts
 
         return resolve
+
+    @staticmethod
+    def _queue_depth_add(n: int) -> None:
+        """Launches enqueued and not yet resolved (the placement's demand
+        sample reads this gauge).  Guarded like every observer."""
+        if not n:
+            return
+        try:
+            from ..ops_plane import registry
+            registry.gauge("provider_dispatch_queue_depth",
+                           "device dispatches enqueued, not yet resolved"
+                           ).add(float(n))
+        except Exception:
+            pass
 
     def batch_verify(self, items: Sequence[VerifyItem]) -> np.ndarray:
         return self.batch_verify_async(items)()

@@ -79,10 +79,25 @@ class Provider:
         Device providers override this to enqueue the work and return
         at once, so the caller can overlap host work with the device.
         The default is lazy-but-correct: the work happens at resolve()."""
+        from fabric_tpu_torch.ops_plane import tracing
         items = list(items)
+        span = tracing.tracer.start_span(
+            "bccsp.batch_verify", require_parent=True,
+            attributes={"provider": self.name, "batch_size": len(items)})
 
         def resolve():
-            return self.batch_verify(items)
+            import time as _t
+            t0 = _t.perf_counter()
+            try:
+                out = self.batch_verify(items)
+            except BaseException as exc:
+                span.set_attribute("error", repr(exc))
+                span.end(status="ERROR")
+                raise
+            span.set_attribute("block_until_ready_s",
+                               round(_t.perf_counter() - t0, 6))
+            span.end()
+            return out
 
         return resolve
 

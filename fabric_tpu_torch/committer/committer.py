@@ -8,9 +8,8 @@ Counterpart of `fabric_tpu/committer/committer.py`: `store_block` with
 the idempotent-replay check, validation, commit-time config-block
 application (`bundle_source`, `provider`, `confighistory`; the
 `_precommit` / `_postcommit` split), the commit listeners, and the
-cross-block pipeline over a windowed ledger (`PipelinedCommitter`).
-Not ported yet: the ops-plane structured logs, spans and metrics, each
-marked where the reference emits it.
+cross-block pipeline over a windowed ledger (`PipelinedCommitter`), with
+the reference's structured logs, spans and metrics.
 """
 
 from __future__ import annotations
@@ -23,9 +22,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 from fabric_tpu_torch.ledger import KVLedger
+from fabric_tpu_torch.ops_plane import tracing
+from fabric_tpu_torch.ops_plane.logging import jlog
 from fabric_tpu_torch.protocol import Block, block_header_hash
 from fabric_tpu_torch.protocol.txflags import TxFlags, ValidationCode
 from fabric_tpu_torch.protocol.types import META_TXFLAGS
+from fabric_tpu_torch.protocol.wire import n_txs
 
 from .txvalidator import TxValidator, ValidationResult
 
@@ -68,6 +70,27 @@ class Committer:
         boundary), so the config tx itself is validated under the previous
         configuration — matching configtx/validator.go sequencing.
         """
+        # root of the block-domain trace: everything downstream (VSCC
+        # batch verify, MVCC, ledger append, commit notification) hangs
+        # off this span
+        with tracing.tracer.start_span(
+                "committer.store_block",
+                attributes={"channel": self.validator.channel_id,
+                            "block": int(block.header.number),
+                            "txs": n_txs(block)}) as span:
+            result = self._store_block_inner(block)
+            if span.recording:
+                span.set_attribute("valid",
+                                   result.final_flags.valid_count())
+                sched = getattr(self.ledger, "_commit_scheduler", None)
+                if sched is not None:
+                    span.set_attribute("mvcc_waves", sched.last_waves)
+                    span.set_attribute("mvcc_edges", sched.last_edges)
+                    span.set_attribute("mvcc_max_wave_width",
+                                       sched.last_max_width)
+            return result
+
+    def _store_block_inner(self, block: Block) -> BlockCommitResult:
         pre = self._precommit(block)
         if isinstance(pre, BlockCommitResult):
             return pre
@@ -169,29 +192,39 @@ class Committer:
                     except ConfigError as exc:
                         err = exc
                 if err is not None:
-                    # the reference also emits a structured log record
-                    # (committer.config_tx_invalid) here
                     logger.warning(
                         "config tx in block %d invalid at commit: %s",
                         block.header.number, err)
+                    jlog(logger, "committer.config_tx_invalid",
+                         level=logging.WARNING, exc=err,
+                         channel=self.validator.channel_id,
+                         block=int(block.header.number))
                     flags.set(0, ValidationCode.INVALID_CONFIG_TRANSACTION)
                     block.metadata.items[META_TXFLAGS] = flags.to_bytes()
         return vr, new_cfg
 
     def _postcommit(self, block: Block, vr, stats, new_cfg,
                     t_commit: float) -> BlockCommitResult:
-        """Everything AFTER the ledger commit: commit listeners and (for
-        a valid config tx) the channel bundle application.  (The
-        reference also records the commit's phase spans and metrics
-        here.)"""
+        """Everything AFTER the ledger commit: phase spans, metrics,
+        commit listeners, and (for a valid config tx) the channel bundle
+        application.  Runs on the retire thread under the pipeline."""
         commit_s = time.perf_counter() - t_commit
+        self._record_phase_spans(t_commit, stats)
         final = TxFlags.from_bytes(block.metadata.items[META_TXFLAGS])
-        for fn in self._commit_listeners:
-            try:
-                fn(block, final)
-            except Exception:
-                logger.exception("commit listener failed for block %d",
-                                 block.header.number)
+        self._observe_metrics(block, vr, stats)
+        with tracing.tracer.start_span(
+                "committer.notify", require_parent=True,
+                attributes={"listeners": len(self._commit_listeners)}):
+            for fn in self._commit_listeners:
+                try:
+                    fn(block, final)
+                except Exception as exc:
+                    logger.exception("commit listener failed for block %d",
+                                     block.header.number)
+                    jlog(logger, "committer.listener_failed",
+                         level=logging.ERROR, exc=exc,
+                         channel=self.validator.channel_id,
+                         block=int(block.header.number))
         if new_cfg is not None and final.is_valid(0):
             try:
                 from fabric_tpu_torch.config import Bundle
@@ -223,10 +256,78 @@ class Committer:
             raise ValueError(
                 f"replayed block {num} does not match the committed "
                 f"block (divergent header hash)")
-        logger.info("[%s] replayed block %d acknowledged (height %d)",
-                    self.validator.channel_id, num, self.ledger.height)
+        jlog(logger, "committer.replayed_block",
+             channel=self.validator.channel_id, block=num,
+             height=self.ledger.height)
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            registry.counter(
+                "committer_replayed_blocks_total",
+                "duplicate blocks acknowledged idempotently").add(
+                    1, channel=self.validator.channel_id)
+        except Exception:
+            pass
+        tracing.event("committer.replay", block=num)
         final = TxFlags.from_bytes(stored.metadata.items[META_TXFLAGS])
         return BlockCommitResult(None, None, final)
+
+    @staticmethod
+    def _record_phase_spans(t0: float, stats) -> None:
+        """Retroactive child spans for the sequential ledger commit
+        phases, laid end-to-end from the commit start using the wall
+        times CommitStats already measured (kvledger.commit)."""
+        base = t0
+        for attr, name in (("state_validation_s", "ledger.mvcc"),
+                           ("block_commit_s", "ledger.block_commit"),
+                           ("state_commit_s", "ledger.state_commit"),
+                           ("history_commit_s", "ledger.history_commit")):
+            dur = getattr(stats, attr, None)
+            if dur is None:
+                continue
+            tracing.tracer.record_span(name, base, base + dur)
+            base += dur
+
+    def _observe_metrics(self, block, vr, stats) -> None:
+        """Per-phase commit metrics (metric parity: the reference's
+        ledger_block_processing_time / gossip state commit duration and
+        validation duration, kv_ledger.go:491-499, validator.go:262)."""
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            ch = self.validator.channel_id
+            registry.histogram(
+                "validation_duration_seconds",
+                "txvalidator.Validate wall time").observe(
+                    vr.total_s, channel=ch)
+            registry.histogram(
+                "validation_dispatch_seconds",
+                "batched signature dispatch time").observe(
+                    vr.dispatch_s, channel=ch)
+            commit_s = 0.0
+            for phase in ("state_validation_s", "block_commit_s",
+                          "state_commit_s", "history_commit_s"):
+                v = getattr(stats, phase, None)
+                if v is not None:
+                    commit_s += v
+                    registry.histogram(
+                        "commit_phase_seconds",
+                        "per-phase ledger commit time").observe(
+                            v, channel=ch, phase=phase[:-2])
+            # the "commit" stage of the validator_stage_seconds family
+            # (collect/dispatch/gate land in txvalidator._observe_block)
+            registry.histogram(
+                "validator_stage_seconds",
+                "per-block validation stage latency",
+                buckets=self.validator._STAGE_BUCKETS).observe(
+                    commit_s, stage="commit", channel=ch)
+            registry.counter(
+                "committed_blocks_total", "blocks committed").add(1, channel=ch)
+            registry.counter(
+                "committed_txs_total", "txs committed").add(
+                    n_txs(block), channel=ch)
+            registry.gauge("ledger_height", "block height").set(
+                self.ledger.height, channel=ch)
+        except Exception:
+            logger.exception("metrics observation failed")
 
     @property
     def height(self) -> int:
@@ -343,8 +444,9 @@ class PipelinedCommitter:
 
     def _break(self, exc: BaseException, fut: "_CommitFuture") -> None:
         logger.exception("commit pipeline broken at block %d", fut.block_num)
-        # the reference also emits a structured log record
-        # (committer.pipeline_broken) here
+        jlog(logger, "committer.pipeline_broken", level=logging.ERROR,
+             exc=exc, channel=self.committer.validator.channel_id,
+             block=fut.block_num)
         with self._lock:
             self._broken = exc
         fut._fail(exc)
@@ -362,7 +464,14 @@ class PipelinedCommitter:
             with self._idle:
                 self._inflight -= 1
                 self._idle.notify_all()
-        # the reference adds one to commit_pipeline_breaks_total here
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            registry.counter(
+                "commit_pipeline_breaks_total",
+                "commit pipeline aborts (window dropped, redeliver)").add(
+                    1, channel=self.committer.validator.channel_id)
+        except Exception:
+            pass
         logger.warning("aborted commit window (%d blocks dropped)", dropped)
 
     # -- lifecycle ----------------------------------------------------------

@@ -39,8 +39,10 @@ device-validated block therefore issues exactly one dispatch
 Counterpart of `fabric_tpu/committer/device_validate.py`, with the same
 `run`/`take_prepared` contract, demotion reasons and host helpers
 (`_build_gate`, `_gather_committed`, `_rebuild`, copied).  Differences:
-the reference's jitted program becomes one KV7 launch; the counters
-live in `stats` under the reference's names (no ops plane); there is no
+the reference's jitted program becomes one KV7 launch; the counters go
+to the process-wide registry under the reference's names and labels, as
+the reference's do, and each validator also keeps its own in `stats`
+(the tests' and `chip_smoke.py`'s per-stack counts); there is no
 mesh, no power-of-two padding and no program cache; `device` is a torch
 device (`device.py`: CUDA unless the caller names the CPU, where the
 plain version of KV7 runs).  And an error from KV7's build, launch or
@@ -90,6 +92,26 @@ def _i32(col: np.ndarray) -> np.ndarray:
     return col.astype(np.int64).astype(np.int32)
 
 
+def _note(kind: tuple, n: int = 1, **labels) -> None:
+    try:
+        from fabric_tpu_torch.ops_plane import registry
+        registry.counter(*kind).add(n, **labels)
+    except Exception:
+        pass
+
+
+_C_DISPATCH = ("validator_device_dispatches_total",
+               "fused gate+MVCC device dispatches (one per "
+               "device-validated block)")
+_C_BLOCKS = ("validator_device_blocks_total",
+             "blocks fully validated by the fused device program")
+_C_DEMOTE = ("validator_device_demotions_total",
+             "blocks demoted to the host validation path, by reason")
+_C_STASH_MISS = ("validator_device_stash_misses_total",
+                 "prepared-batch stash lookups that missed (flags or "
+                 "savepoint changed between validate and commit)")
+
+
 class DeviceValidator:
     """Per-channel fused gate+MVCC validator.
 
@@ -123,6 +145,7 @@ class DeviceValidator:
     def _demoted(self, reason: str) -> None:
         with self._lock:
             self.stats["validator_device_demotions_total"][reason] += 1
+        _note(_C_DEMOTE, channel=self.channel_id, reason=reason)
 
     # -- lane extraction ----------------------------------------------------
 
@@ -190,6 +213,7 @@ class DeviceValidator:
         if bytes(flags_bytes) != gate_bytes or savepoint != sp:
             with self._lock:
                 self.stats["validator_device_stash_misses_total"] += 1
+            _note(_C_STASH_MISS, channel=self.channel_id)
             return None
         return final_bytes, batch, history
 
@@ -275,6 +299,7 @@ class DeviceValidator:
             while len(self._stash) > self._STASH_CAP:
                 self._stash.pop(min(self._stash))
             self.stats["validator_device_blocks_total"] += 1
+        _note(_C_BLOCKS, channel=self.channel_id)
         return TxFlags.from_bytes(gate_bytes)
 
     # -- gate plan -> truth tables ------------------------------------------
@@ -374,6 +399,7 @@ class DeviceValidator:
         bytes, final codes).  Errors propagate (no demotion)."""
         with self._lock:
             self.stats["validator_device_dispatches_total"] += 1
+        _note(_C_DISPATCH, channel=self.channel_id)
         gate, final = kv7.block_validate(lanes, num, self.device,
                                          self.last_timings)
         return bytes(gate), final

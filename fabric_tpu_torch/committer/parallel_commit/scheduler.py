@@ -24,12 +24,7 @@ StateDB reads (lock-guarded); TxFlags is written by the coordinating
 thread only.
 
 Counterpart of `fabric_tpu/committer/parallel_commit/scheduler.py`,
-whole but for its ops-plane hooks (the `mvcc.graph`, `mvcc.wave` and
-`mvcc.window.admit` spans, the `commit_workers_effective` gauge, the
-`commit_serial_fallbacks_total` counter, `_observe` and
-`_observe_admit`), which wait for the port's ops plane; each call site
-is marked.  The counts and times the scheduler and the window keep for
-themselves stay, and `stats()` reads them.
+copied with its ops-plane hooks.
 """
 
 from __future__ import annotations
@@ -55,6 +50,9 @@ from fabric_tpu_torch.ledger.statedb import StateDB, UpdateBatch
 from .graph import ConflictGraph, PendingOverlay, footprint_of
 
 _HOST_CORES = os.cpu_count() or 1
+
+_WIDTH_BUCKETS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0,
+                  1024.0, float("inf"))
 
 
 def _parse_still_valid(envelopes, flags: TxFlags
@@ -125,7 +123,6 @@ class ParallelCommitScheduler:
         self.serial_fallback = bool(serial_fallback)
         self.host_cores = int(host_cores) if host_cores else _HOST_CORES
         self.serial_fallbacks = 0
-        self.fallback_reasons: Dict[str, int] = {}
         # rolling window of per-block max wave widths (the demand signal)
         self._widths: deque = deque(maxlen=max(1, int(width_window)))
         self._pool: Optional[ThreadPoolExecutor] = None
@@ -155,7 +152,14 @@ class ParallelCommitScheduler:
                 max_workers=workers,
                 thread_name_prefix=f"mvcc-{self.channel_id}")
             self._pool_size = workers
-            # the reference sets the commit_workers_effective gauge here
+            try:
+                from fabric_tpu_torch.ops_plane import registry
+                registry.gauge(
+                    "commit_workers_effective",
+                    "adaptive MVCC pool size (cap: commit_workers)").set(
+                        workers, channel=self.channel_id)
+            except Exception:
+                pass
         return self._pool
 
     def close(self) -> None:
@@ -166,21 +170,15 @@ class ParallelCommitScheduler:
 
     def _note_serial_fallback(self, reason: str) -> None:
         self.serial_fallbacks += 1
-        self.fallback_reasons[reason] = (
-            self.fallback_reasons.get(reason, 0) + 1)
-        # the reference adds one to commit_serial_fallbacks_total{reason}
-
-    def stats(self) -> dict:
-        """The scheduler's own counts: fallbacks by reason, the pool
-        provisioned, the last block's graph and the rolling widths."""
-        return {"serial_fallbacks": self.serial_fallbacks,
-                "fallback_reasons": dict(self.fallback_reasons),
-                "max_workers": self.max_workers,
-                "workers": self._pool_size,
-                "last_waves": self.last_waves,
-                "last_edges": self.last_edges,
-                "last_max_width": self.last_max_width,
-                "widths": list(self._widths)}
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            registry.counter(
+                "commit_serial_fallbacks_total",
+                "blocks MVCC-validated on the serial path because the "
+                "wave machinery could not pay off, by reason").add(
+                    1, reason=reason, channel=self.channel_id)
+        except Exception:
+            pass
 
     def _serial(self, db: StateDB, block_num: int, envelopes,
                 flags: TxFlags, reason: str):
@@ -199,6 +197,8 @@ class ParallelCommitScheduler:
     def validate_and_prepare_batch(
             self, db: StateDB, block_num: int, envelopes, flags: TxFlags,
     ) -> Tuple[UpdateBatch, List[Tuple[int, str, str, str, bytes, bool]]]:
+        from fabric_tpu_torch.ops_plane import tracing
+
         if self.serial_fallback and self.host_cores <= 1:
             # a 1-core host can never validate two txs concurrently:
             # graph building + pool map are pure overhead (BENCH_r12's
@@ -209,10 +209,16 @@ class ParallelCommitScheduler:
         # pass 0: parse still-valid txs once (oracle's lazy-parse parity)
         parsed = _parse_still_valid(envelopes, flags)
 
+        t0 = time.perf_counter()
         graph = ConflictGraph(
             [footprint_of(tx_num, rwset)
              for tx_num, _txid, rwset, _w in parsed])
-        # the reference records an mvcc.graph span here
+        t1 = time.perf_counter()
+        tracing.tracer.record_span(
+            "mvcc.graph", t0, t1,
+            attributes={"block": int(block_num), "txs": len(parsed),
+                        "edges": graph.n_edges,
+                        "waves": len(graph.waves)})
 
         by_tx = {tx_num: (txid, rwset, writes)
                  for tx_num, txid, rwset, writes in parsed}
@@ -228,6 +234,7 @@ class ParallelCommitScheduler:
             # operators can see how often the graph pays for nothing
             self._note_serial_fallback("narrow")
         for wave in graph.waves:
+            tw = time.perf_counter()
             if pool is not None and len(wave) > 1:
                 codes = list(pool.map(
                     lambda tx: _validate_tx(db, working, by_tx[tx][1]),
@@ -248,7 +255,9 @@ class ParallelCommitScheduler:
                         working.delete(ns, key, version)
                     else:
                         working.put(ns, key, value, version)
-            # the reference records an mvcc.wave span here
+            tracing.tracer.record_span(
+                "mvcc.wave", tw, time.perf_counter(),
+                attributes={"block": int(block_num), "width": len(wave)})
 
         # final batch + history rebuilt in strict tx order: literal
         # (insertion-order included) identity with the serial oracle
@@ -268,11 +277,32 @@ class ParallelCommitScheduler:
         self.last_waves = len(graph.waves)
         self.last_edges = graph.n_edges
         self.last_max_width = graph.max_wave_width
-        # the reference's _observe(graph) feeds the commit_graph_* series
+        self._observe(graph)
         # pre-split the batch by state shard here, off the ledger's
         # commit lock path — apply_updates consumes the cached split
         batch.preshard(getattr(db, "n_shards", 1))
         return batch, history
+
+    def _observe(self, graph: ConflictGraph) -> None:
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            ch = self.channel_id
+            edges = registry.counter(
+                "commit_graph_edges_total",
+                "MVCC conflict-graph edges by kind")
+            for kind, n in graph.edge_counts.items():
+                if n:
+                    edges.add(n, kind=kind, channel=ch)
+            registry.counter(
+                "commit_graph_waves_total",
+                "MVCC wavefront count").add(len(graph.waves), channel=ch)
+            width = registry.histogram(
+                "commit_graph_wave_width",
+                "txs per MVCC validation wave", buckets=_WIDTH_BUCKETS)
+            for wave in graph.waves:
+                width.observe(float(len(wave)), channel=ch)
+        except Exception:
+            pass
 
 
 # -- the cross-block commit window (admit / validate / promote / retire) ----
@@ -376,6 +406,7 @@ class CommitWindow:
 
     def admit(self, db: StateDB, block_num: int, header_hash: bytes,
               envelopes, flags: TxFlags) -> WindowEntry:
+        from fabric_tpu_torch.ops_plane import tracing
         parsed = _parse_still_valid(envelopes, flags)
         overlay = self.pending_overlay()
         t0 = time.perf_counter()
@@ -405,8 +436,13 @@ class CommitWindow:
             self.validate_overlap_s += self._overlapped_locked(t0, t1)
             self.early_txs += entry.early_n
             self.deferred_txs += entry.deferred_n
-        # the reference records an mvcc.window.admit span and feeds the
-        # commit_window_* series here (_observe_admit)
+        tracing.tracer.record_span(
+            "mvcc.window.admit", t0, t1,
+            attributes={"block": int(block_num), "txs": len(parsed),
+                        "early": entry.early_n,
+                        "deferred": entry.deferred_n,
+                        "window_depth": self.depth()})
+        self._observe_admit(graph, entry)
         return entry
 
     # -- promote + retire (commit_finish) ----------------------------------
@@ -519,3 +555,38 @@ class CommitWindow:
                     1.0, self.validate_overlap_s / busy), 4)
                     if busy > 0 else 0.0),
             }
+
+    def _observe_admit(self, graph: ConflictGraph,
+                       entry: WindowEntry) -> None:
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            ch = self.channel_id
+            edges = registry.counter(
+                "commit_graph_edges_total",
+                "MVCC conflict-graph edges by kind")
+            for kind, n in graph.xblock_counts.items():
+                if n:
+                    edges.add(n, kind=kind, channel=ch)
+            registry.counter(
+                "commit_window_admitted_total",
+                "blocks admitted to the pipelined commit window").add(
+                    1, channel=ch)
+            registry.counter(
+                "commit_window_txs_total",
+                "window txs by validation timing").add(
+                    entry.early_n, timing="early", channel=ch)
+            registry.counter(
+                "commit_window_txs_total",
+                "window txs by validation timing").add(
+                    entry.deferred_n, timing="deferred", channel=ch)
+            registry.gauge(
+                "commit_window_depth",
+                "in-flight blocks in the commit window").set(
+                    self.depth(), channel=ch)
+            registry.gauge(
+                "commit_window_overlap_frac",
+                "fraction of window validation wall time overlapped "
+                "with a predecessor's apply").set(
+                    self.overlap_frac(), channel=ch)
+        except Exception:
+            pass

@@ -29,13 +29,14 @@ Restructured in three passes over the whole block:
 
 Counterpart of `fabric_tpu/committer/txvalidator.py`: both tails, SBE,
 the verify-once cache, per-channel provider resolution
-(`provider_source`), early abort, sub-block dispatch chunks and the
-config-bundle source.  Not ported yet: the ops-plane spans, histograms
-and gauges (`_PipelineEconomics`, `validator.collect`/`dispatch_wait`/
-`gate` spans and their speculative links, `speculative_coverage_frac`,
-`validator_midwindow_blocks_total`, `commit_graph_early_aborts_total`);
-each call site says so.  `ValidationResult` keeps the reference's
-timings, `last_timings` splits pass 1.
+(`provider_source`), early abort, sub-block dispatch chunks, the
+config-bundle source and the ops-plane observers (the
+`validator.collect`, `dispatch_wait` and `gate` spans with their
+speculative links, `validator_stage_seconds`,
+`pipeline_collect_under_verify_frac`, `speculative_coverage_frac`,
+`validator_midwindow_blocks_total`, `commit_graph_early_aborts_total`).
+`ValidationResult` keeps the reference's timings, `last_timings` splits
+pass 1.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import numpy as np
 from fabric_tpu_torch import native
 from fabric_tpu_torch.bccsp import SCHEME_P256, VerifyItem
 from fabric_tpu_torch.msp import Identity
+from fabric_tpu_torch.ops_plane import tracing
 from fabric_tpu_torch.policy import PolicyEvaluator, SignaturePolicy
 from fabric_tpu_torch.protocol import Block
 from fabric_tpu_torch.protocol.txflags import TxFlags, ValidationCode
@@ -117,6 +119,69 @@ class ValidationResult:
     @property
     def total_s(self) -> float:
         return self.collect_s + self.dispatch_s + self.gate_s
+
+
+def _interval_union(ivals):
+    """Merge (start, end) intervals into a sorted disjoint union."""
+    out: List[List[float]] = []
+    for a, b in sorted(ivals):
+        if out and a <= out[-1][1]:
+            if b > out[-1][1]:
+                out[-1][1] = b
+        else:
+            out.append([a, b])
+    return out
+
+
+def _intersection_s(u1, u2) -> float:
+    i = j = 0
+    s = 0.0
+    while i < len(u1) and j < len(u2):
+        a = max(u1[i][0], u2[j][0])
+        b = min(u1[i][1], u2[j][1])
+        if b > a:
+            s += b - a
+        if u1[i][1] < u2[j][1]:
+            i += 1
+        else:
+            j += 1
+    return s
+
+
+class _PipelineEconomics:
+    """Live collect-under-verify overlap over a rolling block window, so
+    the SLO plane can watch the overlap floor without a bench run.
+    Collect intervals come from validate_begin, verify intervals span
+    device enqueue -> resolve return (the bccsp.batch_verify window).
+    All timestamps share perf_counter."""
+
+    WINDOW = 64            # blocks of history
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        from collections import deque
+        self._collect = deque(maxlen=self.WINDOW)
+        self._verify = deque(maxlen=self.WINDOW)
+
+    def note_collect(self, a: float, b: float) -> None:
+        if b > a:
+            with self._lock:
+                self._collect.append((a, b))
+
+    def note_verify(self, a: float, b: float) -> None:
+        if b > a:
+            with self._lock:
+                self._verify.append((a, b))
+
+    def frac(self) -> float:
+        with self._lock:
+            collect = list(self._collect)
+            verify = list(self._verify)
+        u_c = _interval_union(collect)
+        total = sum(b - a for a, b in u_c)
+        if total <= 0.0:
+            return 0.0
+        return min(1.0, _intersection_s(u_c, _interval_union(verify)) / total)
 
 
 def _eager(resolve):
@@ -214,6 +279,8 @@ class TxValidator:
         self.force_python_collect = False
         # wall seconds of pass 1's parts, last block begun
         self.last_timings: Dict[str, float] = {}
+        # live pipeline-economics window (overlap gauge for the SLO plane)
+        self._econ = _PipelineEconomics()
 
     @property
     def provider(self):
@@ -264,10 +331,8 @@ class TxValidator:
         pure optimization; the MVCC pass remains authoritative."""
         if self.early_abort is None:
             return None
-        # fetch the pending-window overlay ONCE here so dooming judges
-        # one frozen snapshot (the reference also counts
-        # validator_midwindow_blocks_total here when the overlay is not
-        # empty: no ops plane on the port yet)
+        # fetch the pending-window overlay ONCE here so dooming and the
+        # mid-window accounting below judge the same frozen snapshot
         overlay = None
         src = getattr(self.early_abort, "overlay_source", None)
         if src is not None:
@@ -275,12 +340,33 @@ class TxValidator:
                 overlay = src()
             except Exception:
                 overlay = None
+        if overlay is not None and not overlay.empty:
+            try:
+                from fabric_tpu_torch.ops_plane import registry
+                registry.counter(
+                    "validator_midwindow_blocks_total",
+                    "blocks validated while commit-window predecessors "
+                    "were still in flight").add(1, channel=self.channel_id)
+            except Exception:
+                pass
         try:
             doomed = self.early_abort.doomed(block, overlay=overlay)
         except Exception:
             logger.exception("early-abort analysis failed; skipping")
             return None
         return doomed or None
+
+    def _note_early_aborts(self, n: int) -> None:
+        if not n:
+            return
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            registry.counter(
+                "commit_graph_early_aborts_total",
+                "txs flagged MVCC_READ_CONFLICT before device dispatch"
+            ).add(n, channel=self.channel_id)
+        except Exception:
+            pass
 
     def _deserialize(self, ident_bytes: bytes) -> Optional[Identity]:
         from fabric_tpu_torch.msp import deserialize_from_msps
@@ -545,23 +631,52 @@ class TxValidator:
         return int(os.environ.get("FABRIC_TPU_VALIDATE_CHUNK",
                                   "1000000000"))
 
-    def _split(self, new: list):
+    def _split(self, new: list, links: set):
         """Verify-once partition of a flush's new items: (positions in
         `new` of the misses, hits as (position, verdict)).  Only
         MAC-verified fresh hits skip the device; a miss, a MAC failure
         or a stale epoch goes through the full dispatch.  The hits'
-        speculative trace ids are the reference's span links (no
-        tracing on the port yet)."""
+        speculative trace ids join `links`, the validator.collect span's
+        links to the speculative spans whose verdicts the block
+        consumed."""
         if self.verify_cache is None:
             return range(len(new)), []
         miss_pos, raw_hits = self.verify_cache.filter(new)
+        links.update(tr for _i, _v, tr in raw_hits if tr)
         return miss_pos, [(i, v) for i, v, _tr in raw_hits]
 
     def _dispatch(self, items: list):
         """One async dispatch of `items` on the provider resolved for
-        this flush's size -> the eager resolver."""
-        return _eager(self._resolve_provider(
-            len(items)).batch_verify_async(items))
+        this flush's size -> the eager resolver, which notes the verify
+        interval (enqueue -> resolve return) in the economics window."""
+        resolve = self._resolve_provider(len(items)).batch_verify_async(
+            items)
+        t_disp = time.perf_counter()
+        econ = self._econ
+
+        def timed():
+            out = resolve()
+            econ.note_verify(t_disp, time.perf_counter())
+            return out
+
+        return _eager(timed)
+
+    def _record_collect(self, t0: float, collect_s: float, num, n: int,
+                        n_unique: int, hit_n: int, miss_n: int,
+                        links: set) -> None:
+        """The validator.collect span of pass 1, and its interval in the
+        economics window."""
+        self._econ.note_collect(t0, t0 + collect_s)
+        attrs = {"block": int(num), "txs": n, "unique_items": n_unique}
+        if hit_n or miss_n:
+            attrs["cache_hits"] = hit_n
+            attrs["cache_misses"] = miss_n
+        if links:
+            # stitch the block trace to the speculative spans whose
+            # verdicts it consumed
+            attrs["links"] = sorted(links)[:8]
+        tracing.tracer.record_span(
+            "validator.collect", t0, t0 + collect_s, attributes=attrs)
 
     def _begin_inner(self, block: Block) -> dict:
         n = n_txs(block)
@@ -595,6 +710,7 @@ class TxValidator:
         resolvers: List[Tuple] = []
         flushed = 0
         hit_n = miss_n = 0
+        spec_links: set = set()
         chunk = self.overlap_chunk
 
         def flush():
@@ -604,7 +720,7 @@ class TxValidator:
             flushed = len(keys)
             if not new:
                 return
-            miss_pos, hits = self._split(new)
+            miss_pos, hits = self._split(new, spec_links)
             miss = [new[i] for i in miss_pos]
             hits = [(new[i], v) for i, v in hits]
             if self.verify_cache is not None:
@@ -626,22 +742,27 @@ class TxValidator:
             lambda t: any(t in s for s in carry)
             or self.ledger_has_txid(t)))
         memo: dict = {}
+        n_aborted = 0
         for tx_num, rec in enumerate(recs):
             work = self._collect_tx_fast(tx_num, rec, flags, seen_txids,
                                          items, memo, n_txs=n,
                                          has_txid=has_txid, doomed=doomed)
             if work is not None:
                 works.append(work)
+            elif doomed is not None and tx_num in doomed \
+                    and flags.flag(tx_num) in (
+                        ValidationCode.MVCC_READ_CONFLICT,
+                        ValidationCode.PHANTOM_READ_CONFLICT):
+                n_aborted += 1
             if (tx_num + 1) % chunk == 0:
                 flush()
         flush()
-        # the reference counts commit_graph_early_aborts_total here: no
-        # ops plane on the port yet
+        self._note_early_aborts(n_aborted)
         self._inflight_txids.append((num, seen_txids))
         t2 = time.perf_counter()
         collect_s = t2 - t0
-        # the reference records the validator.collect span here: no
-        # tracing on the port yet
+        self._record_collect(t0, collect_s, num, n, len(items), hit_n,
+                             miss_n, spec_links)
         self.last_timings = {"walk_s": t1 - t0, "tail_s": t2 - t1}
         return {"block": block, "flags": flags, "items": items,
                 "works": works, "resolvers": resolvers,
@@ -684,15 +805,16 @@ class TxValidator:
             # (dup txid etc.) wins, matching the classic tail's ordering.
             not_validated = int(ValidationCode.NOT_VALIDATED)
             kept = []
+            n_aborted = 0
             for w in works:
                 tx = w[0]
                 if tx in doomed and codes[tx] == not_validated:
                     codes[tx] = int(doomed[tx])
+                    n_aborted += 1
                 else:
                     kept.append(w)
             works = kept
-            # the reference counts commit_graph_early_aborts_total here:
-            # no ops plane on the port yet
+            self._note_early_aborts(n_aborted)
         t1 = time.perf_counter()
         # one MSP resolution per unique identity (the whole-block analogue
         # of the classic tail's (0,creator)/(1,endorser) memo dicts)
@@ -709,6 +831,7 @@ class TxValidator:
         n_refs = 0
         hit_n = miss_n = 0
         hit_fills: list = []       # (verdict position, cached verdict)
+        spec_links: set = set()
         assemble_s = 0.0
 
         def flush():
@@ -718,7 +841,7 @@ class TxValidator:
             base, flushed = flushed, len(keys)
             if not new:
                 return
-            miss_pos, hits = self._split(new)
+            miss_pos, hits = self._split(new, spec_links)
             miss = [new[i] for i in miss_pos]
             positions = [base + i for i in miss_pos]
             hit_fills.extend((base + i, v) for i, v in hits)
@@ -741,8 +864,8 @@ class TxValidator:
         self._inflight_txids.append((num, seen_txids))
         t4 = time.perf_counter()
         collect_s = t4 - t0
-        # the reference records the validator.collect span here: no
-        # tracing on the port yet
+        self._record_collect(t0, collect_s, num, n, len(index), hit_n,
+                             miss_n, spec_links)
         self.last_timings = {"digest_s": t1 - t0, "identities_s": t2 - t1,
                              "assemble_s": assemble_s,
                              "enqueue_s": t4 - t2 - assemble_s}
@@ -753,15 +876,57 @@ class TxValidator:
                 "cache_hits": hit_n, "cache_misses": miss_n,
                 "hit_fills": hit_fills}
 
+    # per-block stage SLIs + live overlap gauge (the SLO plane's inputs;
+    # the "commit" stage lands next door in committer._observe_metrics)
+    _STAGE_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                      1.0, 2.5, 5.0, 10.0, float("inf"))
+
+    def _observe_block(self, collect_s: float, dispatch_s: float,
+                       gate_s: float) -> None:
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            h = registry.histogram(
+                "validator_stage_seconds",
+                "per-block validation stage latency",
+                buckets=self._STAGE_BUCKETS)
+            ch = self.channel_id
+            h.observe(collect_s, stage="collect", channel=ch)
+            h.observe(dispatch_s, stage="dispatch", channel=ch)
+            h.observe(gate_s, stage="gate", channel=ch)
+            registry.gauge(
+                "pipeline_collect_under_verify_frac",
+                "live collect-under-verify overlap, rolling block window"
+            ).set(self._econ.frac(), channel=ch)
+        except Exception:
+            pass
+
     def _note_coverage(self, state: dict) -> None:
-        """Verify-once economics for one block: feed the cache's
-        rolling coverage window (the reference also publishes it as the
-        speculative_coverage_frac gauge: no ops plane on the port yet)."""
+        """Verify-once economics for one block: feed the rolling
+        coverage window and, on a node whose cache is speculatively
+        filled (the gateway host), publish speculative_coverage_frac —
+        the fraction of this window's unique verify items whose
+        verdicts were already cached when the block arrived."""
         cache = self.verify_cache
         if cache is None:
             return
         hits = state.get("cache_hits", 0)
         cache.coverage.note(hits, hits + state.get("cache_misses", 0))
+        if not cache.speculative_attached:
+            return
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            registry.gauge(
+                "speculative_coverage_frac",
+                "fraction of committed unique verify items whose "
+                "verdicts were cached before the block arrived "
+                "(rolling block window)"
+            ).set(cache.coverage.frac(), channel=self.channel_id,
+                  # the registry is process-global: multi-node test
+                  # topologies share it, so each node's coverage must be
+                  # its own series or the last committer wins the sample
+                  owner=getattr(cache, "owner", "node"))
+        except Exception:
+            pass
 
     def _finish_deep(self, state: dict) -> ValidationResult:
         block = state["block"]
@@ -783,6 +948,10 @@ class TxValidator:
                 np.asarray(out, dtype=bool)
         self._note_coverage(state)
         dispatch_s = time.perf_counter() - t0
+        tracing.tracer.record_span(
+            "validator.dispatch_wait", t0, t0 + dispatch_s,
+            attributes={"block": int(block.header.number),
+                        "unique_items": len(index)})
 
         t0 = time.perf_counter()
         flags = None
@@ -797,16 +966,20 @@ class TxValidator:
                               self.validation_plugin, self.evaluator, {})
             flags = TxFlags.from_bytes(bytes(codes))
         gate_s = time.perf_counter() - t0
+        tracing.tracer.record_span(
+            "validator.gate", t0, t0 + gate_s,
+            attributes={"block": int(block.header.number),
+                        "txs": len(state["plans"])})
         return self._stamp(block, flags, state, len(index), collect_s,
                            dispatch_s, gate_s, state["n_refs"])
 
     def _stamp(self, block, flags: TxFlags, state: dict, n_unique: int,
                collect_s: float, dispatch_s: float, gate_s: float,
                n_refs: int) -> ValidationResult:
-        """The gate's flags into the block's metadata -> the result.
-        (The reference records the dispatch_wait and gate spans and
-        the stage histograms here: no ops plane on the port yet.)"""
+        """The gate's flags into the block's metadata and the stage
+        histograms -> the result."""
         block.metadata.items[META_TXFLAGS] = flags.to_bytes()
+        self._observe_block(collect_s, dispatch_s, gate_s)
         logger.info(
             "[%s] validated block %d: %d/%d valid | collect=%.1fms "
             "dispatch=%.1fms (%d uniq sigs) gate=%.1fms",
@@ -840,6 +1013,10 @@ class TxValidator:
                 (k, bool(v)) for k, v in zip(chunk_keys, out))
         self._note_coverage(state)
         dispatch_s = time.perf_counter() - t0
+        tracing.tracer.record_span(
+            "validator.dispatch_wait", t0, t0 + dispatch_s,
+            attributes={"block": int(block.header.number),
+                        "unique_items": len(state["items"])})
 
         t0 = time.perf_counter()
         from fabric_tpu_torch.committer.sbe import SbeOverlay
@@ -858,6 +1035,10 @@ class TxValidator:
         for work in works:
             self._gate_tx(work, flags, verdict, overlay, plugin=plugin)
         gate_s = time.perf_counter() - t0
+        tracing.tracer.record_span(
+            "validator.gate", t0, t0 + gate_s,
+            attributes={"block": int(block.header.number),
+                        "txs": len(works)})
 
         n_refs = sum(1 + sum(len(s) for _, _, s in w.namespaces)
                      for w in works)

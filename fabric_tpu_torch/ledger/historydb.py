@@ -13,8 +13,8 @@ every open.  Rebuildable from the block store (rebuild_dbs.go parity is
 handled by kvledger).
 
 Counterpart of `fabric_tpu/ledger/historydb.py`, writing the
-reference's WAL records and checkpoint files byte for byte.  Left out:
-the tracing event of a checkpoint.
+reference's WAL records and checkpoint files byte for byte, with the
+reference's `history.checkpoint` tracing event.
 """
 
 from __future__ import annotations
@@ -184,6 +184,7 @@ class HistoryDB:
         return self._pool
 
     def _checkpoint_locked(self) -> dict:
+        t0 = time.monotonic()
         gen = self._ckpt_gen + 1
 
         def _encode_shard(i: int) -> bytes:
@@ -216,8 +217,13 @@ class HistoryDB:
         ckpt.gc_generations(self.root, {gen, gen - 1} | self._live_pins())
         self._ckpt_gen = gen
         self._blocks_since_ckpt = 0
-        # the reference records a tracing event here; the port has no
-        # ops plane yet
+        try:
+            from fabric_tpu_torch.ops_plane import tracing
+            tracing.event("history.checkpoint", channel=self.channel,
+                          gen=gen, savepoint=self._savepoint,
+                          seconds=round(time.monotonic() - t0, 6))
+        except Exception:
+            pass
         return manifest
 
     def _recover(self) -> None:

@@ -19,9 +19,8 @@ commit, the fused device validation's prepared-batch hand-off
 `snapshot_export`, a durable ledger under `LedgerConfig.root` with its
 recovery on open, and the admin operations.  The directory each writes
 is the reference's, byte for byte.  `LedgerConfig` takes every field
-the reference's does, with the same defaults.  Left out until the port
-has an ops plane: the observer of the apply sizes (`_observe_apply`),
-marked where the reference calls it.
+the reference's does, with the same defaults.  The apply sizes go to
+the ops plane as the reference's do (`_observe_apply`).
 """
 
 from __future__ import annotations
@@ -290,6 +289,22 @@ class KVLedger:
         return validate_and_prepare_batch(self.statedb, num,
                                           envelopes, flags)
 
+    _APPLY_BUCKETS = (1.0, 4.0, 16.0, 64.0, 256.0, 1024.0, 4096.0,
+                      16384.0, float("inf"))
+
+    def _observe_apply(self, n_state: int, n_history: int) -> None:
+        try:
+            from fabric_tpu_torch.ops_plane import registry
+            h = registry.histogram(
+                "commit_graph_apply_batch_size",
+                "coalesced per-block apply sizes (keys / history rows)",
+                buckets=self._APPLY_BUCKETS)
+            h.observe(float(n_state), db="state", channel=self.channel_id)
+            h.observe(float(n_history), db="history",
+                      channel=self.channel_id)
+        except Exception:
+            pass
+
 
     # -- commit (kv_ledger.go:425-508) -------------------------------------
 
@@ -363,8 +378,7 @@ class KVLedger:
             self.historydb.commit(block.header.number, history)
             stats.history_commit_s = time.perf_counter() - t0
 
-        # the reference observes the apply's batch sizes here
-        # (_observe_apply); the port has no ops plane yet
+        self._observe_apply(len(batch), len(history))
         self.last_stats = stats
         logger.info(
             "[%s] committed block %d: %d/%d valid | validation=%.1fms "
@@ -476,8 +490,7 @@ class KVLedger:
                 self._commit_window.apply_ended()
             self._commit_window.retire(entry)
 
-            # the reference observes the apply's batch sizes here
-            # (_observe_apply); the port has no ops plane yet
+            self._observe_apply(len(batch), len(history))
             self.last_stats = stats
             logger.info(
                 "[%s] committed block %d (windowed, %d early / %d "

@@ -39,14 +39,14 @@ Counterpart of `fabric_tpu/ledger/snapshot.py`: the serving side
 receiving side's `needs_bootstrap` and `install`.  Not ported yet: the
 fetch over comm/rpc (`_Fetcher`, `bootstrap_from_peers`,
 `_fetch_and_install`) and the verbs' names, which come with the port's
-peer; and the ops-plane events and counters, each marked where the
-reference emits it.
+peer.  The ops-plane events and counters are the reference's.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
+import time
 from typing import Dict, List, Optional, Tuple
 
 from fabric_tpu_torch.ledger import checkpoint as ckpt
@@ -110,6 +110,7 @@ def export_meta(ledger) -> dict:
     """Describe a servable snapshot (the state.snapshot_meta handler):
     reuse the newest complete on-disk checkpoint generation when one
     exists, force-checkpoint both derived DBs only when none does."""
+    t0 = time.monotonic()
     state_manifest, history_manifest = _reusable_manifests(ledger)
     if state_manifest is not None:
         try:
@@ -152,7 +153,13 @@ def export_meta(ledger) -> dict:
         "history_manifest": history_manifest,
         "files": files,
     }
-    # the reference emits a state.snapshot_export event here
+    try:
+        from fabric_tpu_torch.ops_plane import tracing
+        tracing.event("state.snapshot_export", channel=ledger.channel_id,
+                      height=savepoint + 1, files=len(files),
+                      seconds=round(time.monotonic() - t0, 6))
+    except Exception:
+        pass
     return meta
 
 
@@ -187,8 +194,17 @@ def serve_chunk(ledger, db: str, gen: int, file: str, offset: int) -> dict:
         # the generation may have been GC'd by later checkpoints; the
         # client re-fetches meta and restarts
         raise SnapshotError(f"snapshot file gone: {exc}") from None
-    # the reference counts state_snapshot_chunks_total and
-    # state_snapshot_bytes_total here
+    try:
+        from fabric_tpu_torch.ops_plane import registry
+        registry.counter("state_snapshot_chunks_total",
+                         "Snapshot chunks served").add(
+                             1, channel=ledger.channel_id, db=db)
+        registry.counter("state_snapshot_bytes_total",
+                         "Snapshot bytes served").add(
+                             float(len(data)), channel=ledger.channel_id,
+                             db=db)
+    except Exception:
+        pass
     return {"data": bytes(data), "eof": int(offset) + len(data) >= size,
             "size": size}
 
@@ -212,6 +228,7 @@ def install(ledger_root: str, channel_id: str, meta: dict,
             payloads: Dict[str, List[bytes]]) -> None:
     """Install fetched snapshot payloads; BOOTSTRAP.json written last is
     the commit point.  Any pre-existing partial install is wiped first."""
+    t0 = time.monotonic()
     base = os.path.join(ledger_root, channel_id)
     for sub in ("state", "history", "blocks"):
         shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
@@ -223,4 +240,10 @@ def install(ledger_root: str, channel_id: str, meta: dict,
     BlockStore.write_bootstrap(
         os.path.join(base, "blocks"), int(meta["height"]),
         meta["current_hash"], meta["previous_hash"], meta["commit_hash"])
-    # the reference emits a state.snapshot_install event here
+    try:
+        from fabric_tpu_torch.ops_plane import tracing
+        tracing.event("state.snapshot_install", channel=channel_id,
+                      height=int(meta["height"]),
+                      seconds=round(time.monotonic() - t0, 6))
+    except Exception:
+        pass

@@ -38,9 +38,8 @@ reference's leveldb store, and the global lock covers scans/queries.
 
 Counterpart of `fabric_tpu/ledger/statedb.py`: the whole store with its
 rich-query engine, writing the reference's WAL records and checkpoint
-files byte for byte.  Left out: the ops-plane observers
-(`_observe_shards`, `_observe_checkpoint`); the places they are called
-from are marked.
+files byte for byte, with the reference's ops-plane observers
+(`_observe_shards`, `_observe_checkpoint`).
 """
 
 from __future__ import annotations
@@ -535,8 +534,7 @@ class StateDB:
                 self._batches_since_ckpt += 1
                 if self._batches_since_ckpt >= self.snapshot_every:
                     self._checkpoint_locked()
-        # the reference reports the per-shard key gauges here
-        # (_observe_shards); the port has no ops plane yet
+        self._observe_shards()
 
     # below this many updates the per-key bisect path wins; above it the
     # coalesced one-pass merge of sorted_keys is O(N + B log B) instead
@@ -717,6 +715,7 @@ class StateDB:
         return set(self._gen_pins)
 
     def _checkpoint_locked(self) -> dict:
+        t0 = time.monotonic()
         gen = self._ckpt_gen + 1
 
         def _encode_shard(i: int) -> bytes:
@@ -756,9 +755,7 @@ class StateDB:
         ckpt.gc_generations(self.root, {gen, gen - 1} | self._live_pins())
         self._ckpt_gen = gen
         self._batches_since_ckpt = 0
-        # the reference reports the checkpoint's event, counter, height
-        # and seconds here (_observe_checkpoint); the port has no ops
-        # plane yet
+        self._observe_checkpoint(time.monotonic() - t0, gen)
         return manifest
 
     def _recover(self) -> None:
@@ -837,3 +834,43 @@ class StateDB:
                         rec["value"], Version.from_list(rec["version"]))
         for sh in self._shards:
             sh.sorted_keys = sorted(sh.data.keys())
+
+    # -- observability ------------------------------------------------------
+
+    def _observe_shards(self) -> None:
+        if not self.channel:
+            return
+        try:
+            from fabric_tpu_torch.ops_plane.metrics import registry
+            g = registry.gauge("state_shard_keys",
+                               "Keys resident per state shard")
+            for i, sh in enumerate(self._shards):
+                g.set(float(len(sh.data)), channel=self.channel,
+                      shard=str(i))
+        except Exception:
+            pass
+
+    def _observe_checkpoint(self, seconds: float, gen: int) -> None:
+        try:
+            from fabric_tpu_torch.ops_plane import tracing
+            tracing.event("state.checkpoint", channel=self.channel,
+                          gen=gen, savepoint=self._savepoint,
+                          seconds=round(seconds, 6))
+        except Exception:
+            pass
+        if not self.channel:
+            return
+        try:
+            from fabric_tpu_torch.ops_plane.metrics import registry
+            registry.counter("state_checkpoint_total",
+                             "State checkpoints written").add(
+                                 1, channel=self.channel)
+            registry.gauge("state_checkpoint_height",
+                           "Savepoint of the newest state checkpoint").set(
+                               float(self._savepoint or 0),
+                               channel=self.channel)
+            registry.histogram("state_checkpoint_seconds",
+                               "Wall time per state checkpoint").observe(
+                                   seconds, channel=self.channel)
+        except Exception:
+            pass

@@ -15,8 +15,9 @@ measured on an H100): work launched then is lost from the trace.  So a
 CUDA capture first launches a marker kernel for `MARKER_S` in a range of
 its own, and fails unless the trace holds that range on the device.
 
-The reference's `register_routes` (its ops server's /debug/profile and
-/debug/pprof) waits for the port's ops server (ROADMAP A3.7, A4).
+`register_routes` installs both on an `OperationsServer`, as the
+reference's does: POST /debug/profile?seconds=N (device) and POST
+/debug/pprof?seconds=N (host).
 """
 
 from __future__ import annotations
@@ -131,3 +132,32 @@ def capture_host_profile(seconds: float, top: int = 40) -> dict:
     stats = pstats.Stats(prof, stream=buf)
     stats.sort_stats("cumulative").print_stats(top)
     return {"seconds": seconds, "pstats": buf.getvalue()}
+
+
+def register_routes(ops, enabled: bool = True, device=None) -> None:
+    """Install /debug/profile (device) and /debug/pprof (host) on an
+    OperationsServer.  Gated by config like the reference's
+    peer.profile.enabled — profiling endpoints stall the serving
+    process and must be opt-in.  `device` is the profiled device
+    (default CUDA), as for `capture_device_trace`."""
+    if not enabled:
+        return
+
+    def _seconds(path: str, default: float = 3.0) -> float:
+        if "?" in path:
+            for kv in path.split("?", 1)[1].split("&"):
+                if kv.startswith("seconds="):
+                    try:
+                        return min(60.0, max(0.1, float(kv[8:])))
+                    except ValueError:
+                        pass
+        return default
+
+    def device_route(path: str, body: bytes):
+        return 200, capture_device_trace(_seconds(path), device=device)
+
+    def host(path: str, body: bytes):
+        return 200, capture_host_profile(_seconds(path))
+
+    ops.register_route("POST", "/debug/profile", device_route)
+    ops.register_route("POST", "/debug/pprof", host)

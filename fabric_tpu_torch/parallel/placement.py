@@ -3,11 +3,9 @@
 Counterpart of `fabric_tpu/parallel/placement.py`, copied: the same
 EWMA, hysteresis, idle decay, span cache and `snapshot()`.  What
 differs: a span's provider is a `CudaProvider(mesh=...)` over the span,
-or, for a span of one device, `CudaProvider(device=...)` on it; and the
-`placement_channel_devices` gauge and `_queue_backlog`'s
-`provider_dispatch_queue_depth` read the ops plane, which the port does
-not have yet (ROADMAP A3.7): the hooks stay, the gauge is not set and the
-backlog reads 0 (ROADMAP C, deliberate differences).
+or, for a span of one device, `CudaProvider(device=...)` on it.  The
+`placement_channel_devices` gauge and `_queue_backlog`'s read of
+`provider_dispatch_queue_depth` go through the port's ops plane.
 
 The reference's notes follow.
 
@@ -115,12 +113,15 @@ class PlacementScheduler:
             lo += sz
         self._carve_demand = dict(self._demand)
         self.rebalances += 1
-        self._publish_assignment()
-
-    def _publish_assignment(self) -> None:
-        """The reference sets its `placement_channel_devices` gauge here,
-        one series per channel; the port has no metrics registry yet
-        (ROADMAP A3.7)."""
+        try:
+            from ..ops_plane import registry
+            g = registry.gauge(
+                "placement_channel_devices",
+                "devices assigned to each channel by the placement scheduler")
+            for ch, (_, sz) in self._assign.items():
+                g.set(float(sz), channel=ch)
+        except Exception:
+            pass
 
     def _decay_idle(self, now: float) -> None:
         """Halve a quiet channel's EWMA every `idle_halflife_s` it goes
@@ -150,9 +151,15 @@ class PlacementScheduler:
         while earlier dispatches are still in flight is under-reporting
         pressure if only its own batch size counts, so the backlog is
         folded into the demand sample (the gauge is process-global; the
-        reporting channel is the one currently contending with it).  The
-        port has no metrics registry yet (ROADMAP A3.7): 0."""
-        return 0.0
+        reporting channel is the one currently contending with it)."""
+        try:
+            from ..ops_plane import registry
+            g = registry.gauge(
+                "provider_dispatch_queue_depth",
+                "device dispatches enqueued, not yet resolved")
+            return max(0.0, sum(g.values().values()))
+        except Exception:
+            return 0.0
 
     def _drifted(self) -> bool:
         for ch, d in self._demand.items():

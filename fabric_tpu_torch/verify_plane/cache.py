@@ -36,12 +36,10 @@ Everything the plane does is observable: hits/misses/rejects{reason}/
 evictions counters, per-site device-verification counters (the ≤1
 device verify per unique (identity, sig) pair telemetry), and a
 duplicate-verification counter that stays at zero when the plane is
-doing its job.
+doing its job.  They are the process-wide registry's series
+(`ops_plane.registry`), so `snapshot()`'s totals are the process's.
 
-Counterpart of `fabric_tpu/verify_plane/cache.py`.  The port has no ops
-plane yet, so each cache keeps those counters itself, in `stats`, under
-the reference's series names (a label's values as a dict), and
-`snapshot()` reads them there; `note_device_verifications` is a method.
+Counterpart of `fabric_tpu/verify_plane/cache.py`, copied.
 """
 
 from __future__ import annotations
@@ -69,6 +67,57 @@ def item_digest(item) -> bytes:
         h.update(len(b).to_bytes(4, "big"))
         h.update(bytes(b))
     return h.digest()
+
+
+_metrics_lock = threading.Lock()
+_metrics = None
+
+
+def _m():
+    """Lazy singleton of the plane's ops_plane series (import cycles:
+    ops_plane pulls nothing from here, but node startup order varies)."""
+    global _metrics
+    with _metrics_lock:
+        if _metrics is None:
+            from fabric_tpu_torch.ops_plane import registry
+            _metrics = {
+                "hits": registry.counter(
+                    "verify_cache_hits_total",
+                    "verdict-cache lookups answered from a MAC-verified "
+                    "entry"),
+                "misses": registry.counter(
+                    "verify_cache_misses_total",
+                    "verdict-cache lookups that fell through to a device "
+                    "verification"),
+                "rejects": registry.counter(
+                    "verify_cache_rejects_total",
+                    "cached entries refused (MAC failure / stale epoch) "
+                    "and re-verified"),
+                "evictions": registry.counter(
+                    "verify_cache_evictions_total",
+                    "entries dropped by the LRU bound"),
+                "device": registry.counter(
+                    "verify_plane_device_verifications_total",
+                    "signatures actually dispatched to the provider, by "
+                    "verify site"),
+                "dupes": registry.counter(
+                    "verify_plane_duplicate_device_verifications_total",
+                    "device verifications of an item this node had "
+                    "already verified (0 = verify-once holds)"),
+                "attested": registry.counter(
+                    "verify_plane_attested_skips_total",
+                    "orderer admissions that trusted a gateway verdict "
+                    "attestation instead of re-verifying"),
+            }
+        return _metrics
+
+
+def note_device_verifications(n: int, site: str) -> None:
+    if n:
+        try:
+            _m()["device"].add(n, site=site)
+        except Exception:
+            pass
 
 
 class CoverageWindow:
@@ -114,17 +163,6 @@ class VerdictCache:
         # node reports speculative_coverage_frac at all)
         self.speculative_attached = False
         self.coverage = CoverageWindow()
-        # the plane's counters, by the reference's series names; a
-        # labelled series is a dict of its label's values
-        self.stats = {
-            "verify_cache_hits_total": 0,
-            "verify_cache_misses_total": 0,
-            "verify_cache_rejects_total": {REASON_MAC: 0, REASON_STALE: 0},
-            "verify_cache_evictions_total": 0,
-            "verify_plane_device_verifications_total": {},
-            "verify_plane_duplicate_device_verifications_total": {},
-            "verify_plane_attested_skips_total": 0,
-        }
 
     # -- MAC ---------------------------------------------------------------
 
@@ -182,13 +220,15 @@ class VerdictCache:
                 else:
                     self._data.move_to_end(d)
                     hit = (bool(verdict), trace)
-            st = self.stats
+        try:
             if hit is not None:
-                st["verify_cache_hits_total"] += 1
+                _m()["hits"].add(1)
             else:
                 if reason is not None:
-                    st["verify_cache_rejects_total"][reason] += 1
-                st["verify_cache_misses_total"] += 1
+                    _m()["rejects"].add(1, reason=reason)
+                _m()["misses"].add(1)
+        except Exception:
+            pass
         return hit if hit is not None else (None, "")
 
     def peek(self, item) -> Optional[bool]:
@@ -229,7 +269,11 @@ class VerdictCache:
             while len(self._data) > self.capacity:
                 self._data.popitem(last=False)
                 evicted += 1
-            self.stats["verify_cache_evictions_total"] += evicted
+        if evicted:
+            try:
+                _m()["evictions"].add(evicted)
+            except Exception:
+                pass
         return dup
 
     def filter(self, items: Sequence) -> Tuple[List[int], List[Tuple]]:
@@ -257,24 +301,12 @@ class VerdictCache:
         for it, v in zip(items, verdicts):
             if self.put(it, bool(v), trace_id=trace_id, scope=scope):
                 dupes += 1
-        self.note_device_verifications(len(items), site)
+        note_device_verifications(len(items), site)
         if dupes:
-            self._count(
-                "verify_plane_duplicate_device_verifications_total", site,
-                dupes)
-
-    def note_device_verifications(self, n: int, site: str) -> None:
-        if n:
-            self._count("verify_plane_device_verifications_total", site, n)
-
-    def note_attested(self, n: int) -> None:
-        with self._lock:
-            self.stats["verify_plane_attested_skips_total"] += n
-
-    def _count(self, series: str, label: str, n: int) -> None:
-        with self._lock:
-            by = self.stats[series]
-            by[label] = by.get(label, 0) + n
+            try:
+                _m()["dupes"].add(dupes, site=site)
+            except Exception:
+                pass
 
     # -- introspection ------------------------------------------------------
 
@@ -283,19 +315,29 @@ class VerdictCache:
             return len(self._data)
 
     def snapshot(self) -> dict:
+        m = None
+        try:
+            m = _m()
+        except Exception:
+            pass
+
+        def total(name):
+            try:
+                return m[name].total() if m else 0
+            except Exception:
+                return 0
+
         with self._lock:
             size = len(self._data)
             epochs = dict(self._epochs)
-            st = self.stats
-            rejects = sum(st["verify_cache_rejects_total"].values())
-            return {"owner": self.owner, "size": size,
-                    "capacity": self.capacity, "epochs": epochs,
-                    "speculative": self.speculative_attached,
-                    "coverage_frac": round(self.coverage.frac(), 4),
-                    "hits_total": st["verify_cache_hits_total"],
-                    "misses_total": st["verify_cache_misses_total"],
-                    "rejects_total": rejects,
-                    "evictions_total": st["verify_cache_evictions_total"]}
+        return {"owner": self.owner, "size": size,
+                "capacity": self.capacity, "epochs": epochs,
+                "speculative": self.speculative_attached,
+                "coverage_frac": round(self.coverage.frac(), 4),
+                "hits_total": total("hits"),
+                "misses_total": total("misses"),
+                "rejects_total": total("rejects"),
+                "evictions_total": total("evictions")}
 
 
 class CachingProvider:

@@ -20,9 +20,8 @@ cached; identity validity is always judged live at the gate.
 Counterpart of `fabric_tpu/verify_plane/speculative.py`.  Items are
 derived through the port's C walker only (`native/fastcollect.c`
 collect, which loads or raises); `collect_py` is its differential
-oracle in the tests.  Not ported yet: the `verify_plane.speculative`
-span and the trace links it puts into the cache entries (every entry's
-trace id is ""), and the gateway wiring that calls `stamp`.
+oracle in the tests.  Not ported yet: the gateway wiring that calls
+`stamp`.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 from fabric_tpu_torch import native
 from fabric_tpu_torch.bccsp import SCHEME_P256, VerifyItem
+from fabric_tpu_torch.ops_plane import tracing
 
 from .cache import VerdictCache, item_digest
 
@@ -224,15 +224,24 @@ class SpeculativeVerifier:
                     logger.exception("speculative verify batch failed")
 
     def _verify_batch(self, items, stage: str, scope: str = "") -> str:
-        """Dispatch the not-yet-cached subset and stamp the verdicts.
-        Returns the trace id that links the commit-time block trace to
-        this work: "" until the port traces (the reference opens a
-        `verify_plane.speculative` span here, tagged with `stage`)."""
+        """Dispatch the not-yet-cached subset and stamp the verdicts,
+        under a span whose trace id rides into the cache entries so the
+        commit-time block trace can link back to the speculative work.
+        Returns that trace id ("" when nothing was dispatched)."""
         miss, _hits = self.cache.filter(items)
         if not miss:
             return ""
         sub = [items[i] for i in miss]
-        out = self.provider_source().batch_verify_async(sub)()
-        self.cache.store(sub, out, site="speculative", scope=scope)
-        self.dispatched += len(sub)
-        return ""
+        span = tracing.tracer.start_span(
+            "verify_plane.speculative",
+            attributes={"stage": stage, "items": len(sub)})
+        trace_id = span.context.trace_id if span.recording else ""
+        # enter the span so the provider's bccsp.batch_verify child
+        # (require_parent) attaches — this worker thread has no other
+        # ambient context
+        with span:
+            out = self.provider_source().batch_verify_async(sub)()
+            self.cache.store(sub, out, site="speculative",
+                             trace_id=trace_id, scope=scope)
+            self.dispatched += len(sub)
+        return trace_id

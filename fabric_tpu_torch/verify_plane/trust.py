@@ -85,12 +85,16 @@ class AttestorTrust:
             ent["revoked"] = True
             self._save()
         if first:
-            # the reference also counts attestors_revoked_total here;
-            # the port has no ops plane yet, and revoked_count() reads
-            # the same number from the state
             logger.warning(
                 "attestor %s|%s REVOKED: attestation digest mismatch "
                 "(vouched for bytes it did not deliver)", *binding)
+            try:
+                from fabric_tpu_torch.ops_plane import registry
+                registry.counter(
+                    "attestors_revoked_total",
+                    "attestor identities revoked on digest mismatch").add(1)
+            except Exception:
+                pass
 
     def revoked_count(self) -> int:
         with self._lock:

@@ -1403,15 +1403,16 @@ def test_classic_tail_on_card_matches_host_stack(cuda_device, stream500):
     hash of the host stack, flags equal to the labels, KP3 launched."""
     import chip_smoke as cs
     orgs, raws, labels, rows = stream500
+    from fabric_tpu_torch.verify_plane.cache import _m
     provider = CudaProvider(device=cuda_device)
     c, cache, prov = _classic(cs, provider, orgs, cuda_device)
     before = p256_fixed.p256_verify_rows.launches
+    verified = _m()["device"].value(site="commit")
     got = [(r.final_flags.codes(), meta, after) for r, meta, _s, after in
            cs.commit_stream(c, raws, rows=True)]
     assert got == rows
     assert p256_fixed.p256_verify_rows.launches > before
-    assert prov.items == sum(cache.stats[
-        "verify_plane_device_verifications_total"].values()) > 0
+    assert prov.items == _m()["device"].value(site="commit") - verified > 0
     assert provider.stats["fallbacks"] == 0
 
 
@@ -1551,3 +1552,128 @@ def test_check_acl_on_card_through_kp3_kp2(cuda_device):
     want = [decide(ACLProvider(src, SoftwareProvider()), sd) for sd in cases]
     assert got == want == [True, False]
     assert launched == 2 and provider.stats["fallbacks"] == 0
+
+
+# -- the ops plane on the card ------------------------------------------------
+
+def _lane_moves(fn):
+    """fn() -> (its result, {(lane, device): (items, slots)} that the
+    provider's lane series gained, the device-sigs counter's gain, the
+    dispatch queue's depth after)."""
+    from fabric_tpu_torch.ops_plane import registry
+    slots_c = registry.counter("provider_lane_slots_total")
+    pads_c = registry.counter("provider_pad_slots_total")
+    sigs_c = registry.counter("provider_device_sigs_total")
+
+    def read():
+        return ({tuple(sorted(dict(k).items())): v
+                 for k, v in dict(slots_c._values).items()},
+                {tuple(sorted(dict(k).items())): v
+                 for k, v in dict(pads_c._values).items()},
+                sigs_c.total())
+    s0, p0, n0 = read()
+    out = fn()
+    s1, p1, n1 = read()
+    moves = {}
+    for k, v in s1.items():
+        slots = v - s0.get(k, 0.0)
+        if slots:
+            pads = p1.get(k, 0.0) - p0.get(k, 0.0)
+            d = dict(k)
+            moves[(d["lane"], d["device"])] = (int(slots - pads), int(slots))
+    depth = registry.gauge("provider_dispatch_queue_depth").value()
+    return out, moves, n1 - n0, depth
+
+
+@pytest.mark.cuda
+def test_lane_series_on_cuda0_for_kp3_kp2_ke6_ke5(cuda_device):
+    """A P-256 batch, then an Ed25519 one, each with a hot key: each of
+    the four lanes' launch charges its grid's slots (128 items a block
+    for KP3 and KP2, 32 signatures for KE6 and KE5) to cuda:0 under the
+    reference's lane names, its items among them; every item counted;
+    the queue drained."""
+    from fabric_tpu_torch.bccsp.cuda import grid_slots
+    from fabric_tpu_torch.device import with_index
+    p_items, _ = hot_key_items(2, 5, seed=12)
+    p_items += [VerifyItem(SCHEME_P256, b"\x04" + qx.to_bytes(32, "big")
+                           + qy.to_bytes(32, "big"),
+                           crypto.encode_dss_signature(r, s),
+                           e.to_bytes(32, "big"))
+                for qx, qy, r, s, e, _ in corpus()[:6]]
+    e_items = ed_corpus()[0][:13]
+    prov = CudaProvider(fast_key_threshold=4)
+    card = str(with_index(cuda_device))
+    assert card == "cuda:0"
+    for kinds, batch in ((("p256-rows", "p256"), p_items),
+                         (("ed25519-rows", "ed25519"), e_items)):
+        st0 = dict(prov.stats)
+        _, moves, sigs, depth = _lane_moves(
+            lambda: prov.batch_verify(batch))
+        assert set(moves) == {("rows", card), ("generic", card)}
+        for lane, kind in zip(("rows", "generic"), kinds):
+            n, slots = moves[(lane, card)]
+            assert slots == grid_slots(kind, n, cuda_device) >= n > 0
+        assert sum(n for n, _s in moves.values()) == \
+            prov.stats["device_sigs"] - st0["device_sigs"]
+        assert sigs == len(batch) and depth == 0.0
+
+
+@pytest.mark.cuda
+def test_lane_series_on_cuda0_for_kb8(cuda_device):
+    """The idemix lane: KB8's launch charges a 128-check block's slots to
+    cuda:0 under the lane name `idemix`, with the checks that reached
+    the card as its items."""
+    items, _ = idemix_items()
+    prov = CudaProvider()
+    _, moves, sigs, depth = _lane_moves(lambda: prov.batch_verify(items))
+    assert moves == {("idemix", "cuda:0"): (3, 128)}
+    assert sigs == len(items) and depth == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_allocated_bytes_reads_memory_allocated(cuda_device):
+    """With CUDA in use the resource collector's device gauge is
+    torch.cuda.memory_allocated summed over the devices, and
+    provenance() names the card."""
+    from fabric_tpu_torch.ops_plane import (MetricsRegistry,
+                                            ResourceCollector, provenance)
+    keep = torch.ones(1 << 20, device=cuda_device)
+    torch.cuda.synchronize()
+    reg = MetricsRegistry()
+    snap = ResourceCollector({}, registry=reg).collect()
+    want = sum(torch.cuda.memory_allocated(d)
+               for d in range(torch.cuda.device_count()))
+    assert snap["cuda_allocated_bytes"] == float(want) >= keep.nbytes
+    assert f"cuda_allocated_bytes {float(want)}" in reg.expose_text()
+    prov = provenance()
+    assert prov["platform"] == "gpu"
+    assert prov["device_kind"] == torch.cuda.get_device_name(0)
+    assert prov["n_devices"] == torch.cuda.device_count()
+
+
+@pytest.mark.cuda
+def test_debug_profile_route_captures_a_cuda_trace(cuda_device):
+    """POST /debug/profile on the port's ops server returns a
+    torch.profiler capture of the card (the marker recorded, device
+    events counted); /debug/pprof the host profile."""
+    import urllib.request
+    from fabric_tpu_torch.ops_plane import OperationsServer
+    from fabric_tpu_torch.ops_plane.profiling import register_routes
+    srv = OperationsServer("127.0.0.1", 0)
+    register_routes(srv, enabled=True)
+    srv.start()
+    try:
+        url = "http://%s:%d" % srv.addr
+        req = urllib.request.Request(url + "/debug/profile?seconds=0.2",
+                                     method="POST")
+        body = json.loads(urllib.request.urlopen(req, timeout=300).read())
+        assert body["device"].startswith("cuda")
+        assert body["device_events"] > 0
+        with open(body["trace"]) as f:
+            assert "traceEvents" in json.load(f)
+        req = urllib.request.Request(url + "/debug/pprof?seconds=0.2",
+                                     method="POST")
+        body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert "cumulative" in body["pstats"]
+    finally:
+        srv.stop()

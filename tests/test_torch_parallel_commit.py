@@ -8,10 +8,9 @@ window and the pipeline runs here on both packages (`pkg`): each case
 runs the reference test's steps and asserts its expectations on one
 package, and the port's case also runs them on the reference and holds
 the two outcomes equal: the flags' bytes, the `UpdateBatch` items in
-insertion order, the history list, state and commit hash.  The
-reference's ops-plane counters have no counterpart in the port (they
-wait for its ops plane); the port's cases read the scheduler's own
-counts (`ParallelCommitScheduler.stats()`) instead.  Added: the
+insertion order, the history list, state and commit hash.  The serial
+fallbacks are read, as the reference's test reads them, from each
+package's ops-plane counter `commit_serial_fallbacks_total`.  Added: the
 seeded 300-tx stream of tests/test_torch_early_abort.py through the
 port's `PipelinedCommitter` on `CudaProvider(device="cpu")` (the
 kernels' plain versions) against the reference's on `SoftwareProvider`,
@@ -49,7 +48,7 @@ def load(name: str):
         name=name, proto=proto, ledger=ledger, mvcc=mod("ledger.mvcc"),
         pc=mod("committer.parallel_commit"), committer=mod("committer"),
         msp=mod("msp"), policy=mod("policy"), config=mod("config"),
-        sbe=mod("committer.sbe"),
+        sbe=mod("committer.sbe"), ops=mod("ops_plane"),
         wire=mod("protocol.wire") if name == "port" else None,
         sw=factory.init_factories(factory.FactoryOpts(default="SW")))
 
@@ -380,16 +379,17 @@ def _fallback(P, envs, **kw):
         seeded_db(P), 2, envs, flags_o))
     sched = P.pc.ParallelCommitScheduler(max_workers=4, channel_id="fb",
                                          **kw)
+    counter = P.ops.registry.counter("commit_serial_fallbacks_total")
+    before = counter.breakdown("reason", channel="fb")
     try:
         got = norm(flags_s, *sched.validate_and_prepare_batch(
             seeded_db(P), 2, envs, flags_s))
     finally:
         sched.close()
     assert got == want
-    if P.name == "port":
-        st = sched.stats()
-        assert st["serial_fallbacks"] == sum(
-            st["fallback_reasons"].values())
+    after = counter.breakdown("reason", channel="fb")
+    assert sched.serial_fallbacks == sum(after.values()) - sum(
+        before.values())
     return got, sched.serial_fallbacks, sched.last_waves, \
         sched.last_max_width
 
@@ -399,13 +399,16 @@ def test_serial_fallback_one_core_matches_oracle(pk, pkg, org):
     _out, fallbacks, waves, width = differential(
         pk, pkg, _fallback, fallback_envs(org), host_cores=1)
     assert fallbacks == 1 and waves == 0 and width == 0
-    if pkg == "port":
-        P = pk["port"]
-        sched = P.pc.ParallelCommitScheduler(host_cores=1)
-        envs = envs_of(P, fallback_envs(org))
-        sched.validate_and_prepare_batch(
-            seeded_db(P), 2, envs, P.proto.TxFlags(len(envs), 0))
-        assert sched.stats()["fallback_reasons"] == {"one_core": 1}
+    P = pk[pkg]
+    sched = P.pc.ParallelCommitScheduler(host_cores=1, channel_id="fb1")
+    counter = P.ops.registry.counter("commit_serial_fallbacks_total")
+    before = counter.breakdown("reason", channel="fb1")
+    envs = envs_of(P, fallback_envs(org))
+    sched.validate_and_prepare_batch(
+        seeded_db(P), 2, envs, P.proto.TxFlags(len(envs), 0))
+    after = counter.breakdown("reason", channel="fb1")
+    assert {r: v - before.get(r, 0) for r, v in after.items()
+            if v != before.get(r, 0)} == {"one_core": 1}
 
 
 @pytest.mark.parametrize("pkg", PKGS)
@@ -425,14 +428,17 @@ def test_serial_fallback_narrow_block_counted(pk, pkg, org):
     _out, fallbacks, waves, width = differential(
         pk, pkg, _fallback, envs, host_cores=4)
     assert fallbacks == 1 and waves == 4 and width == 1
-    if pkg == "port":
-        P = pk["port"]
-        sched = P.pc.ParallelCommitScheduler(host_cores=4)
-        penvs = envs_of(P, envs)
-        sched.validate_and_prepare_batch(
-            seeded_db(P), 2, penvs, P.proto.TxFlags(len(penvs), 0))
-        assert sched.stats()["fallback_reasons"] == {"narrow": 1}
-        assert sched.stats()["widths"] == [1]
+    P = pk[pkg]
+    sched = P.pc.ParallelCommitScheduler(host_cores=4, channel_id="fb3")
+    counter = P.ops.registry.counter("commit_serial_fallbacks_total")
+    before = counter.breakdown("reason", channel="fb3")
+    penvs = envs_of(P, envs)
+    sched.validate_and_prepare_batch(
+        seeded_db(P), 2, penvs, P.proto.TxFlags(len(penvs), 0))
+    after = counter.breakdown("reason", channel="fb3")
+    assert {r: v - before.get(r, 0) for r, v in after.items()
+            if v != before.get(r, 0)} == {"narrow": 1}
+    assert list(sched._widths) == [1]
 
 
 # ---------------------------------------------------------------------------

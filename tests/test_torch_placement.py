@@ -3,8 +3,10 @@ and allocate_devices / carve_submeshes of parallel/mesh.py) against the
 reference's, and the factory's mesh and placement options.
 
 - The cases of tests/test_placement.py:62-249 against the port's copies
-  (the per-device slot attribution and padding cases have no counterpart:
-  the port has no lane telemetry and pads nothing, ROADMAP C5 and C).
+  (the per-device slot attribution and padding cases have no counterpart
+  here: the port pads nothing, ROADMAP C5; its lane series are held to
+  the reference's in tests/test_torch_ops_wiring.py), and the demand
+  sample folding in the ops plane's dispatch backlog (:313-329).
 - allocate_devices and the scheduler's snapshots against the reference's
   on seeded random weights and demand sequences.
 - FactoryOpts.use_mesh / placement / mesh_devices with visible_devices
@@ -244,12 +246,25 @@ def test_single_device_span_pins_device():
 
 
 def test_scheduler_demand_backlog_reads_zero():
-    # the reference folds its ops plane's provider_dispatch_queue_depth
-    # into each demand sample; the port has no ops plane yet (A3.7)
-    assert PlacementScheduler._queue_backlog() == 0.0
-    ps = _scheduler()
-    ps.provider_for("a", demand=100)
-    assert ps.snapshot()["channels"]["a"]["demand_ewma"] == 100.0
+    # a flush landing behind unresolved device work reports more
+    # pressure than its batch size alone: the ops plane's
+    # provider_dispatch_queue_depth is folded into the EWMA sample; idle,
+    # it reads zero (tests/test_placement.py:313-329)
+    from fabric_tpu_torch.ops_plane import registry
+    g = registry.gauge("provider_dispatch_queue_depth",
+                       "device dispatches enqueued, not yet resolved")
+    try:
+        g.set(0.0)
+        assert PlacementScheduler._queue_backlog() == 0.0
+        ps = _scheduler()
+        ps.provider_for("a", demand=100)
+        assert ps.snapshot()["channels"]["a"]["demand_ewma"] == 100.0
+        g.set(900.0)
+        ps2 = _scheduler()
+        ps2.provider_for("a", demand=100)
+        assert ps2.snapshot()["channels"]["a"]["demand_ewma"] == 1000.0
+    finally:
+        g.set(0.0)
 
 
 class RefFakeDev:
@@ -268,7 +283,8 @@ class RefFakeProvider:
 def test_scheduler_snapshots_match_reference(seed, monkeypatch):
     """The same seeded sequence of flushes (channel, demand, clock step)
     gives the same carve, EWMAs, rebalances and span cache (the
-    reference's dispatch backlog held at 0, as the port reads it)."""
+    reference's dispatch backlog held at 0, as the port's idle gauge
+    reads it; tests/test_torch_ops_wiring.py moves both gauges)."""
     monkeypatch.setattr(RefScheduler, "_queue_backlog",
                         staticmethod(lambda: 0.0))
     rng = random.Random(seed)

@@ -4,9 +4,9 @@ The tests of tests/test_verify_plane.py that need no orderer and no
 gateway, each parametrised over both packages: the cache's MAC, epochs,
 LRU and counters, the caching provider, the validator's cache split on
 every tail (deep, classic on the C walker, classic on the Python
-mirror), the speculative verifier, and block attestations.  The port's
-counters are the cache's own (`VerdictCache.stats`, by the reference's
-series names), the reference's its ops-plane registry.  Beside them:
+mirror), the speculative verifier, and block attestations.  Each
+package's counters are its ops-plane registry's series, read as deltas
+(the registry is process-wide).  Beside them:
 `item_digest` and the MAC tags equal across packages for one secret,
 `AttestorTrust`'s state file byte for byte after the same events, and
 cache on against cache off under the seeded differential fuzz, in both
@@ -22,7 +22,6 @@ import pytest
 from fabric_tpu.msp.ca import DevOrg
 from fabric_tpu.protocol import (Envelope, KVRead, KVWrite, NsRwSet,
                                  TxRwSet, ValidationCode, Version, build)
-from fabric_tpu.verify_plane.cache import _m
 
 PKGS = ("fabric_tpu", "fabric_tpu_torch")
 TAILS = ("deep", "classic", "python")
@@ -100,28 +99,24 @@ def validator(P, m, provider, tail="deep", **kw):
 
 
 def counts(P, cache):
-    """The plane's counters: the reference's process-wide registry, the
-    port's cache's own."""
-    if P.pkg == "fabric_tpu":
-        m = _m()
-        return {"hits": m["hits"].total(), "misses": m["misses"].total(),
-                "mac": m["rejects"].value(reason="mac"),
-                "stale": m["rejects"].value(reason="stale"),
-                "evictions": m["evictions"].total(),
-                "device": m["device"].total(), "dupes": m["dupes"].total(),
-                "attested": m["attested"].total()}
-    st = cache.stats
-    rej = st["verify_cache_rejects_total"]
-    return {"hits": st["verify_cache_hits_total"],
-            "misses": st["verify_cache_misses_total"],
-            "mac": rej["mac"], "stale": rej["stale"],
-            "evictions": st["verify_cache_evictions_total"],
-            "device": sum(st["verify_plane_device_verifications_total"]
-                          .values()),
-            "dupes": sum(st[
-                "verify_plane_duplicate_device_verifications_total"]
-                .values()),
-            "attested": st["verify_plane_attested_skips_total"]}
+    """The plane's counters in the package's process-wide registry."""
+    m = P.cache._m()
+    return {"hits": m["hits"].total(), "misses": m["misses"].total(),
+            "mac": m["rejects"].value(reason="mac"),
+            "stale": m["rejects"].value(reason="stale"),
+            "evictions": m["evictions"].total(),
+            "device": m["device"].total(), "dupes": m["dupes"].total(),
+            "attested": m["attested"].total()}
+
+
+def device_by_site(P) -> dict:
+    """verify_plane_device_verifications_total by its site label."""
+    return P.cache._m()["device"].breakdown("site")
+
+
+def moved_by_site(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
 
 
 def delta(before, after):
@@ -280,6 +275,7 @@ def test_snapshot_reads_the_counters(P, orgs):
     m = msps(P, *orgs)
     cache = P.vp.VerdictCache(capacity=2, owner="peer0")
     items = [creator_item(P, make_tx(*orgs), m) for _ in range(3)]
+    snap0 = cache.snapshot()
     for it in items:
         cache.put(it, True)
     cache.get(items[0])
@@ -287,9 +283,8 @@ def test_snapshot_reads_the_counters(P, orgs):
     snap = cache.snapshot()
     assert {k: snap[k] for k in ("owner", "size", "capacity")} == {
         "owner": "peer0", "size": 2, "capacity": 2}
-    if P.pkg == "fabric_tpu_torch":
-        assert (snap["hits_total"], snap["misses_total"],
-                snap["evictions_total"]) == (1, 1, 1)
+    assert tuple(snap[k] - snap0[k] for k in (
+        "hits_total", "misses_total", "evictions_total")) == (1, 1, 1)
 
 
 # -- caching provider --------------------------------------------------------
@@ -302,6 +297,7 @@ def test_caching_provider_dispatches_each_item_once(P, orgs):
     cache = P.vp.VerdictCache(capacity=16)
     p = P.vp.CachingProvider(inner, cache, site="orderer")
     before = counts(P, cache)
+    sites = device_by_site(P)
     out1 = p.batch_verify(items)
     assert out1.all() and inner.dispatched == 4
     out2 = p.batch_verify(items)
@@ -311,9 +307,7 @@ def test_caching_provider_dispatches_each_item_once(P, orgs):
     out3 = p.batch_verify(items[:2] + [extra])
     assert out3.all() and inner.dispatched == 5
     assert delta(before, counts(P, cache))["device"] == 5
-    if P.pkg == "fabric_tpu_torch":
-        assert cache.stats["verify_plane_device_verifications_total"] == {
-            "orderer": 5}
+    assert moved_by_site(sites, device_by_site(P)) == {"orderer": 5}
 
 
 def test_caching_provider_async_all_hit_path(P, orgs):
@@ -415,6 +409,7 @@ def test_verify_once_telemetry_one_device_verify_per_item(P, orgs, tail):
     cache = P.vp.VerdictCache(capacity=4096)
     v = validator(P, m, inner, tail, verify_cache=cache)
     before = counts(P, cache)
+    sites = device_by_site(P)
     v.validate(make_block(P, envs, number=0))
     first = inner.dispatched
     assert first > 0
@@ -422,9 +417,7 @@ def test_verify_once_telemetry_one_device_verify_per_item(P, orgs, tail):
     assert inner.dispatched == first
     moved = delta(before, counts(P, cache))
     assert moved["dupes"] == 0 and moved["device"] == first
-    if P.pkg == "fabric_tpu_torch":
-        assert set(cache.stats[
-            "verify_plane_device_verifications_total"]) == {"commit"}
+    assert set(moved_by_site(sites, device_by_site(P))) == {"commit"}
 
 
 # -- speculative verification ------------------------------------------------
