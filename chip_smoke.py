@@ -220,7 +220,8 @@ ends with one JSON line.  Phases:
              blocks 2 and 3 once each to the serial hash and directory;
              (c) the stream's wall time serial, W=2 and W=4, on memory
              and on the durable ledger, fresh ledgers, in turns, medians
-             of at least 3 with the spread, each block's early and
+             of at least 3 on memory and of WINDOW_DURABLE_TRIALS (2)
+             durable, with the spread, each block's early and
              deferred txs, overlap_frac, the stages summed; the device
              idle share of the stream at W=4 (profiled in phase 7's
              session);
@@ -233,6 +234,40 @@ ends with one JSON line.  Phases:
              through the pipeline retargeting peer/Propose to Admins at
              its boundary.  Its main-path launches are counted apart (the
              kernels line's `window_launches`)
+14. intake — (run after 13, before the kernels line) the peer's block
+             intake: an orderer stand-in (the port's RpcServer serving
+             `deliver` through its DeliverHandler over a one-channel
+             registrar) holds phase 6's stream at full width, each block
+             written and signed by the port's BlockWriter with the
+             identity of an orderer org added to the MSPs; peer 1 (its
+             own RpcServer, SecureGossipTransport under a ChannelMux,
+             GossipNode with RemoteDeliver, privdata Coordinator and the
+             default peer's committer: classic tail, SBE lookup,
+             VerdictCache(65536), KVLedger in memory with 8 shards) pulls
+             it one block a pull through the authenticated RPC plane (the
+             lite AEAD and X25519 where `cryptography` is missing) and
+             checks each block's orderer signature through its MCS on the
+             factory's provider (the CUDA provider, fail-stop); peer 2 is
+             the same but gets the blocks only by gossip, each re-checked
+             by its MCS.  After every block both peers' flags, metadata
+             flags, state, history and commit hash equal phase 6's host
+             stack; the block bytes on the wire, the AEAD's MB/s, per
+             block from its trace (the tracer's spans) the connect,
+             deliver (serve + receive + decrypt + parse),
+             orderer-signature verify, gossip hand-off and commit ms and
+             peer 2's MCS and commit ms, the wall ms from the first pull
+             to the last commit on each peer; one cold run (the two
+             peers' commits at once), then a warm run with peer 2's
+             commit held until peer 1's is done; KP3 and KP2 launches
+             by cause in the cold run (handshakes, gossip alive
+             messages, orderer signatures, gossiped blocks' MCS checks,
+             each peer's commits), the card's idle share over peer 1's
+             block 2; drills: block 3 first served with a corrupted
+             orderer signature is dropped and the good one then commits,
+             a tampered copy gossiped to peer 2 is refused by its MCS, a
+             rogue-org client is refused at peer 1's handshake;
+             `fallbacks` 0.  Its main-path launches are counted apart
+             (the kernels line's `intake_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -256,6 +291,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py [--txs N] [--ed N] [--gen N] [--trials K]
                           [--commit-txs N] [--commit-last N]
     python3 chip_smoke.py --ops-only   # phase 6's ops-plane check alone
+    python3 chip_smoke.py --intake-only   # phase 14 alone
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -354,6 +390,8 @@ WINDOWS = (2, 4)
 WINDOW_RUNS = ((2, False, False), (2, True, True), (4, False, True),
                (4, True, False))
 WINDOW_WORKERS = 4
+WINDOW_DURABLE_TRIALS = 2      # timed durable streams (memory: 3); the
+#                                script's time limit
 WINDOW_DEMOTIONS = ("savepoint", "range_query")
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
@@ -2703,6 +2741,8 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
     m0 = parse_metrics(registry.expose_text())
     for trial in range(max(3, args.trials)):
         for ledger, W in cells:
+            if ledger == "durable" and trial >= WINDOW_DURABLE_TRIALS:
+                continue
             kw = {"commit_window": W} if W else {}
             root = os.path.join(base, f"t{trial}_{W}")
             if ledger == "memory":
@@ -4018,6 +4058,651 @@ def experiment_rows(results: dict, total: dict, kp1_err: int) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the peer's block intake (phase 14): the orderer's deliver stream over the
+# authenticated RPC plane, the orderer signatures, gossip and the privdata
+# coordinator in front of the committer
+# ---------------------------------------------------------------------------
+
+INTAKE_TAMPERED = 3            # served once with a corrupted signature
+INTAKE_WAIT_S = 300.0          # bound on one wait for peer 2's gossip
+INTAKE_WARM = 1                # warm runs of phase 14, held (the
+#                                script's time limit)
+AEAD_PROBE_BYTES = 8 << 20     # the AEAD rate's buffer
+
+
+class _OneChannel:
+    """The orderer stand-in's registrar: one channel over the block
+    writer's store, as `orderer.deliver.DeliverHandler` reads it (`get`,
+    `authorize_read`, `ledger`, `wait_for_height`; no Readers policy).
+    `tamper`: a block number served once with a corrupted orderer
+    signature."""
+
+    def __init__(self, store):
+        self.ledger = self
+        self.store = store
+        self.tamper = None
+
+    @property
+    def height(self) -> int:
+        return self.store.height
+
+    def get(self, channel_id):
+        return self if channel_id == "ch" else None
+
+    def authorize_read(self, signed) -> None:
+        pass
+
+    def wait_for_height(self, height: int, timeout_s=None) -> bool:
+        return self.store.height >= height
+
+    def get_by_number(self, num: int):
+        block = self.store.get_by_number(num)
+        if num == self.tamper:
+            self.tamper = None
+            return tampered_block(block)
+        return block
+
+
+def tampered_block(block):
+    """A copy of `block` whose orderer signature has its last byte
+    flipped."""
+    from fabric_tpu_torch.protocol.types import (META_SIGNATURES, Block,
+                                                 BlockMetadata)
+    entry = dict(block.metadata.items[META_SIGNATURES][0])
+    sig = bytearray(entry["signature"])
+    sig[-1] ^= 0x01
+    entry["signature"] = bytes(sig)
+    items = dict(block.metadata.items)
+    items[META_SIGNATURES] = [entry]
+    return Block(block.header, list(block.data), BlockMetadata(items))
+
+
+def intake_orderer(raws, signer, msps):
+    """The orderer stand-in: the port's BlockWriter writes and signs the
+    stream's blocks into a block store (their headers are the stream's),
+    and the port's RpcServer serves `deliver` through the port's
+    DeliverHandler over a one-channel registrar, as the reference
+    orderer's `_rpc_deliver` does (no attestations) -> (server,
+    registrar, store)."""
+    from fabric_tpu_torch.comm.rpc import RpcServer
+    from fabric_tpu_torch.ledger.blkstorage import BlockStore
+    from fabric_tpu_torch.orderer import BlockWriter, DeliverHandler, SeekInfo
+    from fabric_tpu_torch.protocol import wire
+    store = BlockStore()
+    writer = BlockWriter("ch", store, signer=signer)
+    for raw in raws:
+        block = wire.parse_block(raw)
+        written = writer.write_block(writer.create_next_block(block.data))
+        check(written.header == wire.parse_block(raw).header,
+              "intake: the orderer's header != the stream's")
+    registrar = _OneChannel(store)
+    handler = DeliverHandler(registrar)
+
+    def rpc_deliver(body, peer_identity):
+        seek = SeekInfo(start=body.get("start", 0), stop=body.get("stop"),
+                        behavior=body.get("behavior", "block_until_ready"))
+        for block in handler.deliver(body["channel"], seek, None,
+                                     timeout_s=body.get("timeout_s", 30)):
+            yield {"block": block.serialize()}
+
+    srv = RpcServer("127.0.0.1", 0, signer, msps)
+    srv.serve_stream("deliver", rpc_deliver)
+    return srv.start(), registrar, store
+
+
+class _ByCause:
+    """The cold run's provider in front of `inner` for one cause: each
+    batch's KP3 and KP2 launches (the kernels' own counts, read before
+    and after its enqueue, where the CUDA provider launches) are added
+    to `tally["<cause>.kp3"]` and `tally["<cause>.kp2"]`.  Every facade
+    of the run shares one lock over its enqueue, so launches of
+    concurrent peers are told apart.
+    `cause` None (the factory's default, which the secure channel and
+    the gossip messages' identities verify through) names each batch by
+    its caller on the stack: `comm/secure.py` `_verify_peer`
+    ("handshake"), `gossip/mcs.py` `verify_peer_msg` ("alive"), else
+    "other".  Anything else is the provider's."""
+
+    CALLERS = (("_verify_peer", os.path.join("comm", "secure.py"),
+                "handshake"),
+               ("verify_peer_msg", os.path.join("gossip", "mcs.py"),
+                "alive"))
+
+    def __init__(self, inner, cause, tally, lock):
+        self.inner, self.cause = inner, cause
+        self.tally, self.lock = tally, lock
+
+    def _caller(self) -> str:
+        f = sys._getframe(2)
+        while f is not None:
+            for name, path, cause in self.CALLERS:
+                if (f.f_code.co_name == name
+                        and f.f_code.co_filename.endswith(path)):
+                    return cause
+            f = f.f_back
+        return "other"
+
+    def batch_verify_async(self, items):
+        from fabric_tpu_torch.ops import p256, p256_fixed
+        cause = self.cause or self._caller()
+        with self.lock:
+            n0 = (p256_fixed.p256_verify_rows.launches,
+                  p256.p256_verify.launches)
+            resolve = self.inner.batch_verify_async(items)
+            n1 = (p256_fixed.p256_verify_rows.launches,
+                  p256.p256_verify.launches)
+            for kern, a, b in zip(("kp3", "kp2"), n0, n1):
+                key = f"{cause}.{kern}"
+                self.tally[key] = self.tally.get(key, 0) + b - a
+        return resolve
+
+    def batch_verify(self, items):
+        return self.batch_verify_async(items)()
+
+    def verify(self, item) -> bool:
+        return bool(self.batch_verify([item])[0])
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def intake_peer(name, provider, signer, msps, dev, mcs_provider=None):
+    """One peer's intake, as `PeerChannel` wires it: its RpcServer and
+    SecureGossipTransport under a ChannelMux, the MCS on `mcs_provider`
+    (default `provider`), the privdata Coordinator over the default
+    peer's committer on `provider` (classic tail: key-level endorsement
+    from the ledger's state, VerdictCache(65536)) on KVLedger (in memory,
+    8 state shards) -> a namespace; its GossipNode is made by
+    `intake_node`."""
+    import types
+    from fabric_tpu_torch.comm.rpc import RpcServer
+    from fabric_tpu_torch.gossip.comm import ChannelMux, SecureGossipTransport
+    from fabric_tpu_torch.gossip.mcs import MessageCryptoService
+    from fabric_tpu_torch.privdata import (CollectionRegistry, Coordinator,
+                                           PvtDataStore, TransientStore)
+    from fabric_tpu_torch.verify_plane import VerdictCache
+    committer, _ = commit_stack(provider, None, False, dev, msps=msps,
+                                classic=True,
+                                cache=VerdictCache(CACHE_CAPACITY,
+                                                   owner=name))
+    rpc = RpcServer("127.0.0.1", 0, signer, msps).start()
+    transport = SecureGossipTransport(rpc, signer, msps)
+    return types.SimpleNamespace(
+        name=name, signer=signer, msps=msps, rpc=rpc,
+        transport=transport, mux=ChannelMux(transport, "ch"),
+        mcs=MessageCryptoService(msps, mcs_provider or provider),
+        committer=committer, ledger=committer.ledger,
+        coordinator=Coordinator(committer, CollectionRegistry(),
+                                TransientStore(), PvtDataStore(),
+                                mspid=signer.mspid),
+        node=None, results={}, committed=None)
+
+
+def intake_node(peer, other, deliver=None, hold=None):
+    """`peer`'s GossipNode (bootstrapped to `other`, window 1), and its
+    committer's results recorded by block number.  `hold`: an Event the
+    commit waits for (outside the `committer.store_block` span), so the
+    caller can keep this peer's commit from overlapping another's."""
+    from fabric_tpu_torch.gossip.node import GossipNode
+    import threading
+    peer.node = GossipNode(
+        peer.mux.register_for("ch"), peer.transport.id, peer.coordinator,
+        mcs=peer.mcs, signer=peer.signer, deliver_handler=deliver,
+        bootstrap=[other.transport.id], msps=peer.msps, window=1)
+    peer.committed = threading.Condition()
+    inner = peer.committer.store_block
+
+    def store_block(block):
+        if hold is not None:
+            check(hold.wait(INTAKE_WAIT_S), f"intake: {peer.name}'s commit "
+                  "was held too long")
+        res = inner(block)
+        with peer.committed:
+            peer.results[block.header.number] = res
+            peer.committed.notify_all()
+        return res
+    peer.committer.store_block = store_block
+
+
+def wait_height(peer, height: int, what: str) -> None:
+    """Wait (at most INTAKE_WAIT_S) for `peer` to commit up to
+    `height`."""
+    with peer.committed:
+        # the result is recorded after the ledger's height moves: wait
+        # for the result, not the height
+        ok = peer.committed.wait_for(lambda: height - 1 in peer.results,
+                                     timeout=INTAKE_WAIT_S)
+    check(ok, f"intake: {peer.name} did not reach height {height} ({what})")
+
+
+def check_block_rows(peer, num: int, mem_rows) -> None:
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    codes, meta, rows = mem_rows[num]
+    res = peer.results[num]
+    stored = peer.ledger.blockstore.get_by_number(num)
+    check(res.final_flags.codes() == codes,
+          f"intake {peer.name} block {num}: flags != phase 6's")
+    check(bytes(stored.metadata.items[META_TXFLAGS]) == meta,
+          f"intake {peer.name} block {num}: metadata flags != phase 6's")
+    check((*ledger_rows(peer.ledger), peer.ledger.commit_hash) == rows,
+          f"intake {peer.name} block {num}: state, history or commit hash "
+          "!= phase 6's")
+
+
+def transport_rates() -> dict:
+    """MB/s of the secure channel's AEAD on this host, in the mode it
+    runs (ChaCha20-Poly1305 with `cryptography`, else the lite hashlib
+    AEAD) and in the lite mode, and of its frame receive loop
+    (`comm/secure.py` `_read_frame` over a local socket pair, the
+    writer on a thread of its own), on AEAD_PROBE_BYTES each."""
+    import socket
+    import threading
+    from fabric_tpu_torch.comm import secure
+    from fabric_tpu_torch.crypto import aead
+    data = os.urandom(AEAD_PROBE_BYTES)
+    mb = AEAD_PROBE_BYTES / 1e6
+    out = {"aead": "chacha20-poly1305" if aead._HAVE_CHACHA else "lite"}
+    have = aead._HAVE_CHACHA
+    modes = (("", have), ("lite_", False)) if have else (("", False),)
+    try:
+        for prefix, chacha in modes:
+            aead._HAVE_CHACHA = chacha
+            a = aead.Aead(b"\x07" * 32)
+            t0 = time.perf_counter()
+            ct = a.encrypt(b"\x00" * 12, data)
+            t1 = time.perf_counter()
+            check(a.decrypt(b"\x00" * 12, ct) == data,
+                  "intake: AEAD round trip")
+            t2 = time.perf_counter()
+            out[prefix + "aead_encrypt_mb_s"] = round(mb / (t1 - t0), 3)
+            out[prefix + "aead_decrypt_mb_s"] = round(mb / (t2 - t1), 3)
+    finally:
+        aead._HAVE_CHACHA = have
+    for n in (AEAD_PROBE_BYTES, 4 * AEAD_PROBE_BYTES):
+        a, b = socket.socketpair()
+        try:
+            blob = os.urandom(n)
+            w = threading.Thread(target=secure._write_frame, args=(a, blob))
+            t0 = time.perf_counter()
+            w.start()
+            got = secure._read_frame(b)
+            secs = time.perf_counter() - t0
+            w.join()
+        finally:
+            a.close()
+            b.close()
+        check(got == blob, "intake: frame round trip")
+        out[f"read_frame_{n >> 20}mib_mb_s"] = round(n / 1e6 / secs, 3)
+    return out
+
+
+INTAKE_ROW = ("connect_ms", "deliver_ms", "verify_ms", "gossip_ms",
+              "commit_ms", "peer2_mcs_ms", "peer2_commit_ms",
+              "peer2_lag_ms")
+
+
+def new_trace(tracer, root: str, seen: set, done) -> list:
+    """The spans of the one trace under `root` not in `seen` once
+    `done(spans)` holds (its late fragments, another peer's server spans,
+    merged in) -> spans; its id joins `seen`.  Waits at most
+    INTAKE_WAIT_S."""
+    deadline = time.perf_counter() + INTAKE_WAIT_S
+    while True:
+        for rec in tracer.recorder.list()["recent"]:
+            if rec["root"] != root or rec["trace_id"] in seen:
+                continue
+            spans = list(tracer.recorder.get(rec["trace_id"])["spans"])
+            if done(spans):
+                seen.add(rec["trace_id"])
+                return spans
+        check(time.perf_counter() < deadline,
+              f"intake: no complete {root} trace")
+        time.sleep(0.005)
+
+
+def _peer2_cast(spans, by_id):
+    """Peer 2's `committer.store_block` and the `rpc.gossip.msg` cast it
+    ran under, or (None, None) until both are in `spans`."""
+    for s in spans:
+        if s["name"] != "committer.store_block":
+            continue
+        parent = by_id.get(s["parent_id"])
+        if parent is not None and parent["name"] == "rpc.gossip.msg":
+            return s, parent
+    return None, None
+
+
+def _pull_done(spans) -> bool:
+    by_id = {s["span_id"]: s for s in spans}
+    return (sum(s["name"] == "committer.store_block" for s in spans) == 2
+            and _peer2_cast(spans, by_id)[0] is not None)
+
+
+def intake_row(spans):
+    """One pull's layer times from its trace (the tracer's own spans):
+    `gossip.pull_window` the root; `rpc.deliver` (the orderer's side,
+    begun once the connection's handshake and the request are done);
+    `gossip.verify_window` (peer 1's MCS on the orderer signature);
+    peer 1's `committer.store_block`; peer 2's `rpc.gossip.msg` cast with
+    its MCS `bccsp.batch_verify` and its `committer.store_block` -> (ms:
+    connect (the pull's start to the orderer's span), deliver (to the
+    verify: serve, send, receive, decrypt, parse), verify, gossip
+    (`add_block` less the commit: the block serialised, encrypted and
+    sent to peer 2), commit, peer 2's MCS and commit, and the lag of
+    peer 2's commit's end behind peer 1's; {peer: its commit's end, on
+    the perf_counter clock})."""
+    by_id = {s["span_id"]: s for s in spans}
+
+    def one(name, pred=lambda s: True):
+        got = [s for s in spans if s["name"] == name and pred(s)]
+        check(len(got) == 1, f"intake: {len(got)} {name} spans in a pull")
+        return got[0]
+
+    def end(s):
+        return s["start"] + s["duration_s"]
+
+    c2, cast = _peer2_cast(spans, by_id)
+    root = one("gossip.pull_window")
+    verify = one("gossip.verify_window")
+    serve = one("rpc.deliver")
+    c1 = one("committer.store_block", lambda s: s is not c2)
+    mcs2 = one("bccsp.batch_verify",
+               lambda s: s["parent_id"] == cast["span_id"])
+    ms = {"connect_ms": serve["start"] - root["start"],
+          "deliver_ms": verify["start"] - serve["start"],
+          "verify_ms": verify["duration_s"],
+          "gossip_ms": end(root) - end(verify) - c1["duration_s"],
+          "commit_ms": c1["duration_s"],
+          "peer2_mcs_ms": mcs2["duration_s"],
+          "peer2_commit_ms": c2["duration_s"],
+          "peer2_lag_ms": end(c2) - end(c1)}
+    return ({k: round(v * 1e3, 3) for k, v in ms.items()},
+            {"peer1": end(c1), "peer2": end(c2)})
+
+
+def intake_run(torch, ctx, run: str, held: bool = False,
+               cold: bool = False) -> dict:
+    """The stream through two fresh peers (ledgers at height 0), one
+    block a pull, the tracer on, both peers checked against phase 6's
+    rows after every block.  `held`: peer 2's commit of a block waits
+    until peer 1's pull of it has returned, so the two commits never
+    overlap (peer 2's parse and MCS still may).  `cold`: the first run,
+    with the drills, block 2's pull profiled, and every provider of the
+    run behind a `_ByCause` facade -> {"rows": per block from its trace
+    (`intake_row`), "walls": ms from the first pull's start to each
+    peer's commit of the last block, less the drills and the time from a
+    block's last commit to the next pull (checks, trace reads),
+    "profiled": device_busy's (busy, wall, top) of block 2's pull or
+    None, "causes": the cold run's launches by cause or None}."""
+    import threading
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.comm import rpc as rpcmod
+    from fabric_tpu_torch.gossip.state import MSG_BLOCK
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.msp.ca import DevOrg
+    from fabric_tpu_torch.node.peer import RemoteDeliver
+    c = ctx
+    msps, store, registrar = c["msps"], c["store"], c["registrar"]
+    provider, mem_rows = c["provider"], c["mem_rows"]
+    tally, default = None, factory.get_default()
+    # (committer's provider, MCS's provider) a peer
+    provs = {"peer1": (provider, provider), "peer2": (provider, provider)}
+    if cold:
+        tally, lock = {}, threading.Lock()
+        factory.set_default(_ByCause(provider, None, tally, lock))
+        provs = {"peer1": (_ByCause(provider, "commit_peer1", tally, lock),
+                           _ByCause(provider, "orderer_sig", tally, lock)),
+                 "peer2": (_ByCause(provider, "commit_peer2", tally, lock),
+                           _ByCause(provider, "gossip_mcs", tally, lock))}
+    hold = threading.Event() if held else None
+    rows, walls, profiled, peers = [], {}, None, []
+    try:
+        p1 = intake_peer("peer1", provs["peer1"][0], c["signers"][0], msps,
+                         c["dev"], mcs_provider=provs["peer1"][1])
+        peers.append(p1)
+        p2 = intake_peer("peer2", provs["peer2"][0], c["signers"][1], msps,
+                         c["dev"], mcs_provider=provs["peer2"][1])
+        peers.append(p2)
+        intake_node(p1, p2, RemoteDeliver([c["orderer"].addr], p1.signer,
+                                          msps))
+        intake_node(p2, p1, hold=hold)
+        # membership: each peer's signed alive reaches the other
+        for _ in range(3):
+            for p in (p1, p2):
+                p.node.discovery.tick()
+            for p, q in ((p1, p2), (p2, p1)):
+                deadline = time.perf_counter() + 30.0
+                while (not p.node.discovery.is_alive(q.transport.id)
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.01)
+        check(p1.node.discovery.alive_ids() == [p2.transport.id]
+              and p2.node.discovery.alive_ids() == [p1.transport.id],
+              "intake: membership did not form")
+        excluded_s, seen = 0.0, set()
+        with Traced() as tracer:
+            t_first = time.perf_counter()
+            for num in range(len(c["raws"])):
+                if cold and num == INTAKE_TAMPERED:
+                    d0 = time.perf_counter()
+                    # a tampered copy gossiped to peer 2 under a trace of
+                    # its own, complete once peer 2's handler returned
+                    with tracer.start_span("intake.drill"):
+                        p1.node.endpoint.send(p2.transport.id, MSG_BLOCK, {
+                            "block": tampered_block(store.get_by_number(
+                                num)).serialize()})
+                    drill = new_trace(tracer, "intake.drill", seen,
+                                      lambda sp: any(
+                                          x["name"] == "rpc.gossip.msg"
+                                          for x in sp))
+                    check(any(x["name"] == "bccsp.batch_verify"
+                              for x in drill)
+                          and p2.ledger.height == num
+                          and p2.node.state.buffered == [],
+                          "intake: peer 2's MCS took a tampered block")
+                    # then the orderer's tampered copy to peer 1
+                    registrar.tamper = num
+                    got = p1.node.provider.pull_window()
+                    check(got == 0 and p1.ledger.height == num
+                          and p1.node.state.buffered == [],
+                          "intake: a block with a corrupted orderer "
+                          "signature was not dropped")
+                    excluded_s += time.perf_counter() - d0
+                    phase("intake", run=run, drill=f"tampered block {num}: "
+                          "dropped by peer 1's deliver check, refused by "
+                          "peer 2's gossip MCS")
+
+                def pull():
+                    check(p1.node.provider.pull_window() == 1,
+                          f"intake: block {num} was not accepted")
+                excluded_before = excluded_s
+                if cold and num == 2:
+                    (profiled,) = device_busy(
+                        torch, {f"peer1 block {num}": pull}).values()
+                else:
+                    pull()
+                if hold is not None:
+                    hold.set()
+                for p in (p1, p2):
+                    wait_height(p, num + 1, f"{run} block {num}")
+                row, ends = intake_row(new_trace(
+                    tracer, "gossip.pull_window", seen, _pull_done))
+                if hold is not None:
+                    hold.clear()
+                walls = {k: round((v - excluded_before - t_first) * 1e3, 3)
+                         for k, v in ends.items()}
+                for p in (p1, p2):
+                    check_block_rows(p, num, mem_rows)
+                excluded_s += time.perf_counter() - max(ends.values())
+                row = {"block": num, "txs": len(mem_rows[num][0]),
+                       "bytes": c["sizes"][num], **row}
+                rows.append(row)
+                phase("intake", run=run, **row)
+        if cold:
+            # a rogue org's client is refused at peer 1's handshake
+            evil = DevOrg("Evil")
+            rogue = rpcmod.connect(
+                p1.rpc.addr, evil.new_identity("rogue"),
+                {**msps, "Evil": CachedMSP(evil.msp())}, timeout=30.0)
+            try:
+                rogue.call("gossip.status", {}, timeout=30.0)
+                check(False, "intake: a rogue-org client was served")
+            except rpcmod.RpcClosed:
+                pass                   # refused: the server hung up
+            finally:
+                rogue.close()
+            phase("intake", run=run, drill="rogue-org client refused at "
+                  "peer 1's handshake")
+    finally:
+        factory.set_default(default)
+        for p in peers:
+            p.transport.close()
+            p.rpc.stop()
+    return {"rows": rows, "walls": walls, "profiled": profiled,
+            "causes": tally}
+
+
+def intake_phase(torch, args, provider, orgs, raws, mem_rows, fns,
+                 name_power, dev) -> dict:
+    """Phase 14.  The peer's block intake on the card.  `provider` is the
+    factory's default, the CUDA provider (fail-stop: a failed launch
+    raises and fails the phase).  An orderer stand-in (the port's
+    RpcServer, DeliverHandler and BlockWriter, an orderer org's identity)
+    holds phase 6's stream; peer 1 pulls it through `RemoteDeliver` (the
+    GossipNode's BlocksProvider, one block a pull), checks each block's
+    orderer signature through its MCS and hands it to gossip and its
+    Coordinator; peer 2 gets the blocks only by gossip, each checked by
+    its MCS.  After every block both peers' flags, metadata flags, state,
+    history and commit hash equal phase 6's (`mem_rows`).  The cold run
+    holds the drills (block INTAKE_TAMPERED first served with a
+    corrupted orderer signature: dropped, then the good one commits; a
+    tampered copy gossiped to peer 2: refused by its MCS; a rogue-org
+    client refused at peer 1's handshake), block 2's profile and the
+    launches by cause; its two peers commit at once.  Then, unless the
+    AEAD is the lite one (its bytes make a run ~100 s), INTAKE_WARM warm
+    runs with peer 2's commit held until peer 1's is done, so each peer's
+    commit is timed alone, as a peer in a process of its own commits.
+    Layer times come from each pull's trace.  -> {kernel: launches} of
+    the phase (every count set to 0 just before it, read just after)."""
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.bccsp.cuda import CudaProvider
+    from fabric_tpu_torch.comm import secure
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.msp.ca import DevOrg
+    t_phase = time.perf_counter()
+    check(type(provider) is CudaProvider
+          and factory.get_default() is provider,
+          "intake: the factory's default is not the CUDA provider")
+    fb0 = provider.stats["fallbacks"]
+    order_org = DevOrg("OrdererOrg")
+    msps = {o.mspid: CachedMSP(o.msp()) for o in list(orgs) + [order_org]}
+    rates = transport_rates()
+    orderer, registrar, store = intake_orderer(
+        raws, order_org.new_identity("orderer0"), msps)
+    sizes = [len(store.get_by_number(n).serialize())
+             for n in range(len(raws))]
+    phase("intake", card=name_power, blocks=len(raws), block_bytes=sizes,
+          max_frame=secure.MAX_FRAME, **rates)
+    check(max(sizes) < secure.MAX_FRAME, "intake: a block exceeds MAX_FRAME")
+    lite = rates["aead"] == "lite"
+    n_warm = 0 if lite else min(args.trials, INTAKE_WARM)
+    ctx = {"msps": msps, "store": store, "registrar": registrar,
+           "orderer": orderer, "raws": raws, "sizes": sizes,
+           "mem_rows": mem_rows, "dev": dev, "provider": provider,
+           "signers": (orgs[0].new_identity("peer1"),
+                       orgs[1].new_identity("peer2"))}
+    for f in fns.values():
+        f.launches = 0
+    try:
+        cold = intake_run(torch, ctx, "cold", cold=True)
+        cold_launches = {n: f.launches for n, f in fns.items()}
+        warm = [intake_run(torch, ctx, f"warm{t + 1}-held", held=True)
+                for t in range(n_warm)]
+        launches = {n: f.launches for n, f in fns.items()}
+    finally:
+        orderer.stop()
+    check_launches("intake", launches, ("p256_verify_rows", "p256_verify"))
+    by_cause = cold["causes"]
+    for cause in ("handshake", "alive", "orderer_sig", "gossip_mcs",
+                  "commit_peer1", "commit_peer2"):
+        check(any(k.startswith(cause + ".") and n
+                  for k, n in by_cause.items()),
+              f"intake: no KP3/KP2 launch for {cause}")
+    for kern, name in (("kp3", "p256_verify_rows"), ("kp2", "p256_verify")):
+        check(sum(n for k, n in by_cause.items() if k.endswith("." + kern))
+              == cold_launches[name],
+              f"intake: {kern} launches by cause != its count in the cold "
+              "run")
+    check(provider.stats["fallbacks"] == fb0 == 0, "intake: fallbacks != 0")
+    phase("intake", run="cold", stream="both peers equal to phase 6's host "
+          "stack after every block (flags, metadata flags, state, history, "
+          "commit hash)", wall_ms_first_pull_to_last_commit=cold["walls"],
+          launches_by_cause={k: n for k, n in sorted(by_cause.items())
+                             if n})
+    if warm:
+        for b in range(len(raws)):
+            phase("intake", commits="held", warm_median_of=len(warm),
+                  block=b, **{k: round(statistics.median(
+                      r["rows"][b][k] for r in warm), 3)
+                      for k in INTAKE_ROW})
+        walls = {k: [r["walls"][k] for r in warm] for k in ("peer1",
+                                                              "peer2")}
+        phase("intake", commits="held", warm_median_of=len(warm),
+              wall_ms_first_pull_to_last_commit={
+                  k: round(statistics.median(v), 3)
+                  for k, v in walls.items()},
+              wall_ms_min_max={k: (min(v), max(v))
+                               for k, v in walls.items()})
+    else:
+        phase("intake", warm="no warm run: the lite AEAD's bytes make a "
+              "run ~100 s")
+    busy, wall, top = cold["profiled"]
+    phase("intake", profiled="peer1 block 2, cold run", wall_ms=round(wall, 3),
+          device_busy_ms=round(busy, 3),
+          device_idle_share=round(1 - busy / wall, 4), top_device_ops=top,
+          note="peer 2's work for block 2 runs in the same process and "
+          "counts when it starts inside the window")
+    phase("intake", main_path=launches, runs=1 + len(warm),
+          provider=provider.name, fallbacks=0, card=name_power,
+          seconds=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+def intake_only(torch, args) -> int:
+    """`--intake-only`: phase 14 alone.  Builds the kernels, the commit
+    stream (spawn pool) and, for the reference rows, the stream through
+    the host stack on the CUDA provider (phase 6's host stack), then
+    runs `intake_phase`; prints no result line."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
+    from fabric_tpu_torch.ops import _build, p256, p256_fixed
+    built = _build.build_all(force=True)
+    phase("build", libs=sorted(built))
+    native.build("der")
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
+        orgs, signers, endorsers, clients = commit_identities()
+        env_blocks, labels, _kinds = build_stream(
+            args.commit_txs, args.commit_last, signers, endorsers, clients,
+            pool)
+    raws = chain_blocks(env_blocks)
+    del env_blocks
+    provider = init_factories(FactoryOpts(default="CUDA"))
+    dev = torch.device("cuda")
+    host, _ = commit_stack(provider, orgs, False, dev)
+    mem_rows = [(r.final_flags.codes(), meta, after) for r, meta, _s, after
+                in commit_stream(host, raws, rows=True)]
+    check([c for c, _m, _r in mem_rows] == labels,
+          "intake-only: host stack flags != labels")
+    del host
+    fns = {"p256_verify_rows": p256_fixed.p256_verify_rows,
+           "p256_verify": p256.p256_verify}
+    intake_phase(torch, args, provider, orgs, raws, mem_rows, fns,
+                 smi("name,power.limit"), dev)
+    phase("done", by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -4036,6 +4721,10 @@ def main(argv=None) -> int:
                     help="phase 6's ops-plane check alone (the commit "
                     "stream, then a warm block 2 read back over HTTP); "
                     "prints no result line")
+    ap.add_argument("--intake-only", action="store_true",
+                    help="phase 14 alone (the kernels, the commit stream "
+                    "and its host-stack rows, then the intake); prints no "
+                    "result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4066,6 +4755,8 @@ def main(argv=None) -> int:
     print(name_power, flush=True)
     if args.ops_only:
         return ops_only(torch, args)
+    if args.intake_only:
+        return intake_only(torch, args)
 
     # --- 2. build ----------------------------------------------------------
     built = _build.build_all(force=True)
@@ -4774,6 +5465,11 @@ def main(argv=None) -> int:
     window_launches = window_phase(
         torch, args, provider, orgs, signers, commit_raws, commit_labels,
         mem_rows, durable_out, profiled_stream, fns, name_power, dev)
+
+    # --- 14. intake ----------------------------------------------------------
+    intake_launches = intake_phase(
+        torch, args, provider, orgs, commit_raws, mem_rows,
+        fns, name_power, dev)
     del mem_rows
 
     # --- 8. kernels ----------------------------------------------------------
@@ -4824,9 +5520,11 @@ def main(argv=None) -> int:
         *experiment_rows(exp_results, total, field_err),
     ]
     for row in kernels:
-        # phases 12's and 13's main-path launches, each in its own count
+        # phases 12's, 13's and 14's main-path launches, each in its own
+        # count
         row["classic_launches"] = classic_launches.get(row["name"], 0)
         row["window_launches"] = window_launches.get(row["name"], 0)
+        row["intake_launches"] = intake_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

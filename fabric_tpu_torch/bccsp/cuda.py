@@ -61,8 +61,9 @@ Unlike the reference, nothing falls back: a failed build of the C parser
 or of a kernel, a failed launch or a failed resolve raises, and
 `stats["fallbacks"]` stays 0.  The reference's (R, C) row grids, its
 bucket padding and its per-issuer idemix dispatches have no counterpart
-here (ROADMAP C5, C9).  The `stats` keys are the reference's, because
-the degrading wrapper of a later slice reads them.
+here (ROADMAP C5, C9).  The `stats` keys are the reference's; the
+port's degrading wrapper (`bccsp/degrade.py`, only when the factory is
+asked for it) does not read `fallbacks`, since this provider raises.
 
 Telemetry, as the reference's (`jaxtpu.py` `_observe_lane`,
 `batch_verify_async`): a `bccsp.batch_verify` span per call;

@@ -6,10 +6,15 @@ Counterpart of `fabric_tpu/bccsp/factory.py` (`FactoryOpts`,
 `placement` and `mesh_devices` follow the reference's rules: a mesh or
 a placement scheduler is built only when more than one CUDA device is
 visible (`device.visible_devices`), so on one card `use_mesh=True` gives
-the single-device provider.  The reference's XLA compile cache has no
-counterpart (the kernel build directory `build/kernels/` plays its part,
-filled by `node/warmup.py`), and its `degrade` wrapper comes with a later
-slice.
+the single-device provider.  `degrade` differs from the reference's
+auto rule, which wraps its device provider by default: here every kind
+is fail-stop unless the caller asks for `degrade=True`, so a failed
+launch raises instead of moving the batch to the host (ROADMAP C20).
+Asked for, the provider (and, under placement, each span's provider)
+is wrapped in `degrade.DegradingProvider` over a software fallback.
+The reference's XLA compile cache has no counterpart (the kernel
+build directory `build/kernels/` plays its part, filled by
+`node/warmup.py`).
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ class FactoryOpts:
     #                                  channel queue depth (parallel/placement)
     mesh_devices: Optional[int] = None   # cap the device count the mesh /
     #                                  placement scheduler may use (None: all)
+    degrade: bool = False            # wrap in DegradingProvider (breaker
+    #                                  + SW fallback on device sickness).
+    #                                  Off: fail-stop, a device fault
+    #                                  raises (the reference's auto rule
+    #                                  turns it on for its device kind)
 
 
 def init_factories(opts: Optional[FactoryOpts] = None) -> Provider:
@@ -71,10 +81,22 @@ def init_factories(opts: Optional[FactoryOpts] = None) -> Provider:
             def factory(m, device=None):
                 return CudaProvider(require_low_s=low_s, mesh=m,
                                     device=device)
+            wrap = None
+            if opts.degrade:
+                from .degrade import DegradingProvider
+
+                def wrap(p):
+                    return DegradingProvider(
+                        p, SoftwareProvider(require_low_s=low_s))
             _placement = PlacementScheduler(devices=devices,
-                                            provider_factory=factory)
+                                            provider_factory=factory,
+                                            wrap=wrap)
     else:
         raise ValueError(f"unknown BCCSP provider {opts.default!r}")
+    if opts.degrade:
+        from .degrade import DegradingProvider
+        _default = DegradingProvider(
+            _default, SoftwareProvider(require_low_s=opts.require_low_s))
     logger.info("BCCSP default provider: %s", _default.name)
     return _default
 

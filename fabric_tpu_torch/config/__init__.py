@@ -7,7 +7,7 @@ blocks.
 Counterpart of `fabric_tpu/config/`: `channelconfig.py` and
 `configtx.py`, whole.  Not ported yet: `localconfig.py` (the node's
 YAML-style local settings) and `lator.py` (configtxlator's JSON
-translation), which wait for the port's peer node (ROADMAP A4).
+translation), which wait for the port's peer node (ROADMAP A4c).
 """
 
 from .channelconfig import (

@@ -19,6 +19,13 @@ surfaces:
   lite modules (`lite_x509` and friends: serde-encoded "certs" in a PEM
   armour, not ASN.1).  This choice is made once, at import; the two
   modes are not wire-compatible, and a deployment runs one of them.
+- the secure channel's primitives (`comm/secure.py`), chosen as the
+  reference chooses them: `X25519PrivateKey` and `X25519PublicKey` from
+  `cryptography` when it is installed, else the pure-Python
+  `lite_x25519` (RFC 7748); `Aead` and `hkdf_sha256` from `aead`, whose
+  HKDF is the same in both modes and whose AEAD is ChaCha20-Poly1305
+  with `cryptography` and a hashlib construction without it (the two
+  AEAD modes are not wire-compatible either).
 """
 
 from __future__ import annotations
@@ -193,6 +200,8 @@ if HAVE_CRYPTOGRAPHY:  # pragma: no cover - exercised only with the real lib
     from cryptography import x509
     from cryptography.hazmat.primitives import hashes, serialization
     from cryptography.hazmat.primitives.asymmetric import ec, ed25519
+    from cryptography.hazmat.primitives.asymmetric.x25519 import (
+        X25519PrivateKey, X25519PublicKey)
     from cryptography.x509.oid import NameOID
 else:
     from . import lite_ec as ec
@@ -200,7 +209,10 @@ else:
     from . import lite_hashes as hashes
     from . import lite_serialization as serialization
     from . import lite_x509 as x509
+    from .lite_x25519 import X25519PrivateKey, X25519PublicKey
     from .lite_x509 import NameOID
+
+from .aead import Aead, hkdf_sha256
 
 
 __all__ = [
@@ -211,4 +223,5 @@ __all__ = [
     "p256_sign_digest", "p256_verify_digest",
     "ed25519_key_from_seed", "ed25519_generate", "ed25519_public_bytes",
     "ed25519_sign", "ed25519_verify",
+    "X25519PrivateKey", "X25519PublicKey", "Aead", "hkdf_sha256",
 ]

@@ -34,16 +34,18 @@ partial install and re-fetches.  After install the peer opens its
 ledger at the snapshot height and the deliver/gossip plane tail-replays
 to tip (blocks below the base read as pruned).
 
-Counterpart of `fabric_tpu/ledger/snapshot.py`: the serving side
-(`export_meta`, `serve_chunk`, the handlers of the two verbs) and the
-receiving side's `needs_bootstrap` and `install`.  Not ported yet: the
-fetch over comm/rpc (`_Fetcher`, `bootstrap_from_peers`,
-`_fetch_and_install`) and the verbs' names, which come with the port's
-peer.  The ops-plane events and counters are the reference's.
+Counterpart of `fabric_tpu/ledger/snapshot.py`, whole: the serving
+side (`export_meta`, `serve_chunk`, the handlers of the two verbs), the
+receiving side's `needs_bootstrap` and `install`, and the fetch over
+the authenticated RPC plane (`bootstrap_from_peers`, `_Fetcher`,
+`_fetch_and_install`), which speaks the reference's verbs byte for byte,
+so a port peer bootstraps from a reference peer and the reverse.  The
+ops-plane events and counters are the reference's.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import shutil
 import time
@@ -54,7 +56,11 @@ from fabric_tpu_torch.ledger.blkstorage import BOOTSTRAP_FILE, BlockStore
 from fabric_tpu_torch.protocol import block_header_hash
 from fabric_tpu_torch.protocol.types import META_COMMIT_HASH
 
+logger = logging.getLogger("fabric_tpu_torch.ledger.snapshot")
+
 CHUNK_BYTES = 256 * 1024
+META_VERB = "state.snapshot_meta"
+CHUNK_VERB = "state.snapshot_chunk"
 
 
 class SnapshotError(Exception):
@@ -247,3 +253,139 @@ def install(ledger_root: str, channel_id: str, meta: dict,
                       seconds=round(time.monotonic() - t0, 6))
     except Exception:
         pass
+
+
+class _Fetcher:
+    """One peer's fetch session: short per-chunk timeouts + redial-on-
+    close so seeded transfer faults (drop/delay/dup) cost a retry, not
+    the drill."""
+
+    def __init__(self, addr, signer, msps, chunk_timeout_s: float,
+                 attempts: int):
+        self.addr = addr
+        self.signer = signer
+        self.msps = msps
+        self.chunk_timeout_s = chunk_timeout_s
+        self.attempts = attempts
+        self._conn = None
+
+    def _connection(self):
+        if self._conn is None:
+            from fabric_tpu_torch.comm.rpc import connect
+            self._conn = connect(tuple(self.addr), self.signer, self.msps,
+                                 timeout=self.chunk_timeout_s)
+        return self._conn
+
+    def peer_identity(self):
+        """Handshake-verified identity of the serving peer (dials if
+        needed) — the standing check keys on WHO signed the handshake,
+        not the address we dialed."""
+        return getattr(self._connection().channel, "peer_identity", None)
+
+    def call(self, method: str, body: dict) -> dict:
+        from fabric_tpu_torch.comm.rpc import RpcError
+        last: Optional[Exception] = None
+        for attempt in range(self.attempts):
+            try:
+                return self._connection().call(
+                    method, body, timeout=self.chunk_timeout_s)
+            except RpcError as exc:      # includes RpcTimeout/RpcClosed
+                last = exc
+                self.close()
+                time.sleep(min(0.05 * (attempt + 1), 0.5))
+        raise SnapshotError(
+            f"{method} failed after {self.attempts} attempts "
+            f"against {self.addr}: {last}")
+
+    def fetch_file(self, channel_id: str, ent: dict) -> bytes:
+        buf = bytearray()
+        while True:
+            resp = self.call(CHUNK_VERB, {
+                "channel": channel_id, "db": ent["db"],
+                "gen": ent["gen"], "file": ent["file"],
+                "offset": len(buf)})
+            buf += resp["data"]
+            if resp["eof"]:
+                return bytes(buf)
+
+    def close(self) -> None:
+        if self._conn is not None:
+            try:
+                self._conn.close()
+            except Exception:
+                pass
+            self._conn = None
+
+
+def bootstrap_from_peers(ledger_root: str, channel_id: str, peers,
+                         signer, msps, chunk_timeout_s: float = 2.0,
+                         attempts: int = 12,
+                         source_blocked=None) -> dict:
+    """Fetch + verify + install a snapshot from the first peer that can
+    serve one.  -> {"height", "from", "files", "bytes", "seconds"}.
+
+    `source_blocked`: optional callable(handshake identity) -> bool.
+    Sources it flags (quarantined signers) are DEFERRED, not refused:
+    they are retried only after every honest source has failed, so a
+    convicted peer degrades the rejoin before it can strand it — and a
+    wiped peer (whose quarantine registry outlives its ledger) never
+    bootstraps from its convicted adversary while an honest source is
+    alive."""
+    t0 = time.monotonic()
+    last: Optional[Exception] = None
+    quarantined = []
+    for source_pass, addrs in (("honest", list(peers)), ("last-resort",
+                                                         quarantined)):
+        for addr in addrs:
+            fetcher = _Fetcher(addr, signer, msps, chunk_timeout_s,
+                               attempts)
+            try:
+                if (source_blocked is not None and source_pass == "honest"
+                        and source_blocked(fetcher.peer_identity())):
+                    quarantined.append(addr)
+                    last = SnapshotError(
+                        f"snapshot source {addr} is quarantined")
+                    logger.warning(
+                        "[%s] snapshot source %s is quarantined; "
+                        "deferring to last resort", channel_id, addr)
+                    continue
+                if source_pass == "last-resort":
+                    logger.warning(
+                        "[%s] no honest snapshot source left; last-"
+                        "resort fetch from quarantined %s", channel_id,
+                        addr)
+                return _fetch_and_install(fetcher, ledger_root,
+                                          channel_id, addr, t0)
+            except Exception as exc:
+                last = exc
+                logger.warning("[%s] snapshot fetch from %s failed: %s",
+                               channel_id, addr, exc)
+            finally:
+                fetcher.close()
+    raise SnapshotError(
+        f"no peer could serve a snapshot for {channel_id!r}: {last}")
+
+
+def _fetch_and_install(fetcher: "_Fetcher", ledger_root: str,
+                       channel_id: str, addr, t0: float) -> dict:
+    meta = fetcher.call(META_VERB, {"channel": channel_id})
+    payloads: Dict[str, List[bytes]] = {"state": [], "history": []}
+    total = 0
+    for ent in meta["files"]:
+        data = fetcher.fetch_file(channel_id, ent)
+        import hashlib
+        if hashlib.sha256(data).hexdigest() != ent["sha256"]:
+            raise SnapshotError(
+                f"hash mismatch for {ent['db']}/{ent['file']} "
+                f"from {addr}")
+        payloads[ent["db"]].append(data)
+        total += len(data)
+    install(ledger_root, channel_id, meta, payloads)
+    seconds = time.monotonic() - t0
+    logger.info(
+        "[%s] snapshot installed from %s: height=%d files=%d "
+        "bytes=%d in %.2fs", channel_id, addr, int(meta["height"]),
+        len(meta["files"]), total, seconds)
+    return {"height": int(meta["height"]), "from": list(addr),
+            "files": len(meta["files"]), "bytes": total,
+            "seconds": seconds}

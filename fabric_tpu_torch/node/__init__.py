@@ -1,2 +1,3 @@
 """Node tooling of the port (counterpart of `fabric_tpu/node`): so far
-its warmup."""
+its warmup, the orderer's identity loaders (`orderer`) and the peer's
+deliver client (`peer`)."""

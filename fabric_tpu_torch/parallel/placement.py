@@ -59,8 +59,8 @@ class PlacementScheduler:
         """`provider_factory(mesh, device=None) -> Provider` builds the
         per-span provider (mesh None and the span's device when the span
         is one device); `wrap(provider) -> provider` optionally decorates
-        each one once (the reference's factory passes its degradation
-        breaker here, a later slice's port)."""
+        each one once (the factory passes its degradation breaker,
+        `bccsp.degrade.DegradingProvider`, here when asked to degrade)."""
         if devices is None:
             from ..device import visible_devices
             devices = visible_devices()

@@ -41,6 +41,7 @@ from fabric_tpu_torch.bccsp import (FactoryOpts, SCHEME_ED25519,
 from fabric_tpu_torch.bccsp import factory
 from fabric_tpu_torch.bccsp import cuda as cudaprov
 from fabric_tpu_torch.bccsp.cuda import CudaProvider
+from fabric_tpu_torch.bccsp.degrade import DegradingProvider
 from fabric_tpu_torch.bccsp.sw import P256_N, SoftwareProvider
 from fabric_tpu_torch.ops import ed25519_tables, p256_tables
 
@@ -279,6 +280,11 @@ def test_factory_kinds(monkeypatch):
     assert p.name == "sw" and factory.get_default() is p
     p = init_factories(FactoryOpts(default="cuda", device="cpu"))
     assert isinstance(p, CudaProvider) and p.device.type == "cpu"
+    # the degrading breaker only when asked for (fail-stop by default)
+    p = init_factories(FactoryOpts(default="cuda", device="cpu",
+                                   degrade=True))
+    assert isinstance(p, DegradingProvider) and p.backend == "cuda"
+    assert isinstance(p.primary, CudaProvider) and p.device.type == "cpu"
     with pytest.raises(ValueError):
         init_factories(FactoryOpts(default="JAXTPU"))
     with pytest.raises(ValueError):

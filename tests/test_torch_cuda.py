@@ -1677,3 +1677,74 @@ def test_debug_profile_route_captures_a_cuda_trace(cuda_device):
         assert "cumulative" in body["pstats"]
     finally:
         srv.stop()
+
+
+# -- the peer's block intake: the secure channel and the degrading wrapper
+# on the card -------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_secure_handshake_verifies_on_the_cuda_default(cuda_device):
+    """A handshake whose default provider is the factory's (the CUDA
+    provider, fail-stop): each side's transcript signature is a one-item
+    batch on the generic lane, so a connection costs two KP2 launches in
+    one process, and no batch left the card."""
+    from fabric_tpu_torch.comm.rpc import RpcServer, connect
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.msp.ca import DevOrg
+    prov = init_factories(FactoryOpts(default="CUDA"))
+    assert isinstance(prov, CudaProvider)
+    try:
+        o1, o2 = DevOrg("Org1"), DevOrg("Org2")
+        msps = {o.mspid: CachedMSP(o.msp()) for o in (o1, o2)}
+        srv = RpcServer("127.0.0.1", 0, o1.new_identity("server"), msps)
+        srv.serve("echo", lambda body, ident: {"who": ident.mspid})
+        srv.start()
+        try:
+            before = (p256.p256_verify.launches,
+                      p256_fixed.p256_verify_rows.launches)
+            conn = connect(srv.addr, o2.new_identity("client"), msps,
+                           timeout=30.0)
+            try:
+                assert conn.channel.peer_identity.mspid == "Org1"
+                assert conn.call("echo", {}, timeout=30.0)["who"] == "Org2"
+            finally:
+                conn.close()
+            assert (p256.p256_verify.launches,
+                    p256_fixed.p256_verify_rows.launches) == (
+                        before[0] + 2, before[1])
+        finally:
+            srv.stop()
+        assert prov.stats["fallbacks"] == 0
+    finally:
+        init_factories(FactoryOpts(default="SW"))
+
+
+@pytest.mark.cuda
+def test_degrading_wrapper_stays_healthy_on_phase4_block(cuda_device):
+    """chip_smoke's phase 4 block (500 txs: 2,000 P-256 items with every
+    corruption kind, and the 64 Ed25519 items) through the factory's
+    provider asked to degrade, cold and warm: verdicts equal the labels,
+    the wrapper never leaves HEALTHY, no breaker transition, its SW
+    fallback verified nothing, `fallbacks` 0, and the CUDA provider's
+    lanes took every well-formed item."""
+    import chip_smoke as cs
+    from fabric_tpu_torch.bccsp.degrade import DegradingProvider
+    from fabric_tpu_torch.ops_plane import registry
+    items, labels, kinds = cs.build_block(500, _InProcess)
+    prov = init_factories(FactoryOpts(default="CUDA", degrade=True))
+    try:
+        assert isinstance(prov, DegradingProvider)
+        trans = registry.counter("bccsp_breaker_transitions_total", "")
+        t0 = trans.breakdown("to")
+        for _run in ("cold", "warm"):
+            got = prov.batch_verify(items)
+            np.testing.assert_array_equal(got, np.asarray(labels))
+            assert not prov.degraded and prov.backend == "cuda"
+            assert (prov.fallback_batches, prov.fallback_items) == (0, 0)
+        st = prov.primary.stats
+        assert st["fallbacks"] == 0
+        assert st["device_sigs"] + st["host_rejects"] == 2 * len(items)
+        assert trans.breakdown("to") == t0
+    finally:
+        init_factories(FactoryOpts(default="SW"))

@@ -17,8 +17,9 @@ packages after the same block stream, byte for byte, with host MVCC and
 with KV7's plain version; and each package reopening the other's
 directory and committing the next block to the same commit hash.
 
-No ledger module imports JAX; the reference's tests of the raft WAL and
-of snapshot transfer have no counterpart here (neither is ported)."""
+No ledger module imports JAX; the reference's tests of the raft WAL
+have no counterpart here (raft is not ported); snapshot transfer is
+held in tests/test_torch_snapshot.py and tests/test_torch_intake.py."""
 import dataclasses
 import importlib
 import json

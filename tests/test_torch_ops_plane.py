@@ -26,6 +26,7 @@ Two kinds of test:
 Tolerance: exact equality (times and host-specific values, named where
 they are left out, excepted)."""
 import ast
+import copy
 import importlib
 import inspect
 import json
@@ -76,12 +77,40 @@ RUNS = [(case, pkg) for case in CASES for pkg in PKGS
         if pkg == "fabric_tpu" or case not in REF_ONLY]
 
 
+def _series_state(reg) -> dict:
+    """Every metric's series (its private dicts) -> {metric: copies}."""
+    return {m: {k: copy.deepcopy(v) for k, v in vars(m).items()
+                if isinstance(v, dict)}
+            for m in reg.metrics().values()}
+
+
+def _restore_series(reg, state: dict) -> None:
+    """Put every metric's series back as `state` holds them; a metric
+    first made after `state` was taken keeps its object (modules hold
+    it) with its series emptied."""
+    for m in reg.metrics().values():
+        saved = state.get(m)
+        with m._lock:
+            for k, v in vars(m).items():
+                if isinstance(v, dict):
+                    setattr(m, k, saved[k] if saved is not None else {})
+
+
 @pytest.mark.parametrize("case,pkg", RUNS,
                          ids=[f"{f}::{t}-{p}" for (f, t), p in RUNS])
 def test_reference_scenario(case, pkg, request):
+    """The scenario runs against its package's process-wide registry;
+    its series are put back afterwards, so the reference's own test
+    files see the registry as they would without this module (their
+    counts, e.g. committed_blocks_total{channel="met"}, are exact)."""
     fn = getattr(scenario_module(case[0], pkg), case[1])
-    fn(**{a: request.getfixturevalue(a)
-          for a in inspect.signature(fn).parameters})
+    reg = ops(pkg).registry
+    state = _series_state(reg)
+    try:
+        fn(**{a: request.getfixturevalue(a)
+              for a in inspect.signature(fn).parameters})
+    finally:
+        _restore_series(reg, state)
 
 
 # ---------------------------------------------------------------------------

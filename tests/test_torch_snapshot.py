@@ -11,9 +11,9 @@ recovery counts.  Added: each package's export installed by both
 packages, the installed directories byte for byte, each opened by the
 other package and committing the same next block to the same commit
 hash; and the port's `LedgerConfig` fields against the reference's, by
-name and default.  The fetch over comm/rpc (`bootstrap_from_peers`) is
-not ported; blocks are built once, by the reference.  Tolerance: exact
-equality."""
+name and default.  The fetch over comm/rpc (`bootstrap_from_peers`)
+across the packages is held in tests/test_torch_intake.py; blocks are
+built once, by the reference.  Tolerance: exact equality."""
 import dataclasses
 import hashlib
 import importlib
