@@ -268,6 +268,45 @@ ends with one JSON line.  Phases:
              rogue-org client is refused at peer 1's handshake;
              `fallbacks` 0.  Its main-path launches are counted apart
              (the kernels line's `intake_launches`)
+15. endorse — (run after 14, before the kernels line) the endorsement
+             side on the factory's CUDA provider (fail-stop), the tracer
+             on: two endorsing peers (Org1 P-256, Org2 Ed25519), each
+             with its own in-memory ledger, the default peer's committer
+             on a LifecyclePolicyProvider under the privdata
+             coordinator (collection cc/secrets, Org1 only), an
+             ACLProvider over the channel's BundleSource and an Endorser
+             behind its own RpcServer (`endorse`); the same two on the
+             port's SoftwareProvider (the plain path); an orderer
+             stand-in (the port's BlockWriter) signs every block.
+             `_lifecycle`: both orgs approve cc (AND of the orgs), Org1
+             commits it, every peer's policy_for("cc") the same bytes; a
+             seed block of 20 txs creating 10,000 accounts; the load, one
+             block of 500 proposals (the channel's default
+             MaxMessageCount): 450 transfers (pairs sharing an account
+             conflict), 25 private writes, 10 transfers beyond the
+             balance, 5 bad signatures, 5 creators of an org outside the
+             channel, 5 queries, each through both endorsers in turn over
+             the RPC plane, profiled; every response's status, message,
+             payload and endorser equal the plain path's, each
+             endorsement verified on SW; the 200-status ones in one block
+             committed by both peers (peer 1 takes the private writes'
+             cleartext from its transient store, peer 2 hashes only),
+             flags, metadata flags, state, history, pvt store and commit
+             hash equal the plain peers' and the flags the mix's labels;
+             qscc (chain info, every block, every committed tx by id),
+             cscc and discovery through the ACL provider, decisions equal
+             SW's, discovery's layout {Org1: 1, Org2: 1}; each peer's
+             gossip state given a ByzantineMonitor and a ProofGossip, a
+             sibling of the last block signed by the orderer stand-in and
+             gossiped to peer 1 convicts the orderer, peer 2 re-verifies
+             the proof on the card and quarantines it too;
+             process_proposal p50/p99 per endorser and client org from
+             the tracer's spans (rpc.endorse, endorser.validate,
+             simulate, sign), proposals/s, each block's commit ms, qscc
+             ms, check_block ms, launches by kernel and cause, the
+             device's idle share over the load; `fallbacks` 0.  Its
+             launches are counted apart (the kernels line's
+             `endorse_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -292,6 +331,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
                           [--commit-txs N] [--commit-last N]
     python3 chip_smoke.py --ops-only   # phase 6's ops-plane check alone
     python3 chip_smoke.py --intake-only   # phase 14 alone
+    python3 chip_smoke.py --endorse-only  # phase 15 alone
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -572,10 +612,14 @@ def kernel_launcher(torch, lib_name: str, args, n: int):
     return run
 
 
-def device_busy(torch, runs: dict) -> dict:
+def device_busy(torch, runs: dict, threaded: bool = False) -> dict:
     """One profiled session over labelled runs, {label: fn} (each fn
     synchronises): -> {label: (device busy ms, wall ms, the three ops
-    with the most device time)}.  Each run is a range of its own
+    with the most device time)}.  `threaded`: the one run launches its
+    device work from other threads (an RPC server's handlers), which the
+    profiler does not tie to the caller's range, so its busy time is
+    every device event of the session after the marker's.  Each run is a
+    range of its own
     (`record_function`), which the profiler also spans on the device
     over the work launched inside it; a run's busy time is the sum of
     the device events (kernels, copies, memsets) that start inside its
@@ -587,6 +631,7 @@ def device_busy(torch, runs: dict) -> dict:
     marker for `profiling.MARKER_S` in a range of its own
     (`profiling.marker_warmup`); it fails unless the marker was
     recorded, or if a run records no device time."""
+    import types
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from fabric_tpu_torch.ops_plane.profiling import MARKER, marker_warmup
@@ -604,11 +649,18 @@ def device_busy(torch, runs: dict) -> dict:
              if e.name.startswith("busy:")}
     check(MARKER in spans, "device_busy: the marker was not recorded: the "
           "profiler was not yet recording")
+    check(not threaded or len(runs) == 1,
+          "device_busy: a threaded run is profiled alone")
     out = {}
     for label in runs:
-        check(label in spans, f"device_busy: {label}: the profiler recorded "
-              "no device time")
-        span, per_op = spans[label], {}
+        if threaded:
+            span = types.SimpleNamespace(start=spans[MARKER].end,
+                                         end=float("inf"))
+        else:
+            check(label in spans, f"device_busy: {label}: the profiler "
+                  "recorded no device time")
+            span = spans[label]
+        per_op = {}
         for e in device:
             if not e.name.startswith("busy:") and \
                     span.start <= e.time_range.start <= span.end:
@@ -4152,22 +4204,34 @@ def intake_orderer(raws, signer, msps):
 
 
 class _ByCause:
-    """The cold run's provider in front of `inner` for one cause: each
-    batch's KP3 and KP2 launches (the kernels' own counts, read before
-    and after its enqueue, where the CUDA provider launches) are added
-    to `tally["<cause>.kp3"]` and `tally["<cause>.kp2"]`.  Every facade
-    of the run shares one lock over its enqueue, so launches of
+    """A provider in front of `inner` for one cause: each batch's KP3,
+    KP2, KE6 and KE5 launches (the kernels' own counts, read before and
+    after its enqueue, where the CUDA provider launches) are added to
+    `tally["<cause>.kp3"]`, `".kp2"`, `".ke6"` and `".ke5"`.  Every
+    facade of a run shares one lock over its enqueue, so launches of
     concurrent peers are told apart.
-    `cause` None (the factory's default, which the secure channel and
-    the gossip messages' identities verify through) names each batch by
-    its caller on the stack: `comm/secure.py` `_verify_peer`
-    ("handshake"), `gossip/mcs.py` `verify_peer_msg` ("alive"), else
-    "other".  Anything else is the provider's."""
+    `cause` None (the factory's default, which identities verify
+    through) names each batch by its caller on the stack: `comm/secure.py`
+    `_verify_peer` ("handshake"), `gossip/mcs.py` `verify_peer_msg`
+    ("alive"), `endorser/endorser.py` `_validate` (a proposal's creator,
+    "proposal"), `byzantine/monitor.py` `verify_fraud_proof_strict` and
+    `verify_pardon_strict` (a received proof's or pardon's signatures,
+    "fraud_proof"), else "other".  Anything else is the provider's."""
 
     CALLERS = (("_verify_peer", os.path.join("comm", "secure.py"),
                 "handshake"),
                ("verify_peer_msg", os.path.join("gossip", "mcs.py"),
-                "alive"))
+                "alive"),
+               ("_validate", os.path.join("endorser", "endorser.py"),
+                "proposal"),
+               ("verify_fraud_proof_strict",
+                os.path.join("byzantine", "monitor.py"), "fraud_proof"),
+               ("verify_pardon_strict",
+                os.path.join("byzantine", "monitor.py"), "fraud_proof"))
+    KERNELS = (("kp3", "p256_fixed", "p256_verify_rows"),
+               ("kp2", "p256", "p256_verify"),
+               ("ke6", "ed25519", "ed25519_verify_rows"),
+               ("ke5", "ed25519", "ed25519_verify"))
 
     def __init__(self, inner, cause, tally, lock):
         self.inner, self.cause = inner, cause
@@ -4184,17 +4248,16 @@ class _ByCause:
         return "other"
 
     def batch_verify_async(self, items):
-        from fabric_tpu_torch.ops import p256, p256_fixed
+        import importlib
+        fns = [getattr(importlib.import_module(f"fabric_tpu_torch.ops.{m}"),
+                       f) for _k, m, f in self.KERNELS]
         cause = self.cause or self._caller()
         with self.lock:
-            n0 = (p256_fixed.p256_verify_rows.launches,
-                  p256.p256_verify.launches)
+            n0 = [f.launches for f in fns]
             resolve = self.inner.batch_verify_async(items)
-            n1 = (p256_fixed.p256_verify_rows.launches,
-                  p256.p256_verify.launches)
-            for kern, a, b in zip(("kp3", "kp2"), n0, n1):
+            for (kern, _m, _f), f, a in zip(self.KERNELS, fns, n0):
                 key = f"{cause}.{kern}"
-                self.tally[key] = self.tally.get(key, 0) + b - a
+                self.tally[key] = self.tally.get(key, 0) + f.launches - a
         return resolve
 
     def batch_verify(self, items):
@@ -4703,6 +4766,793 @@ def intake_only(torch, args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the endorsement side (phase 15): `_lifecycle`, the endorser behind the
+# RPC plane, the endorsed blocks' commit under the privdata coordinator,
+# qscc / cscc / discovery through the ACL provider, and the byzantine
+# plane on gossip
+# ---------------------------------------------------------------------------
+
+ENDORSE_ACCOUNTS = 10_000      # seeded in one block of ENDORSE_SEED_TXS
+ENDORSE_SEED_TXS = 20          # txs of 500 writes each
+ENDORSE_CLIENTS = 8            # a org: Org1 P-256, Org2 Ed25519
+# one block of proposals: 500, the channel's default BatchSize
+# MaxMessageCount (config/channelconfig.py), the largest block a
+# channel cuts by count
+ENDORSE_MIX = (("transfer", 450), ("private", 25), ("poor", 10),
+               ("bad_sig", 5), ("outsider", 5), ("query", 5))
+ENDORSE_SUBMITTED = ("transfer", "private")
+ENDORSE_RESPONSES = {"transfer": (200, ""), "private": (200, ""),
+                     "query": (200, ""), "poor": (500, "insufficient funds"),
+                     "bad_sig": (500, "bad proposal signature"),
+                     "outsider": (500, "unknown or invalid creator identity")}
+ENDORSE_BALANCE = 1_000
+ENDORSE_POLICY = "AND('Org1.member', 'Org2.member')"
+ENDORSE_MAJORITY = "OutOf(2, 'Org1.member', 'Org2.member')"
+ENDORSE_COLLECTION = "secrets"
+ENDORSE_SPANS = ("rpc.endorse", "endorser.validate", "endorser.simulate",
+                 "endorser.sign")
+ENDORSE_CAUSES = ("handshake", "proposal", "acl", "commit_peer1",
+                  "commit_peer2", "scc_acl", "gossip_mcs", "fraud_proof")
+ENDORSE_WAIT_S = 120.0         # bound on one wait for a trace's fragments
+
+
+def endorse_contract():
+    """The channel's chaincode `cc`: seed accounts, transfer between two
+    (a read and a write of each), get, and a private write into the
+    Org1-only collection."""
+    from fabric_tpu_torch.chaincode import SimulationError
+    from fabric_tpu_torch.chaincode.runtime import FuncContract
+
+    def seed(stub, *pairs):
+        for i in range(0, len(pairs), 2):
+            stub.put_state(pairs[i].decode(), pairs[i + 1])
+        return str(len(pairs) // 2).encode()
+
+    def transfer(stub, frm, to, amt):
+        a = int(stub.get_state(frm.decode()) or b"0")
+        b = int(stub.get_state(to.decode()) or b"0")
+        n = int(amt)
+        if a < n:
+            raise SimulationError("insufficient funds")
+        stub.put_state(frm.decode(), str(a - n).encode())
+        stub.put_state(to.decode(), str(b + n).encode())
+        return b"ok"
+
+    def get(stub, key):
+        v = stub.get_state(key.decode())
+        if v is None:
+            raise SimulationError("no such key")
+        return v
+
+    def put_private(stub, key, value):
+        stub.put_private_data(ENDORSE_COLLECTION, key.decode(), value)
+        return b"ok"
+
+    return FuncContract(seed=seed, transfer=transfer, get=get,
+                        put_private=put_private)
+
+
+def endorse_ids():
+    """Org1 (P-256) and Org2 (Ed25519), each with its endorsing peer,
+    admin and ENDORSE_CLIENTS clients; the orderer stand-in's org; a
+    client of an org outside the channel."""
+    import types
+    from fabric_tpu_torch.bccsp import SCHEME_ED25519
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.msp.ca import DevOrg
+    orgs = (DevOrg("Org1"), DevOrg("Org2", scheme=SCHEME_ED25519))
+    order_org = DevOrg("OrdererOrg")
+    return types.SimpleNamespace(
+        orgs=orgs, orderer=order_org.new_identity("orderer0"),
+        peers=tuple(o.new_identity(f"peer{i + 1}")
+                    for i, o in enumerate(orgs)),
+        clients=[orgs[i % 2].new_identity(f"client{i}")
+                 for i in range(2 * ENDORSE_CLIENTS)],
+        outsider=DevOrg("Org9").new_identity("mallory"),
+        msps={o.mspid: CachedMSP(o.msp())
+              for o in list(orgs) + [order_org]})
+
+
+def endorse_source(orgs):
+    """The channel's config: the two application orgs, the default
+    policies and ACLs."""
+    from fabric_tpu_torch import config as C
+    return C.BundleSource(C.Bundle(C.ChannelConfig(
+        channel_id="ch", sequence=0,
+        orgs=tuple(org_config(C, o) for o in orgs),
+        policies=C.default_policies([o.mspid for o in orgs]))))
+
+
+def endorse_peer(name, index, ids, provider, acl_provider, dev):
+    """One org's endorsing peer: KVLedger (in memory, 8 state shards),
+    the default peer's committer (classic tail, key-level endorsement
+    from state) with `LifecyclePolicyProvider` as its policies (the
+    channel default and `_lifecycle`'s own: MAJORITY of the two orgs;
+    the collection's hashed namespace, which has no `_lifecycle`
+    definition, takes ENDORSE_POLICY), the privdata coordinator
+    (collection `cc/secrets`, Org1 only), the chaincode registry (`cc`,
+    `_lifecycle`), an ACLProvider over the channel's BundleSource on
+    `acl_provider`, and the Endorser -> a namespace."""
+    import types
+    from fabric_tpu_torch.chaincode import (LIFECYCLE_NS, ChaincodeDefinition,
+                                            ChaincodeRegistry,
+                                            LifecycleContract,
+                                            LifecyclePolicyProvider)
+    from fabric_tpu_torch.endorser import Endorser
+    from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
+    from fabric_tpu_torch.policy import ACLProvider, parse_policy
+    from fabric_tpu_torch.privdata import (CollectionRegistry, Coordinator,
+                                           PvtDataStore, TransientStore)
+    from fabric_tpu_torch.privdata.collection import (CollectionConfig,
+                                                      pvt_namespace)
+    org = ids.orgs[index]
+    signer = ids.peers[index]
+    msps = {o.mspid: ids.msps[o.mspid] for o in ids.orgs}
+    ledger = KVLedger("ch", LedgerConfig(state_shards=8))
+    policies = LifecyclePolicyProvider(
+        ledger.statedb, default=parse_policy(ENDORSE_MAJORITY))
+    policies.set_policy(LIFECYCLE_NS, parse_policy(ENDORSE_MAJORITY))
+    policies.set_policy(pvt_namespace("cc", ENDORSE_COLLECTION),
+                        parse_policy(ENDORSE_POLICY))
+    registry = ChaincodeRegistry()
+    registry.install(ChaincodeDefinition("cc", "1.0"), endorse_contract())
+    registry.install(ChaincodeDefinition(LIFECYCLE_NS, "1.0"),
+                     LifecycleContract([o.mspid for o in ids.orgs]))
+    committer, _ = wire_stack(ledger, provider, policies, msps, dev,
+                              classic=True)
+    collections = CollectionRegistry()
+    collections.define("cc", CollectionConfig(ENDORSE_COLLECTION,
+                                              member_orgs=("Org1",)))
+    transient, pvt = TransientStore(), PvtDataStore()
+    source = endorse_source(ids.orgs)
+    acl = ACLProvider(source, acl_provider)
+    return types.SimpleNamespace(
+        name=name, mspid=org.mspid, signer=signer, ledger=ledger,
+        policies=policies, committer=committer, transient=transient,
+        pvt=pvt, source=source, acl=acl, msps=msps,
+        coordinator=Coordinator(committer, collections, transient, pvt,
+                                mspid=org.mspid),
+        endorser=Endorser("ch", ledger.statedb, registry, msps, provider,
+                          signer, transient_store=transient, pvt_store=pvt,
+                          ledger_height=lambda: ledger.height, acl=acl),
+        rpc=None, commit_ms=[])
+
+
+def endorse_rows(peer) -> tuple:
+    """(state, history, pvt store, transient store size, commit hash,
+    height) of a peer."""
+    pvt = (sorted(peer.pvt._state.items()), sorted(peer.pvt._by_txid.items()))
+    return (*ledger_rows(peer.ledger), pvt, len(peer.transient),
+            peer.ledger.commit_hash, peer.ledger.height)
+
+
+def serve_endorse(peer, msps):
+    """`peer`'s Endorser behind its own RpcServer, method `endorse`, as
+    the reference peer node's `_rpc_endorse` serves it."""
+    from fabric_tpu_torch.comm.rpc import RpcServer
+    from fabric_tpu_torch.endorser.proposal import SignedProposal
+
+    def endorse(body, peer_identity):
+        resp = peer.endorser.process_proposal(
+            SignedProposal(body["proposal"], body["signature"]))
+        out = {"status": resp.status, "message": resp.message,
+               "payload": resp.payload}
+        if resp.endorsement is not None:
+            out["endorser"] = resp.endorsement.endorser
+            out["endorsement_sig"] = resp.endorsement.signature
+        return out
+    srv = RpcServer("127.0.0.1", 0, peer.signer, msps)
+    srv.serve("endorse", endorse)
+    peer.rpc = srv.start()
+
+
+def rpc_endorse(conn, sp):
+    """One proposal through an endorser's RPC -> ProposalResponse."""
+    from fabric_tpu_torch.endorser import ProposalResponse
+    from fabric_tpu_torch.protocol.types import Endorsement
+    out = conn.call("endorse", {"proposal": sp.proposal_bytes,
+                                "signature": sp.signature}, timeout=60.0)
+    e = (Endorsement(out["endorser"], out["endorsement_sig"])
+         if "endorser" in out else None)
+    return ProposalResponse(out["status"], out["message"], out["payload"], e)
+
+
+def endorse_load(ids, seed: int) -> list:
+    """The load block's proposals, signed: (kind, client, signed
+    proposal, accounts) in a seeded order.  Transfers move 1-9 units
+    between two seeded accounts drawn at random (pairs that share an
+    account conflict at commit), `poor` ones more than any balance;
+    private writes go to the Org1 collection; `bad_sig` has its
+    signature's last byte flipped; `outsider` is signed by a client of
+    an org outside the channel; `query` reads an account."""
+    from fabric_tpu_torch.endorser import signed_proposal
+    from fabric_tpu_torch.endorser.proposal import SignedProposal
+    rng = random.Random(seed)
+    kinds = [k for k, n in ENDORSE_MIX for _ in range(n)]
+    rng.shuffle(kinds)
+    out = []
+    for i, kind in enumerate(kinds):
+        client = ids.clients[i % len(ids.clients)]
+        a, b = rng.sample(range(ENDORSE_ACCOUNTS), 2)
+        acct = (f"acct{a:05d}", f"acct{b:05d}")
+        if kind in ("transfer", "poor", "bad_sig", "outsider"):
+            amt = (ENDORSE_BALANCE * 1000 if kind == "poor"
+                   else rng.randrange(1, 10))
+            fn, args = "transfer", [acct[0].encode(), acct[1].encode(),
+                                    str(amt).encode()]
+        elif kind == "private":
+            fn, args = "put_private", [f"secret{i:04d}".encode(),
+                                       rng.randbytes(32)]
+        else:
+            fn, args = "get", [acct[0].encode()]
+        signer = ids.outsider if kind == "outsider" else client
+        sp = signed_proposal("ch", "cc", fn, args, signer)
+        if kind == "bad_sig":
+            sig = bytearray(sp.signature)
+            sig[-1] ^= 1
+            sp = SignedProposal(sp.proposal_bytes, bytes(sig))
+        out.append((kind, client, sp, acct if kind == "transfer" else ()))
+    return out
+
+
+def endorse_labels(load) -> list:
+    """The load block's expected flags: a transfer is MVCC_READ_CONFLICT
+    (11) when an earlier valid tx of the block wrote one of its accounts,
+    else VALID; a private write (hashed key, no read) is VALID."""
+    written, out = set(), []
+    for kind, _c, _sp, acct in load:
+        if kind not in ENDORSE_SUBMITTED:
+            continue
+        if written.intersection(acct):
+            out.append(11)
+            continue
+        written.update(acct)
+        out.append(0)
+    return out
+
+
+def forge_sibling(block, signer):
+    """A sibling of `block`: the same number and previous hash, one more
+    envelope (so another header hash), signed by `signer` the block
+    writer's way — two validly signed headers at one height."""
+    from fabric_tpu_torch.orderer import block_signed_bytes
+    from fabric_tpu_torch.protocol.build import new_nonce
+    from fabric_tpu_torch.protocol.types import (META_LAST_CONFIG,
+                                                 META_SIGNATURES, Block,
+                                                 BlockHeader, BlockMetadata,
+                                                 block_data_hash)
+    data = [bytes(d) for d in block.data]
+    data.append(data[-1])
+    forged = Block(BlockHeader(block.header.number,
+                               block.header.previous_hash,
+                               block_data_hash(data)), data,
+                   BlockMetadata({META_LAST_CONFIG: 0}))
+    sig_header = {"creator": signer.serialize(), "nonce": new_nonce()}
+    forged.metadata.items[META_SIGNATURES] = [{
+        "sig_header": sig_header,
+        "signature": signer.sign(block_signed_bytes(forged, sig_header, 0))}]
+    return forged
+
+
+def pct(vals, q: float) -> float:
+    """The q-quantile of `vals` (nearest rank), unrounded."""
+    s = sorted(vals)
+    return s[min(len(s) - 1, max(0, int(round(q * len(s) + 0.5)) - 1))]
+
+
+def endorse_phase(torch, args, provider, fns, name_power, dev) -> dict:
+    """Phase 15.  The endorsement side on the card, on the factory's
+    default CUDA provider (fail-stop), the tracer on.  Two endorsing
+    peers (Org1 P-256, Org2 Ed25519), each behind its RpcServer, and the
+    same two on the port's SoftwareProvider (the plain path) fed the
+    same proposals and blocks; an orderer stand-in (the port's
+    BlockWriter) signs every block.  (1) `_lifecycle`: both orgs approve
+    `cc` (AND of the orgs), Org1 commits it; every peer's
+    `policy_for("cc")` the same bytes.  (2) A seed block of
+    ENDORSE_SEED_TXS txs creating ENDORSE_ACCOUNTS accounts.  (3) The
+    load: ENDORSE_MIX's 500 proposals, each through both endorsers in
+    turn, one at a time over the RPC plane (the profiled run); the
+    200-status ones assembled into one block, committed by both peers
+    through the coordinator (peer 1 takes the private writes' cleartext
+    from its transient store, peer 2 keeps hashes).  (4) qscc (chain
+    info, every block, every committed tx by id), cscc and discovery
+    through the ACL provider.  (5) Each peer's gossip state gets a
+    ByzantineMonitor and a ProofGossip; the orderer stand-in signs a
+    sibling of the last committed block, gossiped to peer 1, which
+    convicts and gossips the fraud proof; peer 2 re-verifies it on the
+    card and both quarantine the orderer.  Checks: every response's
+    status, message, payload and endorser equal the plain path's, each
+    endorsement verifies on SW; flags, metadata flags, state, history,
+    pvt store and commit hash equal the plain peers' after every block,
+    the load block's flags the mix's labels; qscc equal to the block
+    store, every ACL decision equal SW's, discovery's layout {Org1: 1,
+    Org2: 1}; the monitor's verdicts; `fallbacks` 0; launches by cause
+    (KP2 and KE5 from proposals > 0, the commits' > 0).  -> {kernel:
+    launches} of the phase (every count set to 0 just before it, read
+    just after)."""
+    import shutil
+    import threading
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.bccsp.cuda import CudaProvider
+    from fabric_tpu_torch.bccsp.sw import SoftwareProvider
+    from fabric_tpu_torch.comm.rpc import connect
+    from fabric_tpu_torch.endorser import (assemble_transaction,
+                                           signed_proposal)
+    from fabric_tpu_torch.ledger.blkstorage import BlockStore
+    from fabric_tpu_torch.msp import deserialize_from_msps
+    from fabric_tpu_torch.orderer import BlockWriter
+    from fabric_tpu_torch.policy import parse_policy
+    from fabric_tpu_torch.protocol import Block
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    t_phase = time.perf_counter()
+    check(type(provider) is CudaProvider
+          and factory.get_default() is provider,
+          "endorse: the factory's default is not the CUDA provider")
+    fb0 = provider.stats["fallbacks"]
+    sw = SoftwareProvider()
+    ids = endorse_ids()
+    tally, lock = {}, threading.Lock()
+
+    def cause(name):
+        return _ByCause(provider, name, tally, lock)
+    cuda = [endorse_peer(f"peer{i + 1}", i, ids, cause(f"commit_peer{i + 1}"),
+                         cause("acl"), dev) for i in range(2)]
+    plain = [endorse_peer(f"peer{i + 1}-sw", i, ids, sw, sw, dev)
+             for i in range(2)]
+    store = BlockStore()
+    writer = BlockWriter("ch", store, signer=ids.orderer)
+    for f in fns.values():
+        f.launches = 0
+    factory.set_default(_ByCause(provider, None, tally, lock))
+    tmp = os.path.join("build", "endorse")
+    shutil.rmtree(tmp, ignore_errors=True)
+    conns, times = [], {}
+    try:
+        for p in cuda:
+            serve_endorse(p, ids.msps)
+        app = ids.clients[0]
+        conns = [connect(p.rpc.addr, app, ids.msps, timeout=30.0)
+                 for p in cuda]
+
+        def endorse(sp):
+            """`sp` through both CUDA endorsers over RPC, and through the
+            plain peers' endorsers, every field held equal."""
+            got = [rpc_endorse(c, sp) for c in conns]
+            endorse_compare(sp, got)
+            return got
+
+        def endorse_compare(sp, got):
+            default = factory.get_default()
+            factory.set_default(sw)
+            try:
+                want = [p.endorser.process_proposal(sp) for p in plain]
+                for g, w in zip(got, want):
+                    check((g.status, g.message, g.payload)
+                          == (w.status, w.message, w.payload)
+                          and (g.endorsement is None)
+                          == (w.endorsement is None),
+                          "endorse: a response != the plain path's")
+                    if g.endorsement is None:
+                        continue
+                    check(g.endorsement.endorser == w.endorsement.endorser,
+                          "endorse: endorser bytes != the plain path's")
+                    ident = deserialize_from_msps(
+                        plain[0].msps, g.endorsement.endorser)
+                    for e in (g.endorsement, w.endorsement):
+                        check(ident.verify(g.payload + e.endorser,
+                                           e.signature),
+                              "endorse: an endorsement does not verify "
+                              "on SW")
+                    if ident.mspid == "Org2":
+                        check(g.endorsement.signature
+                              == w.endorsement.signature,
+                              "endorse: Ed25519 endorsement != the plain "
+                              "path's")
+            finally:
+                factory.set_default(default)
+
+        def commit(envs, what):
+            """One block of `envs` written and signed by the orderer
+            stand-in, committed by the CUDA peers (each timed) and the
+            plain peers -> flags; every CUDA peer's flags, metadata flags
+            and rows equal its plain twin's."""
+            block = writer.write_block(writer.create_next_block(
+                [e.serialize() for e in envs]))
+            raw = block.serialize()
+            flags = []
+            for p, q in zip(cuda, plain):
+                b = Block.deserialize(raw)
+                t0 = time.perf_counter()
+                res = p.coordinator.store_block(b)
+                p.commit_ms.append((what, (time.perf_counter() - t0) * 1e3))
+                bq = Block.deserialize(raw)
+                resq = q.coordinator.store_block(bq)
+                check(res.final_flags.codes() == resq.final_flags.codes()
+                      and bytes(b.metadata.items[META_TXFLAGS])
+                      == bytes(bq.metadata.items[META_TXFLAGS])
+                      and endorse_rows(p) == endorse_rows(q),
+                      f"endorse {what}: {p.name} != the plain path's "
+                      "(flags, metadata flags, state, history, pvt store "
+                      "or commit hash)")
+                flags.append(res.final_flags.codes())
+            check(flags[0] == flags[1] and endorse_rows(cuda[0])[0]
+                  == endorse_rows(cuda[1])[0],
+                  f"endorse {what}: the two peers disagree")
+            return flags[0]
+
+        with Traced() as tracer:
+            tracer.recorder.max_traces = 4096
+            # 1. lifecycle: both orgs approve cc, then Org1 commits it
+            pol = parse_policy(ENDORSE_POLICY).serialize()
+            t0 = time.perf_counter()
+            for fn, orgs in (("approve_for_org", (0, 1)), ("commit", (0,))):
+                envs = []
+                for o in orgs:
+                    admin = ids.orgs[o].admin
+                    sp = signed_proposal("ch", "_lifecycle", fn,
+                                         [b"cc", b"1.0", b"1", pol], admin)
+                    envs.append(assemble_transaction(sp, endorse(sp),
+                                                     admin))
+                check(commit(envs, fn) == [0] * len(envs),
+                      f"endorse: lifecycle {fn} not valid")
+            for p in cuda + plain:
+                got = p.policies.policy_for("cc")
+                check(got is not None and got.serialize() == pol,
+                      f"endorse: {p.name}'s policy_for('cc') != the "
+                      "committed definition")
+            times["lifecycle_s"] = time.perf_counter() - t0
+            # 2. seed: ENDORSE_ACCOUNTS accounts in one block
+            t0 = time.perf_counter()
+            per = ENDORSE_ACCOUNTS // ENDORSE_SEED_TXS
+            envs = []
+            for t in range(ENDORSE_SEED_TXS):
+                client = ids.clients[t % len(ids.clients)]
+                pairs = [x for i in range(t * per, (t + 1) * per)
+                         for x in (f"acct{i:05d}".encode(),
+                                   str(ENDORSE_BALANCE).encode())]
+                sp = signed_proposal("ch", "cc", "seed", pairs, client)
+                envs.append(assemble_transaction(sp, endorse(sp), client))
+            check(commit(envs, "seed") == [0] * ENDORSE_SEED_TXS,
+                  "endorse: seed block not valid")
+            times["seed_s"] = time.perf_counter() - t0
+            # 3. the load: every proposal through both endorsers in turn
+            t0 = time.perf_counter()
+            load = endorse_load(ids, SEED + 15)
+            labels = endorse_labels(load)
+            times["sign_s"] = time.perf_counter() - t0
+            calls = []
+
+            def run_load():
+                for kind, client, sp, _acct in load:
+                    resps = []
+                    for peer, conn in zip(cuda, conns):
+                        c0 = time.perf_counter()
+                        with tracer.start_span(
+                                "endorse.call",
+                                attributes={"peer": peer.name}) as span:
+                            resps.append(rpc_endorse(conn, sp))
+                        calls.append((kind, client.mspid, peer.name,
+                                      (time.perf_counter() - c0) * 1e3,
+                                      span.context.trace_id))
+                    load_resps.append(resps)
+            load_resps = []
+            launches0 = {n: f.launches for n, f in fns.items()}
+            causes0 = dict(tally)
+            (profiled,) = device_busy(torch, {"endorse load": run_load},
+                                      threaded=True).values()
+            proposal_launches = {n: f.launches - launches0[n]
+                                 for n, f in fns.items()}
+            by_cause_load = {k: n - causes0.get(k, 0)
+                             for k, n in tally.items()}
+            t0 = time.perf_counter()
+            for (kind, _c, sp, _a), got in zip(load, load_resps):
+                want = ENDORSE_RESPONSES[kind]
+                check(all((r.status, r.message) == want for r in got),
+                      f"endorse: a {kind} proposal's responses "
+                      f"{[(r.status, r.message) for r in got]} != {want}")
+                endorse_compare(sp, got)
+            # the plain path's endorsers on the same proposals
+            times["compare_s"] = time.perf_counter() - t0
+            envs = [assemble_transaction(sp, got, client)
+                    for (kind, client, sp, _a), got in zip(load, load_resps)
+                    if kind in ENDORSE_SUBMITTED]
+            flags = commit(envs, "load")
+            check(flags == labels, "endorse: the load block's flags != the "
+                  f"mix's labels ({sum(f != 0 for f in flags)} invalid, "
+                  f"{sum(l != 0 for l in labels)} expected)")
+            p1, p2 = cuda
+            n_pvt = dict(ENDORSE_MIX)["private"]
+            check(len(p1.pvt._by_txid) == n_pvt and not p2.pvt._by_txid
+                  and len(p1.transient) == len(p2.transient) == 0,
+                  "endorse: private data: peer 1 should hold every "
+                  "cleartext, peer 2 none, both transient stores purged")
+            spans = endorse_spans(tracer, calls)
+        # 4. qscc, cscc, discovery through the ACL provider
+        scc = endorse_scc(cause, sw, ids, cuda[0], store)
+        # 5. the byzantine plane on gossip
+        byz = endorse_byzantine(ids, cuda, cause, store, tmp)
+    finally:
+        factory.set_default(provider)
+        for c in conns:
+            c.close()
+        for p in cuda:
+            if p.rpc is not None:
+                p.rpc.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {n: f.launches for n, f in fns.items()}
+    check_launches("endorse", launches, ("p256_verify", "ed25519_verify"),
+                   maybe=("p256_verify_rows", "ed25519_verify_rows"))
+    for kern in ("kp2", "ke5"):
+        check(by_cause_load.get(f"proposal.{kern}", 0) > 0,
+              f"endorse: no {kern} launch from the proposals")
+    for c in ENDORSE_CAUSES:
+        check(sum(n for k, n in tally.items() if k.startswith(c + ".")) > 0,
+              f"endorse: no launch for {c}")
+    check(sum(tally.values()) == sum(launches.values()),
+          "endorse: launches by cause != the phase's launches")
+    check(provider.stats["fallbacks"] == fb0 == 0, "endorse: fallbacks != 0")
+    # --- report ---
+    phase("endorse", card=name_power, accounts=ENDORSE_ACCOUNTS,
+          clients=len(ids.clients), mix=dict(ENDORSE_MIX),
+          submitted=len(labels), mvcc_conflicts=labels.count(11),
+          policy=ENDORSE_POLICY, **{k: round(v, 3) for k, v in times.items()})
+    for peer in ("peer1", "peer2"):
+        rows = [c for c in calls if c[2] == peer]
+        for org in ("Org1", "Org2"):
+            sel = [c for c in rows if c[1] == org]
+            ms = {"call_ms": [c[3] for c in sel]}
+            for name in ENDORSE_SPANS:
+                ms[name] = [spans[c[4]][name] for c in sel
+                            if name in spans[c[4]]]
+            phase("endorse", endorser=peer, client_org=org,
+                  proposals=len(sel),
+                  **{f"{k}_p50_ms": round(pct(v, 0.5), 3)
+                     for k, v in ms.items() if v},
+                  **{f"{k}_p99_ms": round(pct(v, 0.99), 3)
+                     for k, v in ms.items() if v})
+        total_s = sum(c[3] for c in rows) / 1e3
+        phase("endorse", endorser=peer, proposals=len(rows),
+              proposals_per_s=round(len(rows) / total_s, 3),
+              busy_s=round(total_s, 3))
+    for p in cuda:
+        phase("endorse", peer=p.name, commit_ms={
+            what: round(ms, 3) for what, ms in p.commit_ms})
+    busy, wall, top = profiled
+    phase("endorse", profiled=f"the load ({len(calls)} calls over RPC)",
+          wall_ms=round(wall, 3), device_busy_ms=round(busy, 3),
+          device_idle_share=round(1 - busy / wall, 4), top_device_ops=top)
+    phase("endorse", **scc)
+    phase("endorse", **byz)
+    phase("endorse", launches_by_cause_load={
+        k: n for k, n in sorted(by_cause_load.items()) if n},
+        launches_by_cause={k: n for k, n in sorted(tally.items()) if n},
+        load_launches=proposal_launches)
+    phase("endorse", main_path=launches, provider=provider.name,
+          fallbacks=0, card=name_power,
+          seconds=round(time.perf_counter() - t_phase, 1))
+    return launches
+
+
+def endorse_spans(tracer, calls) -> dict:
+    """{trace id: {span name: ms}} of each call's trace (ENDORSE_SPANS),
+    once its server fragment (`rpc.endorse` and its children) has landed;
+    each endorser span a child of `rpc.endorse`, that a child of the
+    client's `endorse.call`.  Waits at most ENDORSE_WAIT_S in all."""
+    out = {}
+    deadline = time.perf_counter() + ENDORSE_WAIT_S
+    for *_rest, tid in calls:
+        while True:
+            rec = tracer.recorder.get(tid)
+            by = {s["name"]: s for s in rec["spans"]} if rec else {}
+            if "rpc.endorse" in by and "endorse.call" in by:
+                break
+            check(time.perf_counter() < deadline,
+                  "endorse: a proposal's trace never got its server spans")
+            time.sleep(0.005)
+        check(by["rpc.endorse"]["parent_id"] == by["endorse.call"]["span_id"]
+              and all(by[n]["parent_id"] == by["rpc.endorse"]["span_id"]
+                      for n in ENDORSE_SPANS[1:] if n in by),
+              "endorse: the endorser's spans are not under rpc.endorse")
+        out[tid] = {n: by[n]["duration_s"] * 1e3 for n in ENDORSE_SPANS
+                    if n in by}
+    return out
+
+
+def endorse_scc(cause, sw, ids, peer, store) -> dict:
+    """qscc on peer 1's block store (chain info, every block by number
+    and by hash, every committed tx by id), cscc (the channel list and
+    config) and discovery (`cc`'s layouts), each call behind its ACL
+    resource on the CUDA provider (cause `scc_acl`), callers an Org1
+    (P-256) and an Org2 (Ed25519) client in turn; each answer against
+    the block store (and the orderer's headers), every decision of a
+    sweep (resources x a member of each org, a tampered signature, no
+    caller) equal to an ACLProvider's on SW -> the report's fields."""
+    import types
+    from fabric_tpu_torch.policy import ACLError, ACLProvider, SignedData
+    from fabric_tpu_torch.protocol import Envelope
+    from fabric_tpu_torch.scc import Cscc, DiscoveryService, Qscc
+    acl = ACLProvider(peer.source, cause("scc_acl"))
+    acl_sw = ACLProvider(peer.source, sw)
+    bs = peer.ledger.blockstore
+    sds = [SignedData(b"scc", c.serialize(), c.sign(b"scc"))
+           for c in ids.clients[:2]]
+    ms = {}
+
+    def timed(kind, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        ms.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    q = Qscc("ch", bs, acl=acl)
+    info = timed("GetChainInfo", q.get_chain_info, sds[0])
+    ci = bs.chain_info()
+    check(info == {"height": bs.height, "current_hash": ci.current_hash,
+                   "previous_hash": ci.previous_hash}
+          and bs.height == store.height,
+          "endorse: qscc GetChainInfo != the block store")
+    n_tx = 0
+    for num in range(bs.height):
+        sd = sds[num % 2]
+        blk = timed("GetBlockByNumber", q.get_block_by_number, num, sd)
+        check(blk.serialize() == bs.get_by_number(num).serialize()
+              and blk.header == store.get_by_number(num).header,
+              f"endorse: qscc block {num} != the block store's")
+        check(timed("GetBlockByHash", q.get_block_by_hash, blk.hash(),
+                    sd).serialize() == blk.serialize(),
+              f"endorse: qscc block {num} by hash != by number")
+        for raw in blk.data:
+            txid = Envelope.deserialize(raw).header().channel_header.txid
+            env = timed("GetTransactionByID", q.get_transaction_by_id,
+                        txid, sds[n_tx % 2])
+            check(env.serialize() == bytes(raw),
+                  f"endorse: qscc tx {txid} != the block's envelope")
+            n_tx += 1
+    cscc = Cscc()
+    cscc.register("ch", types.SimpleNamespace(bundle_source=peer.source))
+    acl.check_acl("cscc/GetChannels", sds[1])
+    check(timed("cscc.GetChannels", cscc.get_channels, sds[1]) == ["ch"],
+          "endorse: cscc channels")
+    acl.check_acl("cscc/GetChannelConfig", sds[0])
+    cfg = timed("cscc.GetChannelConfig", cscc.get_channel_config, "ch",
+                sds[0])
+    check(cfg.to_dict() == peer.source.current().config.to_dict(),
+          "endorse: cscc config != the channel's")
+    members = [{"id": "peer1", "mspid": "Org1", "roles": ["peer"]},
+               {"id": "peer2", "mspid": "Org2", "roles": ["peer"]}]
+    acl.check_acl("discovery/Discover", sds[1])
+    got = timed("discovery", DiscoveryService(
+        lambda: members, peer.policies.policy_for).endorsers, "cc")
+    layouts = [lay.as_dict() for lay in got["layouts"]]
+    check(layouts == [{"Org1:member": 1, "Org2:member": 1}],
+          f"endorse: discovery layouts {layouts}")
+    bad = SignedData(b"scc", sds[0].identity, sds[1].signature)
+
+    def decide(a, res, sd):
+        try:
+            a.check_acl(res, sd)
+            return "allow"
+        except ACLError as exc:
+            return f"deny: {exc}"
+    resources = ("qscc/GetChainInfo", "qscc/GetTransactionByID",
+                 "cscc/GetChannels", "cscc/JoinChain", "discovery/Discover",
+                 "peer/Propose")
+    sweep = [(r, i) for r in resources for i in range(4)]
+    callers = sds + [bad, None]
+    got = [decide(acl, r, callers[i]) for r, i in sweep]
+    want = [decide(acl_sw, r, callers[i]) for r, i in sweep]
+    check(got == want, "endorse: an ACL decision != SW's")
+    check(got.count("allow") == 2 * len(resources) - 2,
+          f"endorse: ACL sweep {got}")
+    return {"qscc_txs": n_tx, "qscc_blocks": bs.height,
+            "scc_ms_p50": {k: round(pct(v, 0.5), 3) for k, v in ms.items()},
+            "scc_ms_max": {k: round(max(v), 3) for k, v in ms.items()},
+            "acl_sweep": f"{len(sweep)} decisions equal SW's",
+            "discovery_layouts": layouts}
+
+
+def endorse_byzantine(ids, cuda, cause, store, root) -> dict:
+    """Each CUDA peer's GossipNode (an in-process network) with its
+    gossip state's ByzantineMonitor (witness log, quarantine registry
+    and fraud proofs under `root`) and ProofGossip, wired as the
+    reference's peer channel wires them; the MCS on the CUDA provider
+    (`gossip_mcs`).  The orderer's last block, gossiped again, is
+    stale; a sibling of it signed by the orderer stand-in, gossiped to
+    peer 1, is rejected and convicts the orderer (fork); peer 1's proof
+    reaches peer 2, which re-verifies it (`fraud_proof`: the accuser's
+    and the orderer's signatures on the card, its own chain the second
+    witness) and convicts; its relay back is a duplicate -> the
+    report's fields."""
+    from fabric_tpu_torch.byzantine import (ByzantineMonitor, ProofGossip,
+                                            QuarantineRegistry, WitnessLog)
+    from fabric_tpu_torch.gossip.comm import InProcNetwork
+    from fabric_tpu_torch.gossip.mcs import MessageCryptoService
+    from fabric_tpu_torch.gossip.node import GossipNode
+    from fabric_tpu_torch.gossip.state import MSG_BLOCK
+    from fabric_tpu_torch.orderer.cluster import cert_fingerprint
+    net = InProcNetwork()
+    nodes = []
+    for i, p in enumerate(cuda):
+        node = GossipNode(net.register, p.name, p.coordinator,
+                          mcs=MessageCryptoService(ids.msps,
+                                                   cause("gossip_mcs")),
+                          signer=p.signer, bootstrap=[cuda[1 - i].name])
+        d = os.path.join(root, p.name)
+        os.makedirs(d)
+        mon = ByzantineMonitor(
+            "ch", WitnessLog(os.path.join(d, "witness_log.json")),
+            QuarantineRegistry(os.path.join(d, "quarantine.json")),
+            ledger=p.ledger, msps=ids.msps, signer=p.signer,
+            proof_dir=os.path.join(d, "fraud_proofs"))
+        node.state.monitor = mon
+        pg = ProofGossip(node.endpoint, node.discovery, mon)
+        node.state.proofs = pg
+        mon.on_proof = pg.broadcast
+        mon.on_pardon = pg.broadcast_pardon
+        nodes.append((node, mon, pg))
+    (n1, m1, pg1), (n2, m2, pg2) = nodes
+    verdicts, check_ms = [], []
+    inner = m1.check_block
+
+    def check_block(block, source):
+        t0 = time.perf_counter()
+        v = inner(block, source)
+        check_ms.append((time.perf_counter() - t0) * 1e3)
+        verdicts.append(v)
+        return v
+    m1.check_block = check_block
+    heights = [p.ledger.height for p in cuda]
+    last = store.get_by_number(store.height - 1)
+    t0 = time.perf_counter()
+    for blk in (last, forge_sibling(last, ids.orderer)):
+        net.send("orderer-relay", cuda[0].name, MSG_BLOCK,
+                 {"block": blk.serialize()})
+        net.deliver_all()
+    wall = (time.perf_counter() - t0) * 1e3
+    accused = f"{ids.orderer.mspid}|{cert_fingerprint(ids.orderer.cert)}"
+    check(verdicts == ["stale", "reject"],
+          f"endorse: peer 1's monitor verdicts {verdicts}")
+    check([p["reason"] for p in m1.proofs] == ["fork"]
+          and [p["accused"] for p in m2.proofs] == [accused],
+          "endorse: the fork's fraud proofs")
+    check(pg1.broadcasts == 1 and pg2.received["convicted"] == 1
+          and pg2.relayed == 1 and pg1.received["duplicate"] == 1,
+          f"endorse: proof gossip {pg1.snapshot()} {pg2.snapshot()}")
+    check(m1.quarantine.is_quarantined(accused)
+          and m2.quarantine.is_quarantined(accused)
+          and m1.quarantine.count() == m2.quarantine.count() == 1,
+          "endorse: both peers should quarantine the orderer alone")
+    check([p.ledger.height for p in cuda] == heights
+          and n1.state.buffered == n2.state.buffered == [],
+          "endorse: the forged block reached a ledger")
+    return {"monitor_verdicts": verdicts,
+            "check_block_ms": [round(x, 3) for x in check_ms],
+            "fork_to_both_quarantined_ms": round(wall, 3),
+            "quarantined": accused[:24] + "...",
+            "peer2_proofs": pg2.received}
+
+
+def endorse_only(torch, args) -> int:
+    """`--endorse-only`: phase 15 alone.  Builds the kernels and the C
+    parts, then runs `endorse_phase` on the factory's CUDA provider;
+    prints no result line."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
+    from fabric_tpu_torch.ops import _build, ed25519, p256, p256_fixed
+    built = _build.build_all(force=True)
+    phase("build", libs=sorted(built))
+    native.build("der")
+    provider = init_factories(FactoryOpts(default="CUDA"))
+    fns = {"p256_verify_rows": p256_fixed.p256_verify_rows,
+           "p256_verify": p256.p256_verify,
+           "ed25519_verify_rows": ed25519.ed25519_verify_rows,
+           "ed25519_verify": ed25519.ed25519_verify}
+    endorse_phase(torch, args, provider, fns, smi("name,power.limit"),
+                  torch.device("cuda"))
+    phase("done", by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -4725,6 +5575,9 @@ def main(argv=None) -> int:
                     help="phase 14 alone (the kernels, the commit stream "
                     "and its host-stack rows, then the intake); prints no "
                     "result line")
+    ap.add_argument("--endorse-only", action="store_true",
+                    help="phase 15 alone (the kernels, then the "
+                    "endorsement side); prints no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4757,6 +5610,8 @@ def main(argv=None) -> int:
         return ops_only(torch, args)
     if args.intake_only:
         return intake_only(torch, args)
+    if args.endorse_only:
+        return endorse_only(torch, args)
 
     # --- 2. build ----------------------------------------------------------
     built = _build.build_all(force=True)
@@ -5472,6 +6327,10 @@ def main(argv=None) -> int:
         fns, name_power, dev)
     del mem_rows
 
+    # --- 15. endorse ---------------------------------------------------------
+    endorse_launches = endorse_phase(torch, args, provider, fns, name_power,
+                                     dev)
+
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
         return "operations" if ops_s >= bytes_s else "bytes"
@@ -5520,11 +6379,12 @@ def main(argv=None) -> int:
         *experiment_rows(exp_results, total, field_err),
     ]
     for row in kernels:
-        # phases 12's, 13's and 14's main-path launches, each in its own
-        # count
+        # phases 12's, 13's, 14's and 15's main-path launches, each in its
+        # own count
         row["classic_launches"] = classic_launches.get(row["name"], 0)
         row["window_launches"] = window_launches.get(row["name"], 0)
         row["intake_launches"] = intake_launches.get(row["name"], 0)
+        row["endorse_launches"] = endorse_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

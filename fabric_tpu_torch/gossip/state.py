@@ -8,9 +8,9 @@ persist.  Block payloads arriving via gossip are MCS-verified before
 buffering.
 
 Counterpart of `fabric_tpu/gossip/state.py`, the same code on the port's
-imports.  The byzantine branches (`monitor`, `proofs`) stay as the
-reference writes them; the monitor they import comes with the port's
-`byzantine` plane, and until then nothing wires one, so they never run.
+imports.  The byzantine branches run once a peer wires the port's
+`byzantine.ByzantineMonitor` as `monitor` and a `ProofGossip` as
+`proofs`, as the reference's peer channel does.
 """
 
 from __future__ import annotations

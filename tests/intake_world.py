@@ -1,6 +1,8 @@
 """The shared world of the block-intake tests (tests/test_torch_comm.py,
 test_torch_degrade.py, test_torch_gossip.py, test_torch_privdata.py,
-test_torch_intake.py): the reference and the port side by side.
+test_torch_intake.py) and of the endorsement side's
+(tests/endorse_world.py, test_torch_byzantine.py): the reference and the
+port side by side.
 
 - `load(pkg)`: each package's modules of the intake path under one
   namespace, so a scenario is written once and run on both.
@@ -41,6 +43,19 @@ _MODULES = {
     "ledger": "ledger", "blkstorage": "ledger.blkstorage",
     "snapshot": "ledger.snapshot", "committer": "committer",
     "policy": "policy", "peer": "node.peer", "ops": "ops_plane",
+    # the endorsement side (tests/endorse_world.py and its users)
+    "chaincode": "chaincode", "stub": "chaincode.stub",
+    "runtime": "chaincode.runtime", "lifecycle": "chaincode.lifecycle",
+    "extcc": "chaincode.extcc", "extbuilder": "chaincode.externalbuilder",
+    "endorser": "endorser", "proposal": "endorser.proposal",
+    "scc": "scc", "qscc": "scc.qscc", "cscc": "scc.cscc",
+    "sdiscovery": "scc.discovery", "byzantine": "byzantine",
+    "monitor": "byzantine.monitor", "witness": "byzantine.witness",
+    "quarantine": "byzantine.quarantine",
+    "proofgossip": "byzantine.proofgossip", "byzops": "byzantine.ops",
+    "raft": "orderer.raft", "cluster": "orderer.cluster",
+    "config": "config", "acl": "policy.aclmgmt", "sbe": "committer.sbe",
+    "statedb": "ledger.statedb", "txflags": "protocol.txflags",
 }
 
 

@@ -6,8 +6,9 @@ against admin; a config ACL change retargeting a resource at the block
 boundary; the handshake-identity check), each parametrised over both
 packages (`pkg`): every decision, allowed or the refusal's text, is
 recorded, and the port's case also runs the reference's steps and
-holds the decisions equal.  Its qscc test waits for the port's peer
-(qscc is not ported).  Added: `DEFAULT_ACLS` equal to the reference's;
+holds the decisions equal; its qscc test, each query of the package's
+`scc.Qscc` through its own named resource.  Added: `DEFAULT_ACLS` equal
+to the reference's;
 a flipped signature byte denied; the port's provider on
 `CudaProvider(device="cpu")` (KP3's plain version) deciding as the
 reference's on `SoftwareProvider`.  Identities and signatures come from
@@ -29,7 +30,8 @@ def load(name: str):
     factory = mod("bccsp.factory" if name == "ref" else "bccsp")
     return types.SimpleNamespace(
         name=name, config=mod("config"), policy=mod("policy"),
-        acl=mod("policy.aclmgmt"),
+        acl=mod("policy.aclmgmt"), qscc=mod("scc.qscc"),
+    blkstorage=mod("ledger.blkstorage"),
         sw=factory.init_factories(factory.FactoryOpts(default="SW")))
 
 
@@ -143,6 +145,38 @@ def test_handshake_identity_check(pk, pkg, org):
     assert got[2] == "allow" and "unauthenticated" in got[3]
     assert "unknown caller identity" in got[4]
     assert got[5] == got[6] == "allow"
+
+
+def _qscc(P, org, member):
+    """tests/test_aclmgmt.py's test_qscc_consumes_acl: GetChainInfo
+    retargeted to Admins, GetBlockByNumber on its Readers default over an
+    empty store."""
+    src = source(P, org, {"qscc/GetChainInfo": "Admins"})
+    qscc = P.qscc.Qscc("ch", P.blkstorage.BlockStore(),
+                       acl=P.acl.ACLProvider(src, P.sw))
+
+    def query(fn, *args):
+        try:
+            return ("ok", fn(*args))
+        except P.acl.ACLError as exc:
+            return ("deny", str(exc))
+        except P.qscc.QsccError as exc:
+            return ("error", str(exc))
+    return [query(qscc.get_chain_info, member),
+            query(qscc.get_chain_info, org.admin),
+            query(qscc.get_block_by_number, 0, member),
+            query(qscc.get_block_by_hash, b"\x00" * 32, member),
+            query(qscc.get_transaction_by_id, "tx", None)]
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_qscc_consumes_acl(pk, pkg, org):
+    got = differential(pk, pkg, _qscc, org, org.new_identity("m4"))
+    assert got[0][0] == "deny" and "'Admins'" in got[0][1]
+    assert got[1] == ("ok", {"height": 0, "current_hash": b"\x00" * 32,
+                             "previous_hash": b"\x00" * 32})
+    assert [g[0] for g in got[2:]] == ["error", "error", "deny"]
+    assert "unauthenticated" in got[4][1]
 
 
 def test_default_acls_equal_the_reference(pk):
