@@ -307,6 +307,47 @@ ends with one JSON line.  Phases:
              device's idle share over the load; `fallbacks` 0.  Its
              launches are counted apart (the kernels line's
              `endorse_launches`)
+16. node   — (run after 15, before the kernels line) the peer as a
+             process: the reference's dev network made by the port's
+             provision_network (Org1 and Org2, one peer each, the
+             channel's default BatchSize 500 / 10 MiB and BatchTimeout
+             2 s, asset_demo under AND of the orgs); an orderer stand-in
+             (the port's RpcServer serving broadcast, broadcast_batch and
+             deliver as the reference orderer does, each envelope through
+             the port's StandardChannelProcessor on a CUDA provider of
+             its own, then its BlockCutter and BlockWriter; deliver
+             attests each block); peer 1 a PeerNode in this process from
+             its provisioned config with no `bccsp` key (the factory's
+             CUDA provider, fail-stop); peer 2 `python -m
+             fabric_tpu_torch.node.peer <node.json>` in a child process,
+             also on the card; a third Org1 node on SW in a child
+             process of its own (the identity check).  Block 0 holds
+             10,000 `create` txs; then 32 clients (16 an org, Org1
+             P-256, Org2 Ed25519, half through each peer's gateway; a
+             thread each in 4 client processes of their own) endorse 16
+             transfers each, then all submit at once without waiting
+             (512 in flight: one block cut at the count of 500, the rest
+             at the timeout), then wait for each commit status; the first
+             txs of six client pairs transfer one asset (MVCC
+             conflicts); one envelope with a broken creator signature is
+             refused by the stand-in's filter.  Held: each block's flags
+             and commit hash, the state and history equal on the three
+             nodes; no tx ordered twice, and each commit status equal to
+             its tx's committed flag; `fallbacks` 0; launches by cause
+             (proposal, acl, speculative, orderer_filter, commit,
+             deliver_sig, handshake, gossip_mcs, alive) sum to the
+             wrappers' counts and every proposal's creator check at peer
+             1 launched on the card; /healthz (the provider's name,
+             backend, degraded), /verify_plane, /gateway, /byzantine,
+             /state, /traces and /slo answer with the same keys on peers
+             1 and 2; POST /drain, then peer 1 reopened on its data_dir
+             at the same height and commit hash.  Printed: gateway
+             endorse, submit and submit-to-status p50/p99, committed
+             tx/s, each block's validate + commit ms on both CUDA peers,
+             the filter's ms a broadcast, launches by cause, verdict-cache
+             hits by source, the device's idle share over the load.  Its
+             launches in this process are counted apart (the kernels
+             line's `node_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -332,6 +373,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --ops-only   # phase 6's ops-plane check alone
     python3 chip_smoke.py --intake-only   # phase 14 alone
     python3 chip_smoke.py --endorse-only  # phase 15 alone
+    python3 chip_smoke.py --node-only     # phase 16 alone
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -400,7 +442,7 @@ ORG4_POLICY = "AND('Org1.member', 'Org4.member')"
 IDEMIX_PROBE = 128
 IDEMIX_CHECKS = 4096
 PAIR_KINDS = ("x_plus_1", "other_slot", "swapped")
-IDEMIX_TXS = 32
+IDEMIX_TXS = 24               # was 32: cut for the time limit (PERF.md §4)
 IDEMIX_SIGNERS = 2             # per issuer, two issuers
 IDEMIX_BAD = {5: "nonce", 13: "forged", 21: "garbage"}
 IDEMIX_POLICY = "OR('Org1.member')"
@@ -631,7 +673,6 @@ def device_busy(torch, runs: dict, threaded: bool = False) -> dict:
     marker for `profiling.MARKER_S` in a range of its own
     (`profiling.marker_warmup`); it fails unless the marker was
     recorded, or if a run records no device time."""
-    import types
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from fabric_tpu_torch.ops_plane.profiling import MARKER, marker_warmup
@@ -644,22 +685,21 @@ def device_busy(torch, runs: dict, threaded: bool = False) -> dict:
                 t0 = time.perf_counter()
                 fn()
                 walls[label] = (time.perf_counter() - t0) * 1e3
+    check(not threaded or len(runs) == 1,
+          "device_busy: a threaded run is profiled alone")
+    if threaded:
+        return {label: _threaded_busy(prof, walls[label])
+                for label in runs}
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     spans = {e.name[5:]: e.time_range for e in device
              if e.name.startswith("busy:")}
     check(MARKER in spans, "device_busy: the marker was not recorded: the "
           "profiler was not yet recording")
-    check(not threaded or len(runs) == 1,
-          "device_busy: a threaded run is profiled alone")
     out = {}
     for label in runs:
-        if threaded:
-            span = types.SimpleNamespace(start=spans[MARKER].end,
-                                         end=float("inf"))
-        else:
-            check(label in spans, f"device_busy: {label}: the profiler "
-                  "recorded no device time")
-            span = spans[label]
+        check(label in spans, f"device_busy: {label}: the profiler "
+              "recorded no device time")
+        span = spans[label]
         per_op = {}
         for e in device:
             if not e.name.startswith("busy:") and \
@@ -673,6 +713,30 @@ def device_busy(torch, runs: dict, threaded: bool = False) -> dict:
         out[label] = (busy_ms, walls[label],
                       [f"{k[:40]}:{us / 1e3:.3f}ms" for k, us in top])
     return out
+
+
+def _threaded_busy(prof, wall_ms: float) -> tuple:
+    """A threaded run's (busy ms, wall ms, top three ops): every device
+    event after the marker's range, read from the profiler's raw kineto
+    events (building `prof.events()`, the whole session's CPU event tree,
+    cost ~7 s for a 10-s load of 77,000 events)."""
+    from torch.autograd import DeviceType
+    from fabric_tpu_torch.ops_plane.profiling import MARKER
+    device = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    marks = [e.end_ns() for e in device if e.name() == "busy:" + MARKER]
+    check(bool(marks), "device_busy: the marker was not recorded: the "
+          "profiler was not yet recording")
+    per_op = {}
+    for e in device:
+        if not e.name().startswith("busy:") and e.start_ns() >= marks[0]:
+            per_op[e.name()] = per_op.get(e.name(), 0) + e.duration_ns()
+    busy_ms = sum(per_op.values()) / 1e6
+    check(busy_ms > 0, "device_busy: a threaded run: the profiler recorded "
+          "no device time")
+    top = sorted(per_op.items(), key=lambda kv: -kv[1])[:3]
+    return (busy_ms, wall_ms,
+            [f"{k[:40]}:{ns / 1e6:.3f}ms" for k, ns in top])
 
 
 # ---------------------------------------------------------------------------
@@ -4216,7 +4280,9 @@ class _ByCause:
     ("alive"), `endorser/endorser.py` `_validate` (a proposal's creator,
     "proposal"), `byzantine/monitor.py` `verify_fraud_proof_strict` and
     `verify_pardon_strict` (a received proof's or pardon's signatures,
-    "fraud_proof"), else "other".  Anything else is the provider's."""
+    "fraud_proof"), else "other"; a caller entry whose name is None
+    matches any function of its file (phase 16 sets `CALLERS` to
+    NODE_CALLERS on its facade).  Anything else is the provider's."""
 
     CALLERS = (("_verify_peer", os.path.join("comm", "secure.py"),
                 "handshake"),
@@ -4241,7 +4307,7 @@ class _ByCause:
         f = sys._getframe(2)
         while f is not None:
             for name, path, cause in self.CALLERS:
-                if (f.f_code.co_name == name
+                if ((name is None or f.f_code.co_name == name)
                         and f.f_code.co_filename.endswith(path)):
                     return cause
             f = f.f_back
@@ -5553,6 +5619,1018 @@ def endorse_only(torch, args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 16. the node
+# ---------------------------------------------------------------------------
+
+NODE_SEED_TXS = 10_000         # block 0: `create` txs, made once
+NODE_CLIENTS = 16              # clients a org (Org1 P-256, Org2 Ed25519:
+#                                the provisioned client books)
+NODE_CLIENT_PROCS = 4          # processes the 2 x NODE_CLIENTS clients run
+#                                in, a thread a client (none in a peer's)
+NODE_TXS_PER_CLIENT = 16       # transfers each, submitted without waiting
+NODE_HOT_PAIRS = 6             # client pairs whose first txs share an asset
+NODE_WAIT_S = 120.0            # bound on each wait of phase 16
+NODE_ROUTES = ("/healthz", "/verify_plane", "/gateway", "/byzantine",
+               "/state", "/traces", "/slo")
+NODE_CAUSES = ("proposal", "acl", "speculative", "orderer_filter", "commit",
+               "deliver_sig", "handshake", "gossip_mcs", "alive", "other")
+# the factory default's callers in a peer node, innermost frame first
+NODE_CALLERS = (
+    ("_verify_peer", os.path.join("comm", "secure.py"), "handshake"),
+    ("verify_peer_msg", os.path.join("gossip", "mcs.py"), "alive"),
+    (None, os.path.join("gossip", "mcs.py"), "gossip_mcs"),
+    (None, os.path.join("policy", "aclmgmt.py"), "acl"),
+    ("_validate", os.path.join("endorser", "endorser.py"), "proposal"),
+    ("_verify_batch", os.path.join("verify_plane", "speculative.py"),
+     "speculative"),
+    ("_deliver_loop", os.path.join("node", "peer.py"), "deliver_sig"),
+    (None, os.path.join("committer", "txvalidator.py"), "commit"),
+    (None, os.path.join("committer", "committer.py"), "commit"))
+
+
+class _WaitingChannel(_OneChannel):
+    """`_OneChannel` whose `wait_for_height` blocks until a block is
+    written (or `timeout_s`), as a Raft chain's support does, so a
+    peer's deliver stream stays open at the tip."""
+
+    def __init__(self, store):
+        super().__init__(store)
+        import threading
+        self.cv = threading.Condition()
+
+    def written(self) -> None:
+        with self.cv:
+            self.cv.notify_all()
+
+    def wait_for_height(self, height: int, timeout_s=None) -> bool:
+        with self.cv:
+            return self.cv.wait_for(lambda: self.store.height >= height,
+                                    timeout=timeout_s)
+
+
+class _Ordering:
+    """The stand-in's ordering: each broadcast envelope through the
+    port's StandardChannelProcessor, then the port's BlockCutter (cut at
+    the count or at the batch timeout), then the BlockWriter; per
+    broadcast call the filter's ms."""
+
+    def __init__(self, writer, registrar, processor, cutter, timeout_s):
+        import threading
+        self.writer, self.registrar = writer, registrar
+        self.processor, self.cutter = processor, cutter
+        self.timeout_s = float(timeout_s)
+        self.lock = threading.Lock()
+        self.first_at = None
+        self.filter_ms, self.refused, self.blocks = [], [], []
+        self.faults = []           # a broadcast call that raised
+        self.cut_at = {}           # block number -> monotonic time of its cut
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._tick, daemon=True,
+                                        name="standin-cutter")
+        self._thread.start()
+
+    def admit(self, raws, attests=None, attestor=None) -> list:
+        from fabric_tpu_torch.orderer import MsgClass, MsgProcessorError
+        from fabric_tpu_torch.protocol import Envelope
+        out, ms = [], 0.0
+        for i, raw in enumerate(raws):
+            try:
+                env = Envelope.deserialize(raw)
+                env.header()
+            except Exception:
+                out.append((400, "undecodable envelope header"))
+                continue
+            attest = attests[i] if attests and i < len(attests) else None
+            t0 = time.perf_counter()
+            try:
+                cls = self.processor.process(env, raw_size=len(raw),
+                                             attest=attest or None,
+                                             attestor=attestor)
+            except MsgProcessorError as exc:
+                ms += (time.perf_counter() - t0) * 1e3
+                out.append((403, str(exc)))
+                self.refused.append(str(exc))
+                continue
+            ms += (time.perf_counter() - t0) * 1e3
+            check(cls is MsgClass.NORMAL, "node: the stand-in orders no "
+                  "config update")
+            with self.lock:
+                batches, pending = self.cutter.ordered(env)
+                for batch in batches:
+                    self._write(batch, "count")
+                self.first_at = (None if not pending else
+                                 self.first_at or time.monotonic())
+            out.append((200, ""))
+        self.filter_ms.append(ms)
+        return out
+
+    def _write(self, batch, why: str) -> None:
+        block = self.writer.write_block(self.writer.create_next_block(batch))
+        self.blocks.append((block.header.number, len(batch), why))
+        self.cut_at[block.header.number] = time.monotonic()
+        self.registrar.written()
+
+    def _tick(self) -> None:
+        while not self._stop.wait(0.02):
+            with self.lock:
+                if (self.first_at is not None and self.cutter.pending_count
+                        and time.monotonic() - self.first_at
+                        >= self.timeout_s):
+                    self._write(self.cutter.cut(), "timeout")
+                    self.first_at = None
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def node_orderer(ocfg, provider, data_dir):
+    """Phase 16's orderer stand-in (harness code, not a port module),
+    `intake_orderer` extended: the port's RpcServer on the provisioned
+    orderer's address serves `broadcast`, `broadcast_batch` and `deliver`
+    with the reference orderer's request and response shapes; each
+    envelope goes through the port's StandardChannelProcessor built from
+    the orderer's config as the reference's OrdererNode builds it (the
+    channel's bundle, Writers, AbsoluteMaxBytes, a VerdictCache, the
+    attestation trust and allowlist of `verify_once`) on `provider`, then
+    the port's BlockCutter (the channel's BatchSize and BatchTimeout) and
+    BlockWriter, signed with the orderer's identity; deliver attests each
+    block (`verify_plane.attest_block`) when `attest_deliver` is set ->
+    a namespace (srv, ordering, registrar, store, writer, msps)."""
+    import types
+    from fabric_tpu_torch.comm.rpc import RpcServer
+    from fabric_tpu_torch.config import Bundle, BundleSource, ChannelConfig
+    from fabric_tpu_torch.ledger.blkstorage import BlockStore
+    from fabric_tpu_torch.node.orderer import (attestation_trust,
+                                               load_signing_identity)
+    from fabric_tpu_torch.orderer import (BatchConfig, BlockCutter,
+                                          BlockWriter, DeliverHandler,
+                                          SeekInfo, StandardChannelProcessor)
+    from fabric_tpu_torch.verify_plane import (AttestorTrust, VerdictCache,
+                                               attest_block)
+    signer = load_signing_identity(ocfg["mspid"], ocfg["cert_pem"].encode(),
+                                   ocfg["key_pem"].encode())
+    source = BundleSource(Bundle(ChannelConfig.deserialize(
+        bytes.fromhex(ocfg["channel_config_hex"]))))
+    bundle = source.current()
+    msps, batch = bundle.msps, bundle.batch
+    vcfg = dict(ocfg.get("verify_once", {}))
+    trust, attestors = attestation_trust(vcfg)
+    os.makedirs(data_dir, exist_ok=True)
+    processor = StandardChannelProcessor(
+        "ch", msps, provider, writers_policy=None,
+        absolute_max_bytes=batch.absolute_max_bytes, bundle_source=source)
+    cache = VerdictCache(capacity=int(vcfg.get("capacity", 65536)),
+                         owner="orderer%s" % ocfg.get("raft_id", ""))
+    processor.verify_cache = cache
+    processor.trust_attestations = trust
+    processor.attestors = processor._normalize_attestors(attestors)
+    processor.attestor_trust = AttestorTrust(
+        os.path.join(data_dir, "attestor_trust.json"))
+    store = BlockStore()
+    writer = BlockWriter("ch", store, signer=signer)
+    registrar = _WaitingChannel(store)
+    ordering = _Ordering(writer, registrar, processor, BlockCutter(
+        BatchConfig(max_message_count=batch.max_message_count,
+                    absolute_max_bytes=batch.absolute_max_bytes,
+                    preferred_max_bytes=batch.preferred_max_bytes,
+                    batch_timeout_s=batch.timeout_s)), batch.timeout_s)
+    handler = DeliverHandler(registrar)
+    attesting = bool(vcfg.get("attest_deliver", False))
+
+    def admit(raws, attests=None, attestor=None):
+        # a call that raises is answered with an error, and the gateway
+        # sends the batch again: its envelopes ordered before the fault
+        # would be ordered twice, so the fault is kept for the checks
+        try:
+            return ordering.admit(raws, attests, attestor)
+        except Exception:
+            import traceback
+            ordering.faults.append(traceback.format_exc(limit=4))
+            raise
+
+    def rpc_broadcast(body, peer_identity):
+        (status, info), = admit([body["envelope"]])
+        return {"status": status, "info": info, "leader": 0}
+
+    def rpc_broadcast_batch(body, peer_identity):
+        attests = body.get("attests") if peer_identity is not None else None
+        out = admit(body["envelopes"], attests, peer_identity)
+        return {"statuses": [s for s, _ in out],
+                "infos": [i for _, i in out], "leader": 0}
+
+    def rpc_deliver(body, peer_identity):
+        seek = SeekInfo(start=body.get("start", 0), stop=body.get("stop"),
+                        behavior=body.get("behavior", "block_until_ready"))
+        for block in handler.deliver(body["channel"], seek, None,
+                                     timeout_s=body.get("timeout_s", 30)):
+            out = {"block": block.serialize()}
+            if attesting:
+                attests = attest_block(cache, block, "ch", msps)
+                if attests is not None:
+                    out["attests"] = attests
+            yield out
+
+    srv = RpcServer(ocfg.get("host", "127.0.0.1"), int(ocfg["port"]),
+                    signer, msps)
+    srv.serve("broadcast", rpc_broadcast)
+    srv.serve("broadcast_batch", rpc_broadcast_batch)
+    srv.serve_stream("deliver", rpc_deliver)
+    return types.SimpleNamespace(srv=srv.start(), ordering=ordering,
+                                 registrar=registrar, store=store,
+                                 writer=writer, msps=msps, cache=cache,
+                                 processor=processor)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def node_seed(signers, peers, n: int) -> list:
+    """Block 0's envelopes: `create` of asset00000.. (a read of the
+    absent key and its write, as the contract simulates it), creators
+    alternating between the two orgs' clients, endorsed by both peers
+    (the chaincode's AND of the orgs)."""
+    from fabric_tpu_torch.protocol import build
+    from fabric_tpu_torch.protocol.types import (KVRead, KVWrite, NsRwSet,
+                                                 TxRwSet)
+    out = []
+    for i in range(n):
+        key = f"asset{i:05d}"
+        rw = TxRwSet((NsRwSet("assets", reads=(KVRead(key, None),),
+                              writes=(KVWrite(key, b"owner0"),)),))
+        env = build.endorser_tx("ch", "assets", "1.0", rw, signers[i % 2],
+                                peers, args=[key.encode(), b"owner0"],
+                                response_payload=b"created")
+        out.append(env.serialize())
+    return out
+
+
+class _CacheSources:
+    """Peer 1's verdict cache, spied: each entry's source (`attest` from
+    the orderer's deliver attestations, `speculative` from the gateway's
+    stamps, else `commit`) by the caller of `put`, and the commit-time
+    lookups' hits by source."""
+
+    def __init__(self, cache):
+        from fabric_tpu_torch.verify_plane import item_digest
+        self.digest = item_digest
+        self.source, self.hits = {}, {}
+        self.inner_put, self.inner_lookup = cache.put, cache.lookup
+        cache.put, cache.lookup = self.put, self.lookup
+
+    @staticmethod
+    def _on_stack(*names) -> str:
+        f = sys._getframe(2)
+        while f is not None:
+            for name in names:
+                if f.f_code.co_name == name:
+                    return name
+            f = f.f_back
+        return ""
+
+    def put(self, item, verdict, trace_id="", scope=""):
+        caller = self._on_stack("accept_block_attestations", "_verify_batch")
+        self.source[self.digest(item)] = {
+            "accept_block_attestations": "attest",
+            "_verify_batch": "speculative"}.get(caller, "commit")
+        return self.inner_put(item, verdict, trace_id=trace_id, scope=scope)
+
+    def lookup(self, item):
+        got = self.inner_lookup(item)
+        if got[0] is not None:
+            f = sys._getframe(1)
+            while f is not None and not f.f_code.co_filename.endswith(
+                    os.path.join("committer", "txvalidator.py")):
+                f = f.f_back
+            if f is not None:
+                src = self.source.get(self.digest(item), "other")
+                self.hits[src] = self.hits.get(src, 0) + 1
+        return got
+
+
+def node_clients(spec_path: str) -> int:
+    """Phase 16's client process, started as `python -c "import
+    chip_smoke; chip_smoke.node_clients(spec)"`: the clients that the
+    spec names, a thread each, against the peers' gateways.  Standard
+    output carries the steps, a line each: `up`; on `endorse`, each
+    client endorses and assembles its txs one after another, then
+    `endorsed`; on `submit`, each client submits all its envelopes at
+    once (a thread an envelope, one multiplexed connection a client),
+    then asks the commit status of each; then `result <json>` (per tx:
+    txid, endorse s, submit s, submit time, status time, code, block,
+    endorsements, org; times on the monotonic clock, which the parent
+    shares), and `failed <text>` instead of any step that raised.  The
+    clients check the peers' handshakes on SW: no peer runs here."""
+    import threading
+    from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
+    from fabric_tpu_torch.config import Bundle, ChannelConfig
+    from fabric_tpu_torch.endorser import assemble_transaction
+    from fabric_tpu_torch.gateway import GatewayClient
+    from fabric_tpu_torch.node.orderer import load_signing_identity
+
+    def say(line: str) -> None:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+    def hear(word: str) -> None:
+        line = sys.stdin.readline().strip()
+        if line != word:
+            raise RuntimeError(f"expected {word!r}, got {line!r}")
+    try:
+        with open(spec_path) as f:
+            spec = json.load(f)
+        init_factories(FactoryOpts(default="SW"))
+        msps = Bundle(ChannelConfig.deserialize(bytes.fromhex(
+            spec["channel_config_hex"]))).msps
+        signers = []
+        for path in spec["identities"]:
+            with open(path) as f:
+                c = json.load(f)
+            signers.append(load_signing_identity(
+                c["mspid"], c["cert_pem"].encode(), c["key_pem"].encode()))
+        n_txs, wait_s = spec["txs_per_client"], spec["wait_s"]
+        hot = {int(c): j for c, j in spec["hot"].items()}
+        gws = {c: GatewayClient(tuple(spec["gateways"][(c // 2) % 2]),
+                                signers[c % 2], msps, channel_id="ch",
+                                call_timeout=wait_s)
+               for c in spec["clients"]}
+        txs, errors, lock = {}, [], threading.Lock()
+
+        def run_all(fn, keys):
+            def guarded(key):
+                try:
+                    fn(key)
+                except Exception as exc:
+                    with lock:
+                        errors.append(f"{key}: {exc!r}")
+            threads = [threading.Thread(target=guarded, args=(k,))
+                       for k in keys]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=3 * wait_s)
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"clients failed: {errors[:3]}")
+
+        def endorse(c):
+            for i in range(n_txs):
+                k = hot[c] if i == 0 and c in hot else 100 + c * n_txs + i
+                t0 = time.monotonic()
+                sp, responses = gws[c].endorse("assets", "transfer", [
+                    f"asset{k:05d}".encode(), f"owner{c}-{i}".encode()])
+                t1 = time.monotonic()
+                txs[(c, i)] = {
+                    "env": assemble_transaction(sp, responses,
+                                                signers[c % 2]),
+                    "endorse_s": t1 - t0, "t_endorse": t0,
+                    "n_end": len(responses), "org": c % 2}
+
+        def submit(key):
+            tx = txs[key]
+            t2 = time.monotonic()
+            out = gws[key[0]].submit_envelope(tx["env"], timeout_s=wait_s)
+            tx.update(txid=out["txid"], submit_s=time.monotonic() - t2,
+                      t_sub=t2)
+
+        def client(c):
+            run_all(submit, [(c, i) for i in range(n_txs)])
+            for i in range(n_txs):
+                tx = txs[(c, i)]
+                tx["code"], tx["block"] = gws[c].commit_status(
+                    tx["txid"], timeout_s=wait_s)
+                tx["t_status"] = time.monotonic()
+        say("up")
+        hear("endorse")
+        run_all(endorse, spec["clients"])
+        say("endorsed")
+        hear("submit")
+        run_all(client, spec["clients"])
+        for gw in gws.values():
+            gw.close()
+        say("result " + json.dumps([
+            [tx["txid"], tx["endorse_s"], tx["submit_s"], tx["t_sub"],
+             tx["t_status"], tx["code"], tx["block"], tx["n_end"], tx["org"],
+             tx["t_endorse"]] for tx in txs.values()]))
+        return 0
+    except Exception as exc:
+        say("failed " + repr(exc)[:2000])
+        return 1
+
+
+def child_status(conns: dict, name: str, addr, signer, msps) -> dict:
+    """The node's `status` (height, commit hash) over one connection a
+    node, kept in `conns`."""
+    from fabric_tpu_torch.comm.rpc import connect
+    if name not in conns:
+        conns[name] = connect(tuple(addr), signer, msps, timeout=10.0)
+    try:
+        return conns[name].call("status", {}, timeout=30.0)
+    except Exception:
+        conns.pop(name).close()
+        raise
+
+
+def wait_until(pred, what: str, timeout_s: float = NODE_WAIT_S,
+               step_s: float = 0.05) -> None:
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            if pred():
+                return
+        except Exception:
+            pass
+        check(time.monotonic() < deadline, f"node: timed out ({timeout_s} "
+              f"s) waiting for {what}")
+        time.sleep(step_s)
+
+
+def post_url(url: str) -> dict:
+    import urllib.request
+    req = urllib.request.Request(url, data=b"", method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+class _BlockSpans:
+    """Polls an ops server's /traces while it commits, keeping each
+    `committer.store_block` span's ms by block number (the flight
+    recorder's ring turns over under the load's request traces)."""
+
+    def __init__(self, url: str):
+        import threading
+        self.url, self.ms, self.seen = url, {}, set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def poll(self) -> None:
+        for rec in json.loads(get_url(self.url + "/traces"))["recent"]:
+            tid = rec["trace_id"]
+            if tid in self.seen or rec["root"] in (
+                    "rpc.endorse", "rpc.gateway.endorse",
+                    "rpc.gateway.submit", "rpc.gateway.commit_status",
+                    "rpc.gateway.evaluate", "gateway.batch"):
+                continue
+            self.seen.add(tid)
+            doc = json.loads(get_url(f"{self.url}/traces/{tid}?follow=0"))
+            for e in doc["traceEvents"]:
+                if e.get("ph") == "X" and e["name"] == OPS_ROOT:
+                    self.ms[int(e["args"]["block"])] = e["dur"] / 1e3
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.2):
+            try:
+                self.poll()
+            except Exception:
+                pass
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.poll()
+        return self.ms
+
+
+def node_ledger(data_dir: str):
+    """A node's durable ledger of channel `ch`, opened from its files."""
+    from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
+    return KVLedger("ch", LedgerConfig(
+        root=os.path.join(data_dir, "channels", "ch", "ledger"),
+        state_shards=8, snapshot_every=256))
+
+
+def node_chain(ledger) -> list:
+    """Each block's (number, tx flags, commit hash) from a ledger."""
+    from fabric_tpu_torch.protocol.types import META_COMMIT_HASH, META_TXFLAGS
+    out = []
+    for n in range(ledger.height):
+        md = ledger.blockstore.get_by_number(n).metadata.items
+        out.append((n, bytes(md.get(META_TXFLAGS) or b""),
+                    bytes(md.get(META_COMMIT_HASH) or b"")))
+    return out
+
+
+def node_phase(torch, args, fns, name_power, dev) -> dict:
+    """Phase 16.  The peer as a process, on the card: the reference's dev
+    network (`provision_network(peer_orgs=("Org1", "Org2"),
+    peers_per_org=1, batch=BatchConfig())`, the port's provisioning;
+    Fabric's channel defaults: MaxMessageCount 500, BatchTimeout 2 s,
+    AbsoluteMaxBytes 10 MiB); the contract `assets` (asset_demo) under
+    AND of the orgs.  The orderer stand-in (`node_orderer`) on its own
+    CUDA provider; peer 1 (Org1) a PeerNode in this process from its
+    provisioned config with no `bccsp` key (the factory's CUDA kind,
+    fail-stop), its provider behind a by-cause facade; peer 2 (Org2)
+    `python -m fabric_tpu_torch.node.peer <node.json>` in a child
+    process, also with no `bccsp` key; a third node of Org1 with
+    `"bccsp": "SW"` in a child process of its own, following the same
+    stand-in (the identity check, untimed).  Ops ports on, the tracer
+    at the node's defaults.  Block 0: NODE_SEED_TXS `create` txs made
+    once, delivered to every node.  The load (profiled): 2 x
+    NODE_CLIENTS clients in NODE_CLIENT_PROCS processes of their own
+    (`node_clients`, a thread a client), half through each peer's
+    gateway; each `GatewayClient.endorse`s NODE_TXS_PER_CLIENT
+    `transfer`s, then every client `submit_envelope`s all of them at
+    once without waiting (each gateway's 256 fill its default
+    max_queue), then asks `commit_status` of each; NODE_HOT_PAIRS
+    pairs' first txs transfer one asset, so the load holds MVCC
+    conflicts; one envelope with a broken creator signature, refused by
+    the stand-in's filter.  Checks: each block's flags and commit hash
+    equal on the three nodes, and their state and history; no tx
+    ordered twice, and each commit-status code equal to its tx's
+    committed flag; `fallbacks` 0; launches by cause sum to the
+    wrappers' counts and every proposal's creator check launched on the
+    card; the ops routes on peers 1 and 2 (peer 2's /healthz the CUDA
+    backend, not degraded); `POST /drain` on peer 1, then a PeerNode
+    reopened on its data_dir at the same heights and commit hashes ->
+    the phase's launches by kernel (this process: peer 1, the
+    stand-in, the clients)."""
+    import shutil
+    import threading
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.bccsp.cuda import CudaProvider
+    from fabric_tpu_torch.config import BatchConfig
+    from fabric_tpu_torch.endorser import assemble_transaction
+    from fabric_tpu_torch.gateway import GatewayClient, GatewayError
+    from fabric_tpu_torch.node import peer as peer_mod
+    from fabric_tpu_torch.node.orderer import load_signing_identity
+    from fabric_tpu_torch.node.provision import provision_network
+    from fabric_tpu_torch.protocol import Envelope
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "node")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    paths = provision_network(root, n_orderers=1,
+                              peer_orgs=("Org1", "Org2"), peers_per_org=1,
+                              batch=BatchConfig())
+
+    def load(path):
+        with open(path) as f:
+            return json.load(f)
+    ocfg = load(paths["orderers"][0])
+    cfg1, cfg2 = (load(p) for p in paths["peers"])
+    check("bccsp" not in cfg1 and "bccsp" not in cfg2,
+          "node: a provisioned peer config names a bccsp")
+
+    def ident(path):
+        c = load(path)
+        return load_signing_identity(c["mspid"], c["cert_pem"].encode(),
+                                     c["key_pem"].encode())
+    clients = (ident(paths["clients"]["Org1"]),
+               ident(paths["clients_ed25519"]["Org2"]))
+    peer_ids = [load_signing_identity(c["mspid"], c["cert_pem"].encode(),
+                                      c["key_pem"].encode())
+                for c in (cfg1, cfg2)]
+
+    tally, lock = {}, threading.Lock()
+    standin = node_orderer(ocfg, _ByCause(CudaProvider(), "orderer_filter",
+                                          tally, lock),
+                           os.path.join(root, "orderer1"))
+    # the children: peer 2 (the entry point, the card) and the SW node
+    cfg2["ops_port"] = free_port()
+    sw_dir = os.path.join(root, "peerOrg1_sw")
+    cfg_sw = dict(cfg1, port=free_port(), ops_port=free_port(),
+                  data_dir=sw_dir, peers=[], gateway_enabled=False,
+                  bccsp="SW")
+    procs, logs = {}, {}
+    for name, cfg in (("peer2", cfg2), ("sw", cfg_sw)):
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        logs[name] = open(os.path.join(root, f"{name}.log"), "wb")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "fabric_tpu_torch.node.peer", path],
+            cwd=here, stdout=logs[name], stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": here})
+
+    # the clients' processes start while block 0 is signed
+    import queue
+    n_all = 2 * NODE_CLIENTS
+    hot = {2 * j: j for j in range(NODE_HOT_PAIRS)}
+    hot.update({2 * j + 1: j for j in range(NODE_HOT_PAIRS)})
+    heard = []
+    for k in range(NODE_CLIENT_PROCS):
+        name = f"clients{k}"
+        path = os.path.join(root, f"{name}.json")
+        mine = list(range(k * n_all // NODE_CLIENT_PROCS,
+                          (k + 1) * n_all // NODE_CLIENT_PROCS))
+        with open(path, "w") as f:
+            json.dump({"clients": mine, "txs_per_client": NODE_TXS_PER_CLIENT,
+                       "hot": {c: hot[c] for c in mine if c in hot},
+                       "wait_s": NODE_WAIT_S,
+                       "gateways": [["127.0.0.1", cfg1["port"]],
+                                    ["127.0.0.1", cfg2["port"]]],
+                       "identities": [paths["clients"]["Org1"],
+                                      paths["clients_ed25519"]["Org2"]],
+                       "channel_config_hex": ocfg["channel_config_hex"]}, f)
+        logs[name] = open(os.path.join(root, f"{name}.log"), "wb")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.node_clients(sys.argv[1]))", path],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=logs[name], text=True, env={**os.environ,
+                                               "PYTHONPATH": here})
+        heard.append(queue.Queue())
+        threading.Thread(target=lambda out, q: [q.put(line.strip())
+                                                for line in out],
+                         args=(procs[name].stdout, heard[-1]),
+                         daemon=True).start()
+
+    def tell(word: str) -> None:
+        for k in range(NODE_CLIENT_PROCS):
+            procs[f"clients{k}"].stdin.write(word + "\n")
+            procs[f"clients{k}"].stdin.flush()
+
+    def hear(word: str) -> list:
+        out = []
+        for k in range(NODE_CLIENT_PROCS):
+            try:
+                line = heard[k].get(timeout=3 * NODE_WAIT_S)
+            except queue.Empty:
+                line = "(nothing)"
+            check(line.split(" ", 1)[0] == word, f"node: client process "
+                  f"{k} said {line[:600]!r}, not {word!r} "
+                  f"({tail(f'clients{k}')})")
+            out.append(line[len(word):].strip())
+        return out
+
+    def tail(name) -> str:
+        logs[name].flush()
+        with open(os.path.join(root, f"{name}.log"), "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    node1 = node1_again = None
+    conns = {}
+    parts, t_part = {}, [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 2)
+        t_part[0] = now
+    try:
+        part("provision_and_spawn")
+        # block 0 is signed while the children start
+        seed = node_seed(clients, peer_ids, NODE_SEED_TXS)
+        part("seed_sign")
+        # peer 1 in this process: what the node asks of the factory is
+        # recorded, and the provider it gets is put behind the facade
+        asked, real_init = [], peer_mod.init_factories
+
+        def counted_init(opts):
+            asked.append(opts)
+            facade = _ByCause(real_init(opts), None, tally, lock)
+            facade.CALLERS = NODE_CALLERS
+            factory.set_default(facade)
+            return facade
+        cfg1["ops_port"] = free_port()
+        peer_mod.init_factories = counted_init
+        try:
+            node1 = peer_mod.PeerNode(cfg1, data_dir=cfg1["data_dir"])
+        finally:
+            peer_mod.init_factories = real_init
+        check(len(asked) == 1 and asked[0].default.upper() == "CUDA"
+              and not asked[0].degrade,
+              f"node: peer 1 asked the factory for {asked}")
+        check(node1.provider.inner.name == "cuda",
+              "node: peer 1's provider is not the CUDA provider")
+        ch1 = node1.channels["ch"]
+        spy = _CacheSources(node1.verify_cache)
+        served = [0]
+        inner_pp = ch1.endorser.process_proposal
+
+        def process_proposal(sp):
+            served[0] += 1
+            return inner_pp(sp)
+        ch1.endorser.process_proposal = process_proposal
+        commit_ms, committed_at = {}, {}
+        inner_sb = ch1.committer.store_block
+
+        def store_block(block):
+            # the monotonic clock: the clients' processes share it
+            t0 = time.monotonic()
+            res = inner_sb(block)
+            committed_at[block.header.number] = time.monotonic()
+            commit_ms[block.header.number] = (
+                committed_at[block.header.number] - t0) * 1e3
+            return res
+        ch1.committer.store_block = store_block
+        node1.start()
+        url1 = "http://127.0.0.1:%d" % cfg1["ops_port"]
+        url2 = "http://127.0.0.1:%d" % cfg2["ops_port"]
+        for name, url in (("peer2", url2), ("sw", "http://127.0.0.1:%d"
+                                             % cfg_sw["ops_port"])):
+            wait_until(lambda url=url: get_url(url + "/version"),
+                       f"{name}'s ops server ({tail(name)})")
+        part("peer1_and_children_up")
+        spans2 = _BlockSpans(url2)
+        phase("node", orderer=f"127.0.0.1:{ocfg['port']}",
+              peer1=f"in process, ops {cfg1['ops_port']}",
+              peer2=f"child pid {procs['peer2'].pid}, ops {cfg2['ops_port']}",
+              sw_node=f"child pid {procs['sw'].pid}",
+              batch="500 / 10 MiB / 2 s", card=name_power)
+
+        # --- block 0 ----------------------------------------------------
+        base_phase = {f: fns[f].launches for f in fns}
+        with standin.ordering.lock:
+            standin.ordering._write(seed, "seed")
+        t0 = time.perf_counter()
+        status = {}
+
+        def at(height, names=("peer2", "sw")):
+            for name, cfg in (("peer2", cfg2), ("sw", cfg_sw)):
+                if name in names:
+                    status[name] = child_status(conns, name,
+                                                ("127.0.0.1", cfg["port"]),
+                                                clients[0], node1.msps)
+            # peer 1's block store moves first, then its state and
+            # history: wait for their savepoints and its commit's end
+            return (height - 1 in commit_ms
+                    and ch1.ledger.statedb.savepoint == height - 1
+                    and ch1.ledger.historydb.savepoint == height - 1
+                    and all(status[n]["height"] >= height for n in names))
+        # the SW node (untimed) catches up during the load
+        wait_until(lambda: at(1, ("peer2",)), "block 0 on peers 1 and 2",
+                   step_s=0.1)
+        seed_s = time.perf_counter() - t0
+        part("seed_commit")
+        phase("node", seed_txs=NODE_SEED_TXS, sign_s=parts["seed_sign"],
+              delivered_and_committed_on_peers_1_2_s=round(seed_s, 3),
+              peer1_commit_ms=round(commit_ms[0], 3))
+
+        # --- the load ---------------------------------------------------
+        hear("up")
+        base = {f: fns[f].launches for f in fns}
+        tally0 = dict(tally)
+        served0 = served[0]
+        gateways = [("127.0.0.1", cfg1["port"]), ("127.0.0.1", cfg2["port"])]
+        per_tx, results = [], {}
+
+        def run_load():
+            # every client endorses its txs, then all submit at once: 512
+            # envelopes reach the stand-in inside one BatchTimeout
+            tell("endorse")
+            hear("endorsed")
+            tell("submit")
+            for said in hear("result"):
+                for (txid, e_s, s_s, t_sub, t_st, code, num, n_end, org,
+                     t_end) in json.loads(said):
+                    results[txid] = (code, num)
+                    per_tx.append((e_s, s_s, t_st - t_sub, n_end, org, num,
+                                   t_sub, t_end, t_st))
+        profiled = device_busy(torch, {"load": run_load}, threaded=True)
+        part("load")
+        n_load = n_all * NODE_TXS_PER_CLIENT
+        check(len(results) == n_load, f"node: {len(results)} of {n_load} "
+              "txs have a commit status")
+
+        # one envelope with a broken creator signature
+        gw = GatewayClient(gateways[0], clients[0], node1.msps,
+                           channel_id="ch", call_timeout=NODE_WAIT_S)
+        try:
+            sp, responses = gw.endorse("assets", "transfer", [
+                f"asset{NODE_SEED_TXS - 1:05d}".encode(), b"mallory"])
+            env = assemble_transaction(sp, responses, clients[0])
+            sig = bytearray(env.signature)
+            sig[-1] ^= 1
+            refused = None
+            try:
+                gw.submit_envelope(Envelope(env.payload, bytes(sig)),
+                                   timeout_s=NODE_WAIT_S)
+            except GatewayError as exc:
+                refused = str(exc)
+        finally:
+            gw.close()
+        check(refused is not None and "SigFilter" in refused,
+              f"node: the broken envelope was not refused ({refused})")
+        # launches of the load and the broken envelope, by kernel and cause
+        launched = {f: fns[f].launches - base[f] for f in fns}
+        by_cause = {}
+        for key, n in tally.items():
+            d = n - tally0.get(key, 0)
+            if d:
+                cause, kern = key.rsplit(".", 1)
+                by_cause.setdefault(cause, {})[kern] = d
+        proposals = served[0] - served0
+
+        part("broken_envelope")
+        # --- checks -----------------------------------------------------
+        height = standin.store.height
+        wait_until(lambda: at(height), f"height {height} on every node",
+                   step_s=0.1)
+        chain1 = node_chain(ch1.ledger)
+        load_blocks = [b for b in standin.ordering.blocks if b[2] != "seed"]
+        # each committed txid -> (flag, block).  A txid ordered twice (a
+        # gateway's broadcast sent again after a call that failed) fails
+        # the phase: its later copy is DUPLICATE_TXID, and the notifier
+        # answers with a txid's last copy (ROADMAP C23)
+        flag_of, twice = {}, []
+        from fabric_tpu_torch.protocol.txflags import TxFlags
+        from fabric_tpu_torch.protocol.types import META_TXFLAGS
+        for num, _n, _why in load_blocks:
+            blk = ch1.ledger.blockstore.get_by_number(num)
+            flags = TxFlags.from_bytes(blk.metadata.items[META_TXFLAGS])
+            for j, d in enumerate(blk.data):
+                txid = Envelope.deserialize(bytes(d)).header() \
+                    .channel_header.txid
+                if txid in flag_of:
+                    twice.append((txid, flag_of[txid][1], num))
+                else:
+                    flag_of[txid] = (int(flags.flag(j)), num)
+        check(not twice and not standin.ordering.faults,
+              f"node: {len(twice)} txs ordered twice {twice[:3]}; the "
+              f"stand-in's faults {standin.ordering.faults[:2]}; peer 1's "
+              f"broadcaster {node1.gateway.broadcaster.states()}; peer 2's "
+              f"/gateway {get_url(url2 + '/gateway')[:1500]}")
+        wrong = [(t, r, flag_of.get(t)) for t, r in results.items()
+                 if flag_of.get(t) != r]
+        check(not wrong, f"node: {len(wrong)} commit statuses differ from "
+              f"the committed flag: {wrong[:3]}")
+        codes = [code for code, _num in flag_of.values()]
+        conflicts, valid = codes.count(11), codes.count(0)
+        check(set(flag_of) == set(results) and conflicts >= 1
+              and valid + conflicts == n_load,
+              f"node: load codes: {valid} valid, {conflicts} MVCC, "
+              f"{n_load - valid - conflicts} other")
+        stats = [node1.provider.stats, standin.processor.provider.stats]
+        check(all(s.get("fallbacks", 0) == 0 for s in stats),
+              f"node: fallbacks {[s.get('fallbacks') for s in stats]}")
+        caused = sum(n for kerns in by_cause.values() for n in kerns.values())
+        total = sum(launched[f] for f in ("p256_verify_rows", "p256_verify",
+                                          "ed25519_verify_rows",
+                                          "ed25519_verify"))
+        check(caused == total, f"node: launches by cause {caused} != the "
+              f"wrappers' {total}: {by_cause}")
+        creator_launches = sum(by_cause.get("proposal", {}).values())
+        check(proposals > 0 and creator_launches == proposals,
+              f"node: {proposals} proposals at peer 1, {creator_launches} "
+              "creator checks launched on the card")
+
+        routes = {}
+        for name, url in (("peer1", url1), ("peer2", url2)):
+            for route in NODE_ROUTES:
+                doc = json.loads(get_url(url + route))
+                routes[(name, route)] = sorted(doc) if isinstance(
+                    doc, dict) else type(doc).__name__
+            health = json.loads(get_url(url + "/healthz"))
+            check(health.get("status") == "OK" and health.get("bccsp") == {
+                "name": "cuda", "backend": "cuda", "degraded": False},
+                f"node: {name}'s /healthz {health}")
+        check(routes[("peer1", "/healthz")] == routes[("peer2", "/healthz")]
+              and all(routes[("peer1", r)] == routes[("peer2", r)]
+                      for r in NODE_ROUTES),
+              f"node: the two peers' routes differ: {routes}")
+        block_ms2 = spans2.stop()
+        part("flags_routes_spans")
+
+        # drain the children, stop them, read their ledgers
+        for conn in conns.values():
+            conn.close()
+        conns.clear()
+        drained = {}
+        for name, cfg in (("peer2", cfg2), ("sw", cfg_sw)):
+            drained[name] = post_url("http://127.0.0.1:%d/drain"
+                                     % cfg["ops_port"])
+            procs[name].terminate()
+            procs[name].wait(timeout=30)
+        others = {}
+        for name, cfg in (("peer2", cfg2), ("sw", cfg_sw)):
+            ledger = node_ledger(cfg["data_dir"])
+            others[name] = (node_chain(ledger), ledger_rows(ledger))
+        rows1 = ledger_rows(ch1.ledger)
+        for name, (chain, rows) in others.items():
+            check(chain == chain1, f"node: {name}'s flags or commit hashes "
+                  "differ from peer 1's")
+            check(rows == rows1, f"node: {name}'s state or history differs "
+                  "from peer 1's")
+
+        part("children_drained_and_compared")
+        # drain peer 1 and reopen it on its data_dir
+        drain1 = post_url(url1 + "/drain")
+        check(drain1["lifecycle"] == "drained"
+              and json.loads(get_url(url1 + "/healthz"))["lifecycle"]
+              == "drained", f"node: peer 1's drain {drain1}")
+        before = (ch1.ledger.height, ch1.ledger.commit_hash)
+        node1.stop()
+        node1, closed = None, node1
+        del closed
+        node1_again = peer_mod.PeerNode(dict(cfg1, port=0, ops_port=None),
+                                        data_dir=cfg1["data_dir"])
+        again = node1_again.channels["ch"].ledger
+        check((again.height, again.commit_hash) == before,
+              "node: peer 1 reopened at another height or commit hash")
+
+        part("peer1_drained_and_reopened")
+        # --- figures ----------------------------------------------------
+        busy_ms, wall_ms, top = profiled["load"]
+        e_ms = [e * 1e3 for e, *_ in per_tx]
+        s_ms = [s * 1e3 for _e, s, *_ in per_tx]
+        c_ms = [c * 1e3 for _e, _s, c, *_ in per_tx]
+        # submit to the end of its block's commit at peer 1 (its clock)
+        k_ms = [(committed_at[num] - t_sub) * 1e3
+                for *_x, num, t_sub, _te, _ts in per_tx]
+        span_s = (max(x[8] for x in per_tx) - min(x[7] for x in per_tx))
+        count_cut = [n for _num, n, why in load_blocks if why == "count"]
+        # the first submit to each load block's cut (the timeout's 2 s
+        # start at the first envelope pending)
+        t_first_sub = min(x[6] for x in per_tx)
+        cut_s = {num: round(standin.ordering.cut_at[num] - t_first_sub, 3)
+                 for num, _n, _why in load_blocks}
+        print(name_power, flush=True)
+        phase("node", load_txs=n_load, clients=2 * NODE_CLIENTS,
+              endorsements_per_tx=sorted({x[3] for x in per_tx}),
+              endorse_p50_ms=round(pct(e_ms, 0.5), 3),
+              endorse_p99_ms=round(pct(e_ms, 0.99), 3),
+              submit_p50_ms=round(pct(s_ms, 0.5), 3),
+              submit_p99_ms=round(pct(s_ms, 0.99), 3),
+              submit_to_status_p50_ms=round(pct(c_ms, 0.5), 3),
+              submit_to_status_p99_ms=round(pct(c_ms, 0.99), 3),
+              submit_to_peer1_commit_p50_ms=round(pct(k_ms, 0.5), 3),
+              submit_to_peer1_commit_p99_ms=round(pct(k_ms, 0.99), 3),
+              committed_tx_per_s=round(n_load / span_s, 1),
+              valid=valid, mvcc_conflicts=conflicts, ordered_twice=0,
+              blocks_cut_at_count=count_cut, first_submit_to_cut_s=cut_s,
+              first_endorse_to_last_status_s=round(span_s, 3),
+              card=name_power)
+        phase("node", blocks=[list(b) for b in standin.ordering.blocks],
+              peer1_validate_commit_ms={k: round(v, 3)
+                                        for k, v in sorted(
+                                            commit_ms.items())},
+              peer2_validate_commit_ms={k: round(v, 3)
+                                        for k, v in sorted(
+                                            block_ms2.items())},
+              standin_filter_ms_per_batch_p50=round(pct(
+                  standin.ordering.filter_ms, 0.5), 3),
+              standin_filter_ms_per_batch_max=round(max(
+                  standin.ordering.filter_ms), 3),
+              broadcast_calls=len(standin.ordering.filter_ms),
+              refused=standin.ordering.refused[-1][:60])
+        phase("node", launches_by_cause={
+            c: by_cause[c] for c in NODE_CAUSES if c in by_cause},
+              load_launches=launched, proposals_at_peer1=proposals,
+              creator_checks_on_card=creator_launches,
+              cache_hits_by_source=dict(spy.hits),
+              device_busy_ms=round(busy_ms, 3), wall_ms=round(wall_ms, 3),
+              device_idle_share=round(1 - busy_ms / wall_ms, 4),
+              top_device_ops=top, fallbacks=0, card=name_power)
+        phase("node", nodes_equal="flags, commit hashes, state, history "
+              f"at {height} blocks", commit_status="== flags",
+              routes="answer on both peers", peer2_healthz="cuda, not "
+              "degraded", drained=drained["peer2"]["lifecycle"],
+              reopened=f"height {before[0]}", parts_s=parts,
+              seconds=round(time.perf_counter() - t_phase, 1))
+        # the phase's launches in this process (block 0 and the load)
+        return {f: fns[f].launches - base_phase[f] for f in fns}
+    finally:
+        for conn in conns.values():
+            conn.close()
+        for node in (node1, node1_again):
+            if node is not None:
+                try:
+                    node.stop()
+                except Exception:
+                    pass
+        if node1_again is not None:
+            node1_again.rpc.stop()
+        standin.ordering.stop()
+        standin.srv.stop()
+        for name, proc in procs.items():
+            if proc.stdin is not None:
+                proc.stdin.close()
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            logs[name].close()
+
+
+def node_only(torch, args) -> int:
+    """`--node-only`: phase 16 alone.  Builds the kernels and the C
+    parts, then runs `node_phase`; prints no result line."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.ops import _build, ed25519, p256, p256_fixed
+    built = _build.build_all(force=True)
+    phase("build", libs=sorted(built))
+    native.build("der")
+    for ext in native.EXTENSIONS:
+        native.build_extension(ext)
+    fns = {"p256_verify_rows": p256_fixed.p256_verify_rows,
+           "p256_verify": p256.p256_verify,
+           "ed25519_verify_rows": ed25519.ed25519_verify_rows,
+           "ed25519_verify": ed25519.ed25519_verify}
+    node_phase(torch, args, fns, smi("name,power.limit"),
+               torch.device("cuda"))
+    phase("done", by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -5578,6 +6656,9 @@ def main(argv=None) -> int:
     ap.add_argument("--endorse-only", action="store_true",
                     help="phase 15 alone (the kernels, then the "
                     "endorsement side); prints no result line")
+    ap.add_argument("--node-only", action="store_true",
+                    help="phase 16 alone (the kernels, then the peer "
+                    "node); prints no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5612,6 +6693,8 @@ def main(argv=None) -> int:
         return intake_only(torch, args)
     if args.endorse_only:
         return endorse_only(torch, args)
+    if args.node_only:
+        return node_only(torch, args)
 
     # --- 2. build ----------------------------------------------------------
     built = _build.build_all(force=True)
@@ -6331,6 +7414,9 @@ def main(argv=None) -> int:
     endorse_launches = endorse_phase(torch, args, provider, fns, name_power,
                                      dev)
 
+    # --- 16. node ------------------------------------------------------------
+    node_launches = node_phase(torch, args, fns, name_power, dev)
+
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
         return "operations" if ops_s >= bytes_s else "bytes"
@@ -6379,12 +7465,13 @@ def main(argv=None) -> int:
         *experiment_rows(exp_results, total, field_err),
     ]
     for row in kernels:
-        # phases 12's, 13's, 14's and 15's main-path launches, each in its
-        # own count
+        # phases 12's, 13's, 14's, 15's and 16's main-path launches, each
+        # in its own count
         row["classic_launches"] = classic_launches.get(row["name"], 0)
         row["window_launches"] = window_launches.get(row["name"], 0)
         row["intake_launches"] = intake_launches.get(row["name"], 0)
         row["endorse_launches"] = endorse_launches.get(row["name"], 0)
+        row["node_launches"] = node_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

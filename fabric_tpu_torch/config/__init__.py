@@ -4,10 +4,10 @@ Re-design of Fabric's common/{channelconfig,configtx,capabilities}:
 config-as-consensus-state with atomic bundle swap on committed config
 blocks.
 
-Counterpart of `fabric_tpu/config/`: `channelconfig.py` and
-`configtx.py`, whole.  Not ported yet: `localconfig.py` (the node's
-YAML-style local settings) and `lator.py` (configtxlator's JSON
-translation), which wait for the port's peer node (ROADMAP A4c).
+Counterpart of `fabric_tpu/config/`, whole: `channelconfig.py`,
+`configtx.py`, `localconfig.py` (the node's JSON config with its
+environment-variable tier) and `lator.py` (configtxlator's JSON
+translation).
 """
 
 from .channelconfig import (

@@ -36,6 +36,10 @@ class OperationsServer:
         # still answers 200 when its checkers pass — drain is an
         # ORDERLY state, not a failure.
         self.lifecycle_fn: Optional[Callable] = None
+        # extra /healthz fields: key -> callable() -> json-able, e.g. a
+        # peer's provider {"name", "backend", "degraded"}; a failing
+        # callable leaves its key out, as lifecycle_fn's does
+        self.health_fields: Dict[str, Callable] = {}
         # extension routes: (method, path-prefix) -> fn(path, body) ->
         # (code, json-able) — e.g. the orderer's channelparticipation REST
         self._routes: Dict[tuple, Callable] = {}
@@ -63,6 +67,11 @@ class OperationsServer:
                     if ops.lifecycle_fn is not None:
                         try:
                             out["lifecycle"] = str(ops.lifecycle_fn())
+                        except Exception:
+                            pass
+                    for key, fn in list(ops.health_fields.items()):
+                        try:
+                            out[key] = fn()
                         except Exception:
                             pass
                     body = json.dumps(out).encode()

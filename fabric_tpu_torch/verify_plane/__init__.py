@@ -5,16 +5,37 @@ SigFilter, commit-time validator) into at most ONE device verification
 per unique (identity, signature) pair per node.  See cache.py for the
 safety model and speculative.py for the ordering-overlap half.
 
-Counterpart of `fabric_tpu/verify_plane`.  Not ported yet:
-`register_ops`, the GET /verify_plane route, which waits for the port's
-ops server; `VerdictCache.snapshot()` is what it would serve.
+Counterpart of `fabric_tpu/verify_plane`, whole: `register_ops` mounts
+GET /verify_plane on a node's `ops_plane.OperationsServer`.
 """
 
 from .attest import accept_block_attestations, attest_block
-from .cache import CachingProvider, CoverageWindow, VerdictCache, item_digest
+from .cache import (CachingProvider, CoverageWindow, VerdictCache,
+                    item_digest, note_device_verifications)
 from .speculative import SpeculativeVerifier, derive_items
 from .trust import AttestorTrust
 
 __all__ = ["CachingProvider", "CoverageWindow", "VerdictCache",
-           "item_digest", "SpeculativeVerifier", "derive_items",
+           "item_digest", "note_device_verifications",
+           "SpeculativeVerifier", "derive_items", "register_ops",
            "attest_block", "accept_block_attestations", "AttestorTrust"]
+
+
+def register_ops(ops, cache: VerdictCache, spec=None, extra=None) -> None:
+    """Mount GET /verify_plane on a node's ops server: the cache's live
+    economics plus the speculative worker's state.  `extra()` lets the
+    node add role-specific fields (e.g. the orderer's attestation-trust
+    setting)."""
+
+    def _route(path, body):
+        out = cache.snapshot()
+        if spec is not None:
+            out["speculative_dispatched"] = spec.dispatched
+        if extra is not None:
+            try:
+                out.update(extra())
+            except Exception:
+                pass
+        return 200, out
+
+    ops.register_route("GET", "/verify_plane", _route)

@@ -7,18 +7,25 @@ imports the same package as the scenario.  `fabric_tpu.testing.adversary`
 (not ported) becomes `adversary(pkg)`: the reference's `forge_sibling`
 and `break_signature`, their source compiled with the same rewrite.
 
+`scenario_module(name, pkg, edit=...)` applies `edit(src)` after the
+rewrite, e.g. to keep one import on the reference's side (the
+reference's `OrdererNode` behind the port's peers); the edited module is
+cached apart from the plain one.
+
 `run_scenario(mod, name, request)` calls one test function with its
 arguments resolved the way pytest would: the module's own fixtures
 (module-scoped ones cached per module, function-scoped and autouse ones
-made anew for each call, generator fixtures finalised after it), and
-pytest's built-in ones (`tmp_path`, `monkeypatch`, ...) through
+made anew for each call, generator fixtures finalised after it; a
+module-scoped generator fixture stays up for the module's later calls
+until `close_module(mod)` finalises it), and pytest's built-in ones
+(`tmp_path`, `monkeypatch`, `tmp_path_factory`, ...) through
 `request`.  A package's factory default that was set before the call is
 put back after it, so a scenario's `init_factories(...)` does not
 replace another test's provider; one set where there was none stays,
 as the reference's own test modules leave it.
 
 Used by tests/test_torch_endorse.py, test_torch_extcc.py,
-test_torch_scc.py and test_torch_byzantine.py.
+test_torch_scc.py, test_torch_byzantine.py and test_torch_gateway.py.
 """
 import ast
 import importlib
@@ -35,6 +42,7 @@ TESTS_DIR = Path(__file__).resolve().parent
 _ADV = "fabric_tpu.testing.adversary"
 _modules: dict = {}
 _module_fixtures: dict = {}
+_module_finalizers: dict = {}
 
 
 def scenario_names(name: str, skip=()) -> list:
@@ -65,14 +73,17 @@ def adversary(pkg: str) -> types.ModuleType:
     return sys.modules[name]
 
 
-def scenario_module(name: str, pkg: str) -> types.ModuleType:
-    key = (name, pkg)
+def scenario_module(name: str, pkg: str, edit=None) -> types.ModuleType:
+    tag = f"_{edit.__name__}" if edit is not None else ""
+    key = (name, pkg, tag)
     if key not in _modules:
         path = TESTS_DIR / f"{name}.py"
-        mod = types.ModuleType(f"_{pkg}_{name}")
+        mod = types.ModuleType(f"_{pkg}_{name}{tag}")
         mod.__file__ = str(path)
-        exec(compile(rewrite(path.read_text(), pkg), str(path), "exec"),
-             mod.__dict__)
+        src = rewrite(path.read_text(), pkg)
+        if edit is not None:
+            src = edit(src)
+        exec(compile(src, str(path), "exec"), mod.__dict__)
         _modules[key] = mod
     return _modules[key]
 
@@ -102,7 +113,8 @@ def run_scenario(mod, name: str, request) -> None:
                     for a in inspect.signature(fn).parameters})
         if inspect.isgenerator(out):
             gen, out = out, next(out)
-            finalizers.append(gen)
+            (_module_finalizers.setdefault(mod.__name__, [])
+             if module_scoped else finalizers).append(gen)
         (cached if module_scoped else local)[arg] = out
         return out
 
@@ -116,9 +128,20 @@ def run_scenario(mod, name: str, request) -> None:
         fn = getattr(mod, name)
         fn(**{a: value(a) for a in inspect.signature(fn).parameters})
     finally:
-        for gen in reversed(finalizers):
-            with pytest.raises(StopIteration):
-                next(gen)
+        _finalise(finalizers)
         for f, d in zip(factories, defaults):
             if d is not None:
                 f._default = d
+
+
+def _finalise(gens) -> None:
+    for gen in reversed(gens):
+        with pytest.raises(StopIteration):
+            next(gen)
+
+
+def close_module(mod) -> None:
+    """Finalise `mod`'s module-scoped generator fixtures and drop its
+    cached fixture values."""
+    _module_fixtures.pop(mod.__name__, None)
+    _finalise(_module_finalizers.pop(mod.__name__, []))

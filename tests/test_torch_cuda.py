@@ -1748,3 +1748,107 @@ def test_degrading_wrapper_stays_healthy_on_phase4_block(cuda_device):
         assert trans.breakdown("to") == t0
     finally:
         init_factories(FactoryOpts(default="SW"))
+
+
+@pytest.mark.cuda
+def test_peer_node_on_its_default_provider_commits_a_block(cuda_device,
+                                                            tmp_path):
+    """The port's PeerNode from a provisioned config with no `bccsp`
+    key: the factory's CUDA provider, fail-stop.  Its /healthz reports
+    the CUDA backend, not degraded; one block written by chip_smoke's
+    orderer stand-in is delivered and commits VALID, its orderer
+    signature checked by one KP2 launch (a one-item batch)."""
+    import json as _json
+    import time as _time
+    import urllib.request
+    import chip_smoke as cs
+    from fabric_tpu_torch.config import BatchConfig
+    from fabric_tpu_torch.node.orderer import load_signing_identity
+    from fabric_tpu_torch.node.peer import PeerNode
+    from fabric_tpu_torch.node.provision import provision_network
+
+    def load(path):
+        with open(path) as f:
+            return _json.load(f)
+
+    def ident(c):
+        return load_signing_identity(c["mspid"], c["cert_pem"].encode(),
+                                     c["key_pem"].encode())
+    paths = provision_network(str(tmp_path), n_orderers=1,
+                              peer_orgs=("Org1",), peers_per_org=1,
+                              batch=BatchConfig())
+    ocfg, cfg = load(paths["orderers"][0]), load(paths["peers"][0])
+    assert "bccsp" not in cfg
+    cfg["ops_port"] = cs.free_port()
+    client = ident(load(paths["clients"]["Org1"]))
+    standin = cs.node_orderer(ocfg, SoftwareProvider(),
+                              str(tmp_path / "standin"))
+    node = None
+    try:
+        node = PeerNode(cfg, data_dir=cfg["data_dir"])
+        assert isinstance(node.provider, CudaProvider)
+        url = "http://127.0.0.1:%d/healthz" % cfg["ops_port"]
+        before = (p256.p256_verify.launches,
+                  p256_fixed.p256_verify_rows.launches)
+        node.start()
+        with standin.ordering.lock:
+            standin.ordering._write(cs.node_seed(
+                (client, client), [ident(cfg)], 8), "seed")
+        ledger = node.channels["ch"].ledger
+        deadline = _time.monotonic() + 120
+        while ledger.height < 1:
+            assert _time.monotonic() < deadline, "block 0 not committed"
+            _time.sleep(0.05)
+        flags = ledger.blockstore.get_by_number(0).metadata.items["txflags"]
+        assert bytes(flags) == bytes(8)
+        with urllib.request.urlopen(url, timeout=30) as r:
+            health = _json.loads(r.read())
+        assert health["status"] == "OK"
+        assert health["bccsp"] == {"name": "cuda", "backend": "cuda",
+                                   "degraded": False}
+        # the orderer signature (one KP2 item); the block's 8 creators
+        # and 8 endorsements ride the generic lane too (below the fast
+        # lane's 64), so KP2 ran at least once and KP3 not at all
+        assert p256.p256_verify.launches > before[0]
+        assert p256_fixed.p256_verify_rows.launches == before[1]
+        assert node.provider.stats["fallbacks"] == 0
+    finally:
+        if node is not None:
+            node.stop()
+        standin.ordering.stop()
+        standin.srv.stop()
+        init_factories(FactoryOpts(default="SW"))
+
+
+@pytest.mark.cuda
+def test_threaded_busy_matches_the_event_tree(cuda_device):
+    """chip_smoke's threaded device-busy reading (the raw kineto events
+    after the marker) against the same sum over `prof.events()`, the
+    session's event tree, on kernels launched from another thread;
+    tolerance 1% + 0.01 ms (the tree holds times in us)."""
+    import threading
+    import chip_smoke as cs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from fabric_tpu_torch.ops_plane.profiling import MARKER, marker_warmup
+    x = torch.ones(1 << 22, device=cuda_device)
+
+    def work():
+        for _ in range(200):
+            x.mul_(1.0001)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marker_warmup("busy:" + MARKER)
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(60)
+    assert not t.is_alive()
+    busy, wall, top = cs._threaded_busy(prof, 1.0)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    end = [e.time_range.end for e in device if e.name == "busy:" + MARKER]
+    want = sum(e.time_range.end - e.time_range.start for e in device
+               if not e.name.startswith("busy:")
+               and e.time_range.start >= end[0]) / 1e3
+    assert want > 0 and wall == 1.0 and len(top) >= 1
+    assert abs(busy - want) <= 0.01 * want + 0.01
