@@ -220,9 +220,10 @@ ends with one JSON line.  Phases:
              blocks 2 and 3 once each to the serial hash and directory;
              (c) the stream's wall time serial, W=2 and W=4, on memory
              and on the durable ledger, fresh ledgers, in turns, medians
-             of at least 3 on memory and of WINDOW_DURABLE_TRIALS (2)
-             durable, with the spread, each block's early and
-             deferred txs, overlap_frac, the stages summed; the device
+             of WINDOW_MEMORY_TRIALS (2) on memory and of
+             WINDOW_DURABLE_TRIALS (1) durable, with the spread, each
+             block's early and deferred txs, overlap_frac, the stages
+             summed; the device
              idle share of the stream at W=4 (profiled in phase 7's
              session);
              (d) snapshot export (every file through serve_chunk),
@@ -308,46 +309,68 @@ ends with one JSON line.  Phases:
              launches are counted apart (the kernels line's
              `endorse_launches`)
 16. node   — (run after 15, before the kernels line) the peer as a
-             process: the reference's dev network made by the port's
-             provision_network (Org1 and Org2, one peer each, the
-             channel's default BatchSize 500 / 10 MiB and BatchTimeout
-             2 s, asset_demo under AND of the orgs); an orderer stand-in
-             (the port's RpcServer serving broadcast, broadcast_batch and
-             deliver as the reference orderer does, each envelope through
-             the port's StandardChannelProcessor on a CUDA provider of
-             its own, then its BlockCutter and BlockWriter; deliver
-             attests each block); peer 1 a PeerNode in this process from
-             its provisioned config with no `bccsp` key (the factory's
-             CUDA provider, fail-stop); peer 2 `python -m
-             fabric_tpu_torch.node.peer <node.json>` in a child process,
-             also on the card; a third Org1 node on SW in a child
-             process of its own (the identity check).  Block 0 holds
-             10,000 `create` txs; then 32 clients (16 an org, Org1
-             P-256, Org2 Ed25519, half through each peer's gateway; a
-             thread each in 4 client processes of their own) endorse 16
-             transfers each, then all submit at once without waiting
-             (512 in flight: one block cut at the count of 500, the rest
-             at the timeout), then wait for each commit status; the first
-             txs of six client pairs transfer one asset (MVCC
-             conflicts); one envelope with a broken creator signature is
-             refused by the stand-in's filter.  Held: each block's flags
-             and commit hash, the state and history equal on the three
-             nodes; no tx ordered twice, and each commit status equal to
-             its tx's committed flag; `fallbacks` 0; launches by cause
-             (proposal, acl, speculative, orderer_filter, commit,
-             deliver_sig, handshake, gossip_mcs, alive) sum to the
-             wrappers' counts and every proposal's creator check at peer
-             1 launched on the card; /healthz (the provider's name,
-             backend, degraded), /verify_plane, /gateway, /byzantine,
-             /state, /traces and /slo answer with the same keys on peers
-             1 and 2; POST /drain, then peer 1 reopened on its data_dir
-             at the same height and commit hash.  Printed: gateway
-             endorse, submit and submit-to-status p50/p99, committed
-             tx/s, each block's validate + commit ms on both CUDA peers,
-             the filter's ms a broadcast, launches by cause, verdict-cache
-             hits by source, the device's idle share over the load.  Its
-             launches in this process are counted apart (the kernels
-             line's `node_launches`)
+             process behind the port's Raft orderers: the reference's
+             dev network made by the port's provision_network (three
+             orderers and a spare consenter identity, Org1 and Org2 with
+             one peer each, the channel's default BatchSize 500 / 10 MiB
+             and BatchTimeout 2 s, asset_demo under AND of the orgs); the
+             three orderers `python -m fabric_tpu_torch.node.orderer
+             <node.json>`, a process each, on the factory's CUDA provider
+             (each loads its kernels before its Raft clock starts); peer
+             1 a PeerNode in this process from its provisioned config
+             with no `bccsp` key (the factory's CUDA provider,
+             fail-stop); peer 2 `python -m fabric_tpu_torch.node.peer
+             <node.json>` in a child process, also on the card; a third
+             Org1 node on SW in a child process of its own (the identity
+             check).  The seed: 10,000 `create` txs stamped by peer 1's
+             gateway plane and broadcast with their verdict
+             attestations, 500 a call: 20 blocks through Raft; then 32
+             clients (16 an org, Org1 P-256, Org2 Ed25519, half through
+             each peer's gateway; a thread each in 4 client processes of
+             their own) endorse 16 transfers each, then all submit at
+             once without waiting (512 in flight: one block cut at the
+             count of 500, the rest at the timeout), then wait for each
+             commit status; the first txs of six client pairs transfer
+             one asset (MVCC conflicts); one envelope with a broken
+             creator signature is refused by the leader's SigFilter.
+             Held: each block's flags and commit hash, the state and
+             history equal on the three peers; no tx ordered twice, and
+             each commit status equal to its tx's committed flag;
+             `fallbacks` 0; launches by cause (proposal, acl,
+             speculative, commit, deliver_sig, handshake, gossip_mcs,
+             alive) sum to the wrappers' counts and every proposal's
+             creator check at peer 1 launched on the card; /healthz (the
+             provider's name, backend, degraded), /verify_plane,
+             /gateway, /byzantine, /state, /traces and /slo answer with
+             the same keys on peers 1 and 2, and each orderer's /healthz
+             the CUDA backend; after phase 17, POST /drain, peer 1
+             reopened on its data_dir at the same height and commit hash,
+             and the orderers' block stores equal header for header.
+             Printed: gateway endorse, submit and submit-to-status
+             p50/p99, committed tx/s, the blocks cut at the count and
+             each load block's cut after the first submit, each block's
+             validate + commit ms on both CUDA peers, each orderer's
+             broadcast span, SigFilter device verifies, attested skips,
+             Raft entry verifies and provider dispatches by lane (its
+             /metrics and /spans/stats), launches by cause,
+             verdict-cache hits by source, the device's idle share over
+             the load in this process.  Its launches in this process are
+             counted apart (the kernels line's `node_launches`)
+17. orderer — (on phase 16's network, before its drains) the ordering
+             service's drills: the Raft leader SIGKILLed while 128
+             transfers are in flight (kill -> new leader -> first block
+             -> committed on both peers, each tx exactly once with the
+             code its client got, a tx lost with the leader resubmitted
+             by its client); the killed orderer restarted from its WAL
+             and caught up to the leader's tip; a second channel joined
+             at runtime on the three orderers (`participation.join`) and
+             the two peers (the admin CLI), one tx on it; onboarding
+             (`_replicate_once`) of both channels on the card by a port
+             OrdererNode on the spare identity; a spliced Raft entry
+             rejected as `bad_entry_sig` by a follower's CUDA provider;
+             that node as `testing.adversary.EquivocatingOrderer`
+             convicted of a fork by peer 1's monitor.  Its launches in
+             this process are counted apart (`orderer_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -374,6 +397,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --intake-only   # phase 14 alone
     python3 chip_smoke.py --endorse-only  # phase 15 alone
     python3 chip_smoke.py --node-only     # phase 16 alone
+    python3 chip_smoke.py --orderer-only  # phases 16 and 17 alone
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -472,8 +496,9 @@ WINDOWS = (2, 4)
 WINDOW_RUNS = ((2, False, False), (2, True, True), (4, False, True),
                (4, True, False))
 WINDOW_WORKERS = 4
-WINDOW_DURABLE_TRIALS = 2      # timed durable streams (memory: 3); the
-#                                script's time limit
+WINDOW_MEMORY_TRIALS = 2       # timed memory streams (was 3) and durable
+WINDOW_DURABLE_TRIALS = 1      # ones (was 2): cut for the script's time
+#                                limit when phase 17 came (PERF.md §4)
 WINDOW_DEMOTIONS = ("savepoint", "range_query")
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
@@ -2855,7 +2880,7 @@ def window_phase(torch, args, provider, orgs, signers, raws, labels,
     stages = {cell: [] for cell in cells}
     admits, overlap, kept, serial_kp = {}, {}, {}, {}
     m0 = parse_metrics(registry.expose_text())
-    for trial in range(max(3, args.trials)):
+    for trial in range(WINDOW_MEMORY_TRIALS):
         for ledger, W in cells:
             if ledger == "durable" and trial >= WINDOW_DURABLE_TRIALS:
                 continue
@@ -5631,10 +5656,20 @@ NODE_CLIENT_PROCS = 4          # processes the 2 x NODE_CLIENTS clients run
 NODE_TXS_PER_CLIENT = 16       # transfers each, submitted without waiting
 NODE_HOT_PAIRS = 6             # client pairs whose first txs share an asset
 NODE_WAIT_S = 120.0            # bound on each wait of phase 16
+NODE_ORDERERS = 3              # the Raft cluster: a process an orderer
+SEED_BATCH = 500               # the seed's envelopes a broadcast call (the
+#                                channel's MaxMessageCount: a block a call)
+ORDERER_CLIENTS = 8            # phase 17 (a): clients, 4 a process
+ORDERER_TXS_PER_CLIENT = 16    # their transfers: 128 in flight at the kill
+ORDERER_RESUBMIT_S = 6.0       # a tx with no status that long after its
+#                                client's last submit is resubmitted (the
+#                                new leader cuts within its 2-s timeout)
+ORDERER_WAIT_S = 60.0          # bound on each wait of phase 17
+ORDERER_BUDGET_S = 90.0        # phase 17's share of the script's time
 NODE_ROUTES = ("/healthz", "/verify_plane", "/gateway", "/byzantine",
                "/state", "/traces", "/slo")
-NODE_CAUSES = ("proposal", "acl", "speculative", "orderer_filter", "commit",
-               "deliver_sig", "handshake", "gossip_mcs", "alive", "other")
+NODE_CAUSES = ("proposal", "acl", "speculative", "commit", "deliver_sig",
+               "handshake", "gossip_mcs", "alive", "other")
 # the factory default's callers in a peer node, innermost frame first
 NODE_CALLERS = (
     ("_verify_peer", os.path.join("comm", "secure.py"), "handshake"),
@@ -5647,200 +5682,6 @@ NODE_CALLERS = (
     ("_deliver_loop", os.path.join("node", "peer.py"), "deliver_sig"),
     (None, os.path.join("committer", "txvalidator.py"), "commit"),
     (None, os.path.join("committer", "committer.py"), "commit"))
-
-
-class _WaitingChannel(_OneChannel):
-    """`_OneChannel` whose `wait_for_height` blocks until a block is
-    written (or `timeout_s`), as a Raft chain's support does, so a
-    peer's deliver stream stays open at the tip."""
-
-    def __init__(self, store):
-        super().__init__(store)
-        import threading
-        self.cv = threading.Condition()
-
-    def written(self) -> None:
-        with self.cv:
-            self.cv.notify_all()
-
-    def wait_for_height(self, height: int, timeout_s=None) -> bool:
-        with self.cv:
-            return self.cv.wait_for(lambda: self.store.height >= height,
-                                    timeout=timeout_s)
-
-
-class _Ordering:
-    """The stand-in's ordering: each broadcast envelope through the
-    port's StandardChannelProcessor, then the port's BlockCutter (cut at
-    the count or at the batch timeout), then the BlockWriter; per
-    broadcast call the filter's ms."""
-
-    def __init__(self, writer, registrar, processor, cutter, timeout_s):
-        import threading
-        self.writer, self.registrar = writer, registrar
-        self.processor, self.cutter = processor, cutter
-        self.timeout_s = float(timeout_s)
-        self.lock = threading.Lock()
-        self.first_at = None
-        self.filter_ms, self.refused, self.blocks = [], [], []
-        self.faults = []           # a broadcast call that raised
-        self.cut_at = {}           # block number -> monotonic time of its cut
-        self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._tick, daemon=True,
-                                        name="standin-cutter")
-        self._thread.start()
-
-    def admit(self, raws, attests=None, attestor=None) -> list:
-        from fabric_tpu_torch.orderer import MsgClass, MsgProcessorError
-        from fabric_tpu_torch.protocol import Envelope
-        out, ms = [], 0.0
-        for i, raw in enumerate(raws):
-            try:
-                env = Envelope.deserialize(raw)
-                env.header()
-            except Exception:
-                out.append((400, "undecodable envelope header"))
-                continue
-            attest = attests[i] if attests and i < len(attests) else None
-            t0 = time.perf_counter()
-            try:
-                cls = self.processor.process(env, raw_size=len(raw),
-                                             attest=attest or None,
-                                             attestor=attestor)
-            except MsgProcessorError as exc:
-                ms += (time.perf_counter() - t0) * 1e3
-                out.append((403, str(exc)))
-                self.refused.append(str(exc))
-                continue
-            ms += (time.perf_counter() - t0) * 1e3
-            check(cls is MsgClass.NORMAL, "node: the stand-in orders no "
-                  "config update")
-            with self.lock:
-                batches, pending = self.cutter.ordered(env)
-                for batch in batches:
-                    self._write(batch, "count")
-                self.first_at = (None if not pending else
-                                 self.first_at or time.monotonic())
-            out.append((200, ""))
-        self.filter_ms.append(ms)
-        return out
-
-    def _write(self, batch, why: str) -> None:
-        block = self.writer.write_block(self.writer.create_next_block(batch))
-        self.blocks.append((block.header.number, len(batch), why))
-        self.cut_at[block.header.number] = time.monotonic()
-        self.registrar.written()
-
-    def _tick(self) -> None:
-        while not self._stop.wait(0.02):
-            with self.lock:
-                if (self.first_at is not None and self.cutter.pending_count
-                        and time.monotonic() - self.first_at
-                        >= self.timeout_s):
-                    self._write(self.cutter.cut(), "timeout")
-                    self.first_at = None
-
-    def stop(self) -> None:
-        self._stop.set()
-        self._thread.join(timeout=5)
-
-
-def node_orderer(ocfg, provider, data_dir):
-    """Phase 16's orderer stand-in (harness code, not a port module),
-    `intake_orderer` extended: the port's RpcServer on the provisioned
-    orderer's address serves `broadcast`, `broadcast_batch` and `deliver`
-    with the reference orderer's request and response shapes; each
-    envelope goes through the port's StandardChannelProcessor built from
-    the orderer's config as the reference's OrdererNode builds it (the
-    channel's bundle, Writers, AbsoluteMaxBytes, a VerdictCache, the
-    attestation trust and allowlist of `verify_once`) on `provider`, then
-    the port's BlockCutter (the channel's BatchSize and BatchTimeout) and
-    BlockWriter, signed with the orderer's identity; deliver attests each
-    block (`verify_plane.attest_block`) when `attest_deliver` is set ->
-    a namespace (srv, ordering, registrar, store, writer, msps)."""
-    import types
-    from fabric_tpu_torch.comm.rpc import RpcServer
-    from fabric_tpu_torch.config import Bundle, BundleSource, ChannelConfig
-    from fabric_tpu_torch.ledger.blkstorage import BlockStore
-    from fabric_tpu_torch.node.orderer import (attestation_trust,
-                                               load_signing_identity)
-    from fabric_tpu_torch.orderer import (BatchConfig, BlockCutter,
-                                          BlockWriter, DeliverHandler,
-                                          SeekInfo, StandardChannelProcessor)
-    from fabric_tpu_torch.verify_plane import (AttestorTrust, VerdictCache,
-                                               attest_block)
-    signer = load_signing_identity(ocfg["mspid"], ocfg["cert_pem"].encode(),
-                                   ocfg["key_pem"].encode())
-    source = BundleSource(Bundle(ChannelConfig.deserialize(
-        bytes.fromhex(ocfg["channel_config_hex"]))))
-    bundle = source.current()
-    msps, batch = bundle.msps, bundle.batch
-    vcfg = dict(ocfg.get("verify_once", {}))
-    trust, attestors = attestation_trust(vcfg)
-    os.makedirs(data_dir, exist_ok=True)
-    processor = StandardChannelProcessor(
-        "ch", msps, provider, writers_policy=None,
-        absolute_max_bytes=batch.absolute_max_bytes, bundle_source=source)
-    cache = VerdictCache(capacity=int(vcfg.get("capacity", 65536)),
-                         owner="orderer%s" % ocfg.get("raft_id", ""))
-    processor.verify_cache = cache
-    processor.trust_attestations = trust
-    processor.attestors = processor._normalize_attestors(attestors)
-    processor.attestor_trust = AttestorTrust(
-        os.path.join(data_dir, "attestor_trust.json"))
-    store = BlockStore()
-    writer = BlockWriter("ch", store, signer=signer)
-    registrar = _WaitingChannel(store)
-    ordering = _Ordering(writer, registrar, processor, BlockCutter(
-        BatchConfig(max_message_count=batch.max_message_count,
-                    absolute_max_bytes=batch.absolute_max_bytes,
-                    preferred_max_bytes=batch.preferred_max_bytes,
-                    batch_timeout_s=batch.timeout_s)), batch.timeout_s)
-    handler = DeliverHandler(registrar)
-    attesting = bool(vcfg.get("attest_deliver", False))
-
-    def admit(raws, attests=None, attestor=None):
-        # a call that raises is answered with an error, and the gateway
-        # sends the batch again: its envelopes ordered before the fault
-        # would be ordered twice, so the fault is kept for the checks
-        try:
-            return ordering.admit(raws, attests, attestor)
-        except Exception:
-            import traceback
-            ordering.faults.append(traceback.format_exc(limit=4))
-            raise
-
-    def rpc_broadcast(body, peer_identity):
-        (status, info), = admit([body["envelope"]])
-        return {"status": status, "info": info, "leader": 0}
-
-    def rpc_broadcast_batch(body, peer_identity):
-        attests = body.get("attests") if peer_identity is not None else None
-        out = admit(body["envelopes"], attests, peer_identity)
-        return {"statuses": [s for s, _ in out],
-                "infos": [i for _, i in out], "leader": 0}
-
-    def rpc_deliver(body, peer_identity):
-        seek = SeekInfo(start=body.get("start", 0), stop=body.get("stop"),
-                        behavior=body.get("behavior", "block_until_ready"))
-        for block in handler.deliver(body["channel"], seek, None,
-                                     timeout_s=body.get("timeout_s", 30)):
-            out = {"block": block.serialize()}
-            if attesting:
-                attests = attest_block(cache, block, "ch", msps)
-                if attests is not None:
-                    out["attests"] = attests
-            yield out
-
-    srv = RpcServer(ocfg.get("host", "127.0.0.1"), int(ocfg["port"]),
-                    signer, msps)
-    srv.serve("broadcast", rpc_broadcast)
-    srv.serve("broadcast_batch", rpc_broadcast_batch)
-    srv.serve_stream("deliver", rpc_deliver)
-    return types.SimpleNamespace(srv=srv.start(), ordering=ordering,
-                                 registrar=registrar, store=store,
-                                 writer=writer, msps=msps, cache=cache,
-                                 processor=processor)
 
 
 def free_port() -> int:
@@ -5923,14 +5764,21 @@ def node_clients(spec_path: str) -> int:
     once (a thread an envelope, one multiplexed connection a client),
     then asks the commit status of each; then `result <json>` (per tx:
     txid, endorse s, submit s, submit time, status time, code, block,
-    endorsements, org; times on the monotonic clock, which the parent
-    shares), and `failed <text>` instead of any step that raised.  The
-    clients check the peers' handshakes on SW: no peer runs here."""
+    endorsements, org, endorse start, resubmits; times on the monotonic
+    clock, which the parent shares), and `failed <text>` instead of any
+    step that raised.  The clients check the peers' handshakes on SW: no
+    peer runs here.  Spec keys beside the clients: `key_base` (the first
+    asset a client's txs transfer, default 100), `sequential` (each
+    client submits its txs one after another, the clients together)
+    and `resubmit_after_s`
+    (phase 17: a tx with no commit status that long after its client's
+    last submit is submitted again, once, through the other peer's
+    gateway, as a Fabric client does after an orderer lost it)."""
     import threading
     from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
     from fabric_tpu_torch.config import Bundle, ChannelConfig
     from fabric_tpu_torch.endorser import assemble_transaction
-    from fabric_tpu_torch.gateway import GatewayClient
+    from fabric_tpu_torch.gateway import GatewayClient, GatewayError
     from fabric_tpu_torch.node.orderer import load_signing_identity
 
     def say(line: str) -> None:
@@ -5954,11 +5802,17 @@ def node_clients(spec_path: str) -> int:
             signers.append(load_signing_identity(
                 c["mspid"], c["cert_pem"].encode(), c["key_pem"].encode()))
         n_txs, wait_s = spec["txs_per_client"], spec["wait_s"]
+        key_base = int(spec.get("key_base", 100))
+        retry_s = spec.get("resubmit_after_s")
         hot = {int(c): j for c, j in spec["hot"].items()}
         gws = {c: GatewayClient(tuple(spec["gateways"][(c // 2) % 2]),
                                 signers[c % 2], msps, channel_id="ch",
                                 call_timeout=wait_s)
                for c in spec["clients"]}
+        others = {c: GatewayClient(tuple(spec["gateways"][1 - (c // 2) % 2]),
+                                   signers[c % 2], msps, channel_id="ch",
+                                   call_timeout=wait_s)
+                  for c in spec["clients"]} if retry_s else {}
         txs, errors, lock = {}, [], threading.Lock()
 
         def run_all(fn, keys):
@@ -5979,7 +5833,8 @@ def node_clients(spec_path: str) -> int:
 
         def endorse(c):
             for i in range(n_txs):
-                k = hot[c] if i == 0 and c in hot else 100 + c * n_txs + i
+                k = (hot[c] if i == 0 and c in hot
+                     else key_base + c * n_txs + i)
                 t0 = time.monotonic()
                 sp, responses = gws[c].endorse("assets", "transfer", [
                     f"asset{k:05d}".encode(), f"owner{c}-{i}".encode()])
@@ -5998,10 +5853,30 @@ def node_clients(spec_path: str) -> int:
                       t_sub=t2)
 
         def client(c):
-            run_all(submit, [(c, i) for i in range(n_txs)])
+            if spec.get("sequential"):
+                for i in range(n_txs):
+                    submit((c, i))
+            else:
+                run_all(submit, [(c, i) for i in range(n_txs)])
+            deadline = time.monotonic() + (retry_s or wait_s)
+            lost = []
             for i in range(n_txs):
                 tx = txs[(c, i)]
-                tx["code"], tx["block"] = gws[c].commit_status(
+                tx["resubmits"] = 0
+                try:
+                    tx["code"], tx["block"] = gws[c].commit_status(
+                        tx["txid"], timeout_s=max(
+                            deadline - time.monotonic(), 0.1))
+                    tx["t_status"] = time.monotonic()
+                except GatewayError:
+                    if not retry_s:
+                        raise
+                    lost.append(tx)
+            for tx in lost:
+                tx["resubmits"] = 1
+                others[c].submit_envelope(tx["env"], timeout_s=wait_s)
+            for tx in lost:
+                tx["code"], tx["block"] = others[c].commit_status(
                     tx["txid"], timeout_s=wait_s)
                 tx["t_status"] = time.monotonic()
         say("up")
@@ -6010,12 +5885,12 @@ def node_clients(spec_path: str) -> int:
         say("endorsed")
         hear("submit")
         run_all(client, spec["clients"])
-        for gw in gws.values():
+        for gw in list(gws.values()) + list(others.values()):
             gw.close()
         say("result " + json.dumps([
             [tx["txid"], tx["endorse_s"], tx["submit_s"], tx["t_sub"],
              tx["t_status"], tx["code"], tx["block"], tx["n_end"], tx["org"],
-             tx["t_endorse"]] for tx in txs.values()]))
+             tx["t_endorse"], tx["resubmits"]] for tx in txs.values()]))
         return 0
     except Exception as exc:
         say("failed " + repr(exc)[:2000])
@@ -6115,45 +5990,566 @@ def node_chain(ledger) -> list:
     return out
 
 
-def node_phase(torch, args, fns, name_power, dev) -> dict:
-    """Phase 16.  The peer as a process, on the card: the reference's dev
-    network (`provision_network(peer_orgs=("Org1", "Org2"),
-    peers_per_org=1, batch=BatchConfig())`, the port's provisioning;
-    Fabric's channel defaults: MaxMessageCount 500, BatchTimeout 2 s,
-    AbsoluteMaxBytes 10 MiB); the contract `assets` (asset_demo) under
-    AND of the orgs.  The orderer stand-in (`node_orderer`) on its own
-    CUDA provider; peer 1 (Org1) a PeerNode in this process from its
-    provisioned config with no `bccsp` key (the factory's CUDA kind,
-    fail-stop), its provider behind a by-cause facade; peer 2 (Org2)
-    `python -m fabric_tpu_torch.node.peer <node.json>` in a child
-    process, also with no `bccsp` key; a third node of Org1 with
-    `"bccsp": "SW"` in a child process of its own, following the same
-    stand-in (the identity check, untimed).  Ops ports on, the tracer
-    at the node's defaults.  Block 0: NODE_SEED_TXS `create` txs made
-    once, delivered to every node.  The load (profiled): 2 x
+class _Heights:
+    """Polls `read()` (a height) every 20 ms on a thread of its own and
+    keeps the monotonic time each block was first seen: block n's time
+    is when the height first passed n (from `start` on, when given; else
+    from the first reading)."""
+
+    def __init__(self, read, start=None):
+        import threading
+        self.read, self.at, self.last = read, {}, start
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            try:
+                h = int(self.read())
+            except Exception:
+                continue
+            now = time.monotonic()
+            if self.last is not None:
+                for n in range(self.last, h):
+                    self.at.setdefault(n, now)
+            self.last = h if self.last is None else max(self.last, h)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self.at
+
+
+def hist_ms(m0: dict, m1: dict, name: str, **labels) -> dict:
+    """One histogram's observations between two /metrics readings:
+    count, mean ms, and the p50 and p99 as the upper bound of their
+    bucket (ms)."""
+    key = tuple(sorted(labels.items()))
+    n = moved_by(m0, m1, name + "_count", **labels)
+    if n <= 0:
+        return {"count": 0}
+    out = {"count": int(n), "mean_ms": round(
+        moved_by(m0, m1, name + "_sum", **labels) / n * 1e3, 3)}
+    rows = []
+    for lk, v in m1.get(name + "_bucket", {}).items():
+        rest = tuple(kv for kv in lk if kv[0] != "le")
+        if rest == key:
+            le = dict(lk)["le"]
+            rows.append((float(le), v - m0.get(name + "_bucket", {}).get(
+                lk, 0.0)))
+    for label, q in (("p50_le_ms", 0.5), ("p99_le_ms", 0.99)):
+        for ub, cum in sorted(rows):
+            if cum >= q * n:
+                out[label] = ub * 1e3
+                break
+    return out
+
+
+def orderer_figures(m0: dict, m1: dict) -> dict:
+    """One orderer process's figures between two readings of its
+    /metrics: its `broadcast_batch` calls (the RPC handler's wall time: a
+    gateway batch's admission), its SigFilter's device verifies and
+    attested skips, its Raft entry verifies, its provider's dispatches by
+    lane (`generic`: KP2 and KE5; `rows`: KP3 and KE6) and their resolve
+    seconds (the device wait its threads saw)."""
+    return {
+        "broadcast_batch": hist_ms(m0, m1, "rpc_request_duration_seconds",
+                                   method="broadcast_batch"),
+        "sig_filter_device_verifies": moved_by(
+            m0, m1, "verify_plane_device_verifications_total",
+            site="orderer"),
+        "attested_skips": moved_by(m0, m1,
+                                   "verify_plane_attested_skips_total"),
+        "entry_verifies": moved_by(m0, m1, "orderer_entry_verifies_total",
+                                   result="ok"),
+        "bad_entry_sigs": moved_by(m0, m1, "orderer_entry_verifies_total",
+                                   result="bad_entry_sig"),
+        "dispatches_by_lane": {
+            lane: moved_by(m0, m1, "provider_lane_fill_count", lane=lane)
+            for lane in ("generic", "rows")},
+        "resolve_s": round(moved_by(m0, m1, "provider_resolve_seconds_sum"),
+                           6)}
+
+
+def orderer_chains(ocfgs) -> dict:
+    """{channel: [each orderer's block header hashes]}, read from the
+    orderers' block stores on disk (the processes stopped)."""
+    from fabric_tpu_torch.ledger.blkstorage import BlockStore
+    from fabric_tpu_torch.protocol import block_header_hash
+    out = {}
+    for oc in ocfgs:
+        for cid in sorted(os.listdir(oc["data_dir"])):
+            d = os.path.join(oc["data_dir"], cid, "ledger")
+            if not os.path.isdir(d):
+                continue
+            store = BlockStore(d)
+            out.setdefault(cid, []).append(
+                [block_header_hash(store.get_by_number(n).header).hex()
+                 for n in range(store.height)])
+    return out
+
+
+def seek_body(signer, cid: str, start: int, stop: int) -> dict:
+    """A `deliver` request for blocks start..stop of `cid`, signed by
+    `signer` for the orderer's Readers check."""
+    payload = b"seek:%s" % cid.encode()
+    return {"channel": cid, "start": start, "stop": stop, "timeout_s": 10,
+            "behavior": "fail_if_not_ready",
+            "signed_data": {"data": payload, "identity": signer.serialize(),
+                            "signature": signer.sign(payload)}}
+
+
+def orderer_phase(torch, net, fns, name_power) -> dict:
+    """Phase 17, on phase 16's network after its load: the ordering
+    service's failure drills on the card.
+    (a) ORDERER_CLIENTS clients in two processes of their own endorse
+        ORDERER_TXS_PER_CLIENT `transfer`s each (fresh assets), then
+        submit them through both gateways, each client one tx after
+        another, the clients together; once the leader has admitted half
+        of them (its /metrics), it is SIGKILLed.  A tx with
+        no commit status ORDERER_RESUBMIT_S after its client's last
+        submit is submitted again, once, through the other gateway, as a
+        Fabric client does after an orderer lost it.  Timed on the monotonic clock: kill -> a new
+        leader (the survivors' `status`) -> its first block -> that
+        block committed at both peers.  Held: every tx committed exactly
+        once, VALID, with the code its client was told.
+    (b) The killed orderer restarted from its WAL (`python -m
+        fabric_tpu_torch.node.orderer` again): its /healthz the CUDA
+        backend, and its height and tip header hash the leader's.
+    (c) A second channel at runtime: its config (the channel's, Admins
+        any one org admin) joined on the three orderers through the
+        admin-gated `participation.join` RPC (the admin CLI has no
+        orderer verb, in either package), and on both peers by `python
+        -m fabric_tpu_torch.node.admin channel join`; one tx committed
+        VALID on it.  Onboarding: a port OrdererNode in this process on
+        the spare consenter's identity (its provider the factory's CUDA
+        kind) joins both channels with a catch-up target at the
+        cluster's heights, as a snapshot install sets it, and
+        `_replicate_once` pulls every block and verifies each orderer
+        signature on the card.
+    (d) A Raft append whose entry payload was spliced after the leader
+        signed it, cast to a follower on the leader's own transport
+        identity: rejected as `bad_entry_sig` by the follower's CUDA
+        provider (its /metrics).  That onboarded node, as the port's
+        `testing.adversary.EquivocatingOrderer`, serves the honest block
+        and a forged sibling at a committed height; peer 1's byzantine
+        monitor convicts it of a fork and quarantines its binding.
+    -> the phase's launches by kernel in this process."""
+    import dataclasses
+    import signal
+    from fabric_tpu_torch.bccsp import factory
+    from fabric_tpu_torch.comm.rpc import connect
+    from fabric_tpu_torch.config import ChannelConfig
+    from fabric_tpu_torch.gateway import GatewayClient
+    from fabric_tpu_torch.msp import Principal
+    from fabric_tpu_torch.node.orderer import load_signing_identity
+    from fabric_tpu_torch.orderer import block_signature_items
+    from fabric_tpu_torch.orderer.cluster import (cert_fingerprint,
+                                                  msg_to_dict)
+    from fabric_tpu_torch.orderer.consensus import make_entry_signer
+    from fabric_tpu_torch.orderer.raft import Entry, Message
+    from fabric_tpu_torch.policy import n_out_of, signed_by
+    from fabric_tpu_torch.protocol import Block, Envelope, block_header_hash
+    from fabric_tpu_torch.protocol.txflags import TxFlags
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    from fabric_tpu_torch.testing.adversary import EquivocatingOrderer
+    t_phase = time.perf_counter()
+    base = {f: fns[f].launches for f in fns}
+    node1, ch1, ocfgs = net.node1, net.ch1, net.ocfgs
+    alive = list(range(1, NODE_ORDERERS + 1))
+
+    def metrics():
+        return {k: scrape(net.ourl[k - 1] + "/metrics") for k in alive}
+
+    def ident(c):
+        return load_signing_identity(c["mspid"], c["cert_pem"].encode(),
+                                     c["key_pem"].encode())
+    parts, t_part = {}, [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 2)
+        t_part[0] = now
+    m0 = metrics()
+
+    # --- (a) the leader killed mid-submission ---------------------------
+    old = net.leader[0]
+    h0 = net.ostatus(old)["height"]
+    key_base = 100 + 2 * NODE_CLIENTS * NODE_TXS_PER_CLIENT
+    n_tx = ORDERER_CLIENTS * ORDERER_TXS_PER_CLIENT
+    half = ORDERER_CLIENTS // 2
+    specs = [dict(net.spec0, clients=list(range(k * half, (k + 1) * half)),
+                  hot={}, txs_per_client=ORDERER_TXS_PER_CLIENT,
+                  key_base=key_base, sequential=True,
+                  resubmit_after_s=ORDERER_RESUBMIT_S)
+             for k in range(2)]
+    tell, hear = net.clients_up("drill", specs)
+    hear("up")
+    tell("endorse")
+    hear("endorsed")
+    part("a_endorse")
+    lurl = net.ourl[old - 1] + "/metrics"
+
+    def admitted() -> float:
+        m = scrape(lurl)
+        return (moved_by(m0[old], m, "verify_plane_attested_skips_total")
+                + moved_by(m0[old], m,
+                           "verify_plane_device_verifications_total",
+                           site="orderer"))
+    tell("submit")
+    t_sub = time.monotonic()
+    while admitted() < n_tx // 2 and time.monotonic() - t_sub < 10.0:
+        time.sleep(0.005)
+    at_kill = admitted()
+    proc = net.procs[f"orderer{old}"]
+    t_kill = time.monotonic()
+    proc.send_signal(signal.SIGKILL)
+    proc.wait(timeout=30)
+    alive.remove(old)
+    h_kill = max(net.ostatus(k)["height"] for k in alive)
+    new = None
+    while new is None:
+        check(time.monotonic() - t_kill < ORDERER_WAIT_S,
+              "orderer: no new leader after the kill")
+        for k in alive:
+            try:
+                if net.ostatus(k)["role"] == "leader":
+                    new = k
+            except Exception:
+                pass
+        if new is None:
+            time.sleep(0.01)
+    t_leader = time.monotonic()
+    net.leader[0] = new
+    own = {}
+    heights = {"leader": _Heights(lambda: child_status(
+        own, "leader", ("127.0.0.1", ocfgs[new - 1]["port"]),
+        net.clients[0], node1.msps)["height"], h_kill),
+               "peer2": _Heights(lambda: child_status(
+                   own, "peer2", ("127.0.0.1", net.cfg2["port"]),
+                   net.clients[0], node1.msps)["height"], h_kill)}
+    results, resubmits, t_subs = {}, 0, []
+    for said in hear("result"):
+        for (txid, _e, _s, t_s, _tst, code, num, _n, _org, _te,
+             resub) in json.loads(said):
+            results[txid] = (code, num)
+            resubmits += resub
+            t_subs.append(t_s)
+    t_statuses = time.monotonic()
+    part("a_submit_kill_and_status")
+    height = net.ostatus(new)["height"]
+    wait_until(lambda: net.at(height, ("peer2",)),
+               f"height {height} on peers 1 and 2", ORDERER_WAIT_S)
+    cut_at = heights["leader"].stop()
+    p2_at = heights["peer2"].stop()
+    for conn in own.values():
+        conn.close()
+    first = min(n for n in cut_at if n >= h_kill) if any(
+        n >= h_kill for n in cut_at) else h_kill
+    check(first in cut_at and first in p2_at
+          and first in net.committed_at,
+          f"orderer: the new leader's first block {first} was not seen "
+          f"cut and committed (cut {sorted(cut_at)}, peer 2 "
+          f"{sorted(p2_at)})")
+    t_both = max(net.committed_at[first], p2_at[first])
+    # each drill tx committed once, VALID, with its client's code
+    seen = {}
+    for num in range(h0, height):
+        blk = ch1.ledger.blockstore.get_by_number(num)
+        flags = TxFlags.from_bytes(blk.metadata.items[META_TXFLAGS])
+        for j, d in enumerate(blk.data):
+            txid = Envelope.deserialize(bytes(d)).header() \
+                .channel_header.txid
+            if txid in results:
+                seen.setdefault(txid, []).append((int(flags.flag(j)), num))
+    check(len(results) == n_tx, f"orderer: {len(results)} of {n_tx} drill "
+          "txs have a commit status")
+    bad = [(t, results[t], seen.get(t)) for t in results
+           if seen.get(t) != [results[t]] or results[t][0] != 0]
+    check(not bad, f"orderer: {len(bad)} drill txs not committed exactly "
+          f"once, VALID, as their clients were told: {bad[:3]}")
+    phase("orderer", drill="leader killed mid-submission",
+          killed=f"orderer{old}", admitted_at_kill=int(at_kill),
+          new_leader=f"orderer{new}", txs=n_tx, resubmitted=resubmits,
+          kill_to_last_submit_s=round(max(t_subs) - t_kill, 3),
+          kill_to_last_status_s=round(t_statuses - t_kill, 3),
+          kill_to_new_leader_s=round(t_leader - t_kill, 3),
+          kill_to_first_block_cut_s=round(cut_at[first] - t_kill, 3),
+          kill_to_committed_on_both_peers_s=round(t_both - t_kill, 3),
+          first_block=first, blocks=height - h0,
+          exactly_once="each tx once, VALID, the code its client got",
+          card=name_power)
+    part("a_checks")
+
+    # --- (b) the killed orderer restarted from its WAL -------------------
+    t0 = time.monotonic()
+    net.spawn(f"orderer{old}", net.argv_of[f"orderer{old}"])
+    alive.append(old)
+    alive.sort()
+    health = {}
+    wait_until(lambda: health.__setitem__(0, json.loads(get_url(
+        net.ourl[old - 1] + "/healthz"))) or True,
+        f"orderer{old}'s /healthz after its restart "
+        f"({net.tail(f'orderer{old}')})", ORDERER_WAIT_S)
+    up_s = time.monotonic() - t0
+    check(health[0].get("status") == "OK" and health[0].get("bccsp") == {
+        "name": "cuda", "backend": "cuda", "degraded": False},
+        f"orderer: the restarted orderer's /healthz {health[0]}")
+    wait_until(lambda: net.ostatus(old)["height"] == height,
+               f"orderer{old} back at height {height}", ORDERER_WAIT_S)
+    caught_s = time.monotonic() - t0
+
+    def tip(k, cid="ch", h=None):
+        h = net.ostatus(k)["height"] if h is None else h
+        conn = connect(("127.0.0.1", ocfgs[k - 1]["port"]), node1.signer,
+                       node1.msps, timeout=10.0)
+        try:
+            got = [Block.deserialize(bytes(x["block"])) for x in
+                   conn.call_stream("deliver", seek_body(
+                       node1.signer, cid, h - 1, h - 1))]
+        finally:
+            conn.close()
+        return block_header_hash(got[-1].header).hex()
+    check(tip(old) == tip(new), "orderer: the restarted orderer's tip "
+          "header differs from the leader's")
+    phase("orderer", drill="restart from the WAL", restarted=f"orderer{old}",
+          healthz_s=round(up_s, 3), caught_up_s=round(caught_s, 3),
+          height=height, tip="the leader's header hash", card=name_power)
+    part("b_restart")
+
+    # --- (c) a second channel at runtime ---------------------------------
+    cfg = ChannelConfig.deserialize(bytes.fromhex(
+        ocfgs[0]["channel_config_hex"]))
+    mspids = [o.mspid for o in cfg.orgs]
+    cfg2 = dataclasses.replace(cfg, channel_id="ch2", policies=dict(
+        cfg.policies, Admins=n_out_of(1, [signed_by(Principal.admin(m))
+                                          for m in mspids])))
+    raw2 = cfg2.serialize()
+    ch2_path = os.path.join(net.root, "ch2.bin")
+    with open(ch2_path, "wb") as f:
+        f.write(raw2)
+    t0 = time.monotonic()
+    with open(net.paths["admins"]["Org1"]) as f:
+        admin = ident(json.load(f))
+    for k in alive:
+        conn = connect(("127.0.0.1", ocfgs[k - 1]["port"]), admin,
+                       node1.msps, timeout=10.0)
+        try:
+            out = conn.call("participation.join", {"config": raw2},
+                            timeout=60.0)
+        finally:
+            conn.close()
+        check(out == {"channel": "ch2", "status": "joined"},
+              f"orderer: orderer{k} join of ch2 said {out}")
+    # the two peers' joins by the admin CLI, a process each, together
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {name: subprocess.Popen(
+        [sys.executable, "-m", "fabric_tpu_torch.node.admin",
+         "--client", net.paths["admins"][org], "--msp-config", cfg_path,
+         "channel", "join", "--peer", f"127.0.0.1:{port}",
+         "--config", ch2_path], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": here})
+        for name, cfg_path, port, org in (
+            ("peer1", net.paths["peers"][0], net.cfg1["port"], "Org1"),
+            ("peer2", net.paths["peers"][1], net.cfg2["port"], "Org2"))}
+    cli = {}
+    for name, run in runs.items():
+        out, err = run.communicate(timeout=ORDERER_WAIT_S)
+        check(run.returncode == 0, f"orderer: the admin CLI's join of "
+              f"{name}: rc {run.returncode} {err[-1500:]}")
+        cli[name] = json.loads(out.strip().splitlines()[-1])
+    join_s = time.monotonic() - t0
+    gw = GatewayClient(("127.0.0.1", net.cfg1["port"]), net.clients[0],
+                       node1.msps, channel_id="ch2",
+                       call_timeout=ORDERER_WAIT_S)
+    try:
+        code, num2 = gw.submit_transaction(
+            "assets", "create", [b"asset-ch2", b"owner0"], channel="ch2",
+            commit_timeout_s=ORDERER_WAIT_S)
+    finally:
+        gw.close()
+    check(code == 0, f"orderer: the tx on ch2 committed as {code}")
+    wait_until(lambda: node1.channels["ch2"].ledger.height >= num2 + 1,
+               "ch2's block on peer 1", ORDERER_WAIT_S)
+    ch2_height = node1.channels["ch2"].ledger.height
+    tx_s = time.monotonic() - t0 - join_s
+    part("c_join")
+    # onboarding: a node on the spare consenter's identity catches up
+    # both channels from the cluster's deliver streams
+    with open(net.paths["spare_orderers"][0]) as f:
+        spare = json.load(f)
+    spare.update(port=free_port(), data_dir=os.path.join(net.root, "spare"))
+    spare.pop("ops_port", None)
+    os.makedirs(spare["data_dir"], exist_ok=True)
+    fork = net.seed_blocks - 1
+    prev = factory.get_default()
+    adv = EquivocatingOrderer(spare, data_dir=spare["data_dir"],
+                              crimes={"fork_height": fork, "channel": "ch"})
+    factory.set_default(prev)
+    try:
+        check(adv.provider.name == "cuda", "orderer: the onboarding node's "
+              "provider is not the CUDA provider")
+        adv.join_channel(ChannelConfig.deserialize(raw2))
+        targets = {"ch": height, "ch2": ch2_height}
+        for cid, h in targets.items():
+            adv.registrar.get(cid).chain.catchup_target = {
+                "height": h, "index": 10 ** 9}
+        n0 = {f: fns[f].launches for f in fns}
+        t0 = time.monotonic()
+        pulled = adv._replicate_once()
+        onboard_s = time.monotonic() - t0
+        onboard = {f: fns[f].launches - n0[f] for f in fns}
+        check(pulled == sum(targets.values()) and all(
+            adv.registrar.get(cid).ledger.height == h
+            for cid, h in targets.items()),
+            f"orderer: onboarding pulled {pulled} blocks of "
+            f"{sum(targets.values())}")
+        check(onboard["p256_verify"] + onboard["p256_verify_rows"]
+              >= pulled, f"orderer: onboarding's signature checks "
+              f"launched {onboard}, {pulled} blocks")
+        phase("orderer", drill="a channel joined at runtime, onboarding",
+              orderers_joined=len(alive), peers_joined_by_cli=sorted(cli),
+              join_s=round(join_s, 3), ch2_first_tx_commit_s=round(tx_s, 3),
+              onboarded_blocks=targets, onboard_s=round(onboard_s, 3),
+              onboard_launches={k: v for k, v in onboard.items() if v},
+              card=name_power)
+        part("c_onboard")
+
+        # --- (d) a spliced entry, an equivocating orderer ----------------
+        lead = net.leader[0]
+        follower = next(k for k in alive if k != lead)
+        fb = scrape(net.ourl[follower - 1] + "/metrics")
+        lsigner = ident(ocfgs[lead - 1])
+        st = net.ostatus(follower)
+        idx = 10 ** 6
+        proposer, sig = make_entry_signer(lsigner)(
+            st["term"], idx, b"the leader's batch", "normal")
+        spliced = Entry(st["term"], idx, b"a spliced batch", "normal",
+                        proposer, sig)
+        conn = connect(("127.0.0.1", ocfgs[follower - 1]["port"]), lsigner,
+                       node1.msps, timeout=10.0)
+        try:
+            conn.cast("raft.step", {"channel": "ch", "msg": msg_to_dict(
+                Message("app", lead, follower, st["term"], index=idx - 1,
+                        log_term=st["term"], entries=(spliced,)))})
+            furl = net.ourl[follower - 1] + "/metrics"
+            wait_until(lambda: moved_by(
+                fb, scrape(furl), "orderer_entry_verifies_total",
+                result="bad_entry_sig") >= 1,
+                f"orderer{follower}'s bad_entry_sig", ORDERER_WAIT_S)
+        finally:
+            conn.close()
+        fa = scrape(furl)
+        check(net.ostatus(follower)["height"] == net.ostatus(lead)["height"],
+              "orderer: the follower moved on the spliced entry")
+        adv.rpc.start()
+        src = f"{adv.signer.mspid}|{cert_fingerprint(adv.signer.cert)}"
+        mon = ch1.byz_monitor
+        proofs0 = len(mon.proofs)
+        conn = connect(adv.rpc.addr, node1.signer, node1.msps, timeout=10.0)
+        verdicts = []
+        try:
+            for x in conn.call_stream("deliver", seek_body(
+                    node1.signer, "ch", fork, fork)):
+                block = Block.deserialize(bytes(x["block"]))
+                items = block_signature_items(block, ch1.msps)
+                check(bool(node1.provider.batch_verify(items).all()),
+                      "orderer: a served block's signature did not verify")
+                verdicts.append(mon.check_block(block, src))
+        finally:
+            conn.close()
+        new_proofs = mon.proofs[proofs0:]
+        check(len(verdicts) == 2 and verdicts[0] == "stale"
+              and verdicts[1] == "reject" and len(new_proofs) == 1
+              and new_proofs[0]["reason"] == "fork"
+              and new_proofs[0]["accused"] == src
+              and node1.byzantine.is_quarantined(src),
+              f"orderer: the equivocation was not convicted: {verdicts}, "
+              f"{[(p['reason'], p['accused']) for p in new_proofs]}")
+        phase("orderer", drill="spliced entry, equivocating orderer",
+              spliced_to=f"orderer{follower}", as_leader=f"orderer{lead}",
+              follower_bad_entry_sigs=moved_by(
+                  fb, fa, "orderer_entry_verifies_total",
+                  result="bad_entry_sig"),
+              follower_dispatches=moved_by(
+                  fb, fa, "provider_lane_fill_count", lane="generic"),
+              equivocation_at=fork, verdicts=verdicts,
+              convicted=new_proofs[0]["reason"], quarantined=True,
+              card=name_power)
+        part("d_byzantine")
+    finally:
+        adv.rpc.stop()
+        for s in list(adv.cluster._senders.values()):
+            s.stop()
+        for support in adv.registrar.channels().values():
+            support.chain.halt()
+    m1 = metrics()
+    for k in alive:
+        # the restarted orderer's series start at its restart
+        phase("orderer", orderer=k,
+              role="leader" if k == net.leader[0] else "follower",
+              since="its restart" if k == old else "the phase's start",
+              **orderer_figures(m0[k] if k != old else {}, m1[k]),
+              card=name_power)
+    seconds = time.perf_counter() - t_phase
+    phase("orderer", parts_s=parts, seconds=round(seconds, 1),
+          budget_s=ORDERER_BUDGET_S)
+    return {f: fns[f].launches - base[f] for f in fns}
+
+
+def node_phase(torch, args, fns, name_power, dev,
+               orderer_drill: bool = True) -> tuple:
+    """Phase 16, then phase 17 on its network.  The peer as a process, on
+    the card: the reference's dev network (`provision_network(n_orderers=3,
+    peer_orgs=("Org1", "Org2"), peers_per_org=1, batch=BatchConfig(),
+    spare_orderers=1)`, the port's provisioning; Fabric's channel
+    defaults: MaxMessageCount 500, BatchTimeout 2 s, AbsoluteMaxBytes 10
+    MiB); the contract `assets` (asset_demo) under AND of the orgs.  The
+    ordering service: three `python -m fabric_tpu_torch.node.orderer
+    <node.json>` processes, a Raft cluster, each from its provisioned
+    config with no `bccsp` key (the factory's CUDA kind, fail-stop; each
+    loads its kernels before its cluster clock starts); peer 1 (Org1) a
+    PeerNode in this process from its provisioned config with no `bccsp`
+    key, its provider behind a by-cause facade; peer 2 (Org2) `python -m
+    fabric_tpu_torch.node.peer <node.json>` in a child process, also with
+    no `bccsp` key; a third node of Org1 with `"bccsp": "SW"` in a child
+    process of its own, following the same orderers (the identity check,
+    untimed).  Ops ports on, the tracer at the node's defaults.  The
+    seed: NODE_SEED_TXS `create` txs made once, stamped by peer 1's
+    gateway plane (`speculative.stamp`: the creators verified in one
+    batch, the endorsement sets queued) and broadcast through its
+    gateway's broadcaster with the verdict attestations, 500 a call, so
+    the leader's SigFilter honours the allowlisted peer's verdicts; the
+    orderers cut them at 500 a block.  The load (profiled): 2 x
     NODE_CLIENTS clients in NODE_CLIENT_PROCS processes of their own
     (`node_clients`, a thread a client), half through each peer's
     gateway; each `GatewayClient.endorse`s NODE_TXS_PER_CLIENT
     `transfer`s, then every client `submit_envelope`s all of them at
-    once without waiting (each gateway's 256 fill its default
-    max_queue), then asks `commit_status` of each; NODE_HOT_PAIRS
-    pairs' first txs transfer one asset, so the load holds MVCC
-    conflicts; one envelope with a broken creator signature, refused by
-    the stand-in's filter.  Checks: each block's flags and commit hash
-    equal on the three nodes, and their state and history; no tx
+    once without waiting, then asks `commit_status` of each;
+    NODE_HOT_PAIRS pairs' first txs transfer one asset, so the load holds
+    MVCC conflicts; one envelope with a broken creator signature, refused
+    by the leader's SigFilter.  Checks: each block's flags and commit
+    hash equal on the three peers, and their state and history; no tx
     ordered twice, and each commit-status code equal to its tx's
-    committed flag; `fallbacks` 0; launches by cause sum to the
-    wrappers' counts and every proposal's creator check launched on the
-    card; the ops routes on peers 1 and 2 (peer 2's /healthz the CUDA
-    backend, not degraded); `POST /drain` on peer 1, then a PeerNode
-    reopened on its data_dir at the same heights and commit hashes ->
-    the phase's launches by kernel (this process: peer 1, the
-    stand-in, the clients)."""
+    committed flag; `fallbacks` 0; launches by cause sum to the wrappers'
+    counts and every proposal's creator check launched on the card; the
+    ops routes on peers 1 and 2 (peer 2's /healthz the CUDA backend, not
+    degraded) and each orderer's /healthz the CUDA backend; then phase 17
+    (`orderer_phase`, unless `orderer_drill` is off); then `POST /drain`
+    on peers 2 and 1, peer 1 reopened on its data_dir at the same heights
+    and commit hashes, and the orderers' block stores, read from disk
+    after they stop, equal header for header -> (phase 16's launches by
+    kernel in this process: peer 1 and the clients; phase 17's)."""
+    import dataclasses
     import shutil
     import threading
+    import types
     from fabric_tpu_torch.bccsp import factory
-    from fabric_tpu_torch.bccsp.cuda import CudaProvider
-    from fabric_tpu_torch.config import BatchConfig
+    from fabric_tpu_torch.config import BatchConfig, ChannelConfig
+    from fabric_tpu_torch.msp import Principal
+    from fabric_tpu_torch.policy import n_out_of, signed_by
     from fabric_tpu_torch.endorser import assemble_transaction
     from fabric_tpu_torch.gateway import GatewayClient, GatewayError
     from fabric_tpu_torch.node import peer as peer_mod
@@ -6165,17 +6561,37 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
     root = os.path.join(here, "build", "node")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    paths = provision_network(root, n_orderers=1,
+    paths = provision_network(root, n_orderers=NODE_ORDERERS,
                               peer_orgs=("Org1", "Org2"), peers_per_org=1,
-                              batch=BatchConfig())
+                              batch=BatchConfig(), spare_orderers=1)
 
     def load(path):
         with open(path) as f:
             return json.load(f)
-    ocfg = load(paths["orderers"][0])
+    # one channel-config ACL override: cscc/JoinChain to any one peer
+    # org's admin, so the admin CLI (one identity) may join a peer to a
+    # channel at runtime in phase 17 (the default maps it to the
+    # channel's Admins, a majority of the three orgs' admins)
+    genesis = ChannelConfig.deserialize(bytes.fromhex(
+        load(paths["orderers"][0])["channel_config_hex"]))
+    genesis = dataclasses.replace(
+        genesis, acls=dict(genesis.acls, **{"cscc/JoinChain": "PeerAdmins"}),
+        policies=dict(genesis.policies, PeerAdmins=n_out_of(1, [
+            signed_by(Principal.admin(m)) for m in ("Org1", "Org2")])))
+    for path in (paths["orderers"] + paths["peers"]
+                 + paths["spare_orderers"]):
+        cfg = load(path)
+        cfg["channel_config_hex"] = genesis.serialize().hex()
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+    ocfgs = [load(p) for p in paths["orderers"]]
     cfg1, cfg2 = (load(p) for p in paths["peers"])
-    check("bccsp" not in cfg1 and "bccsp" not in cfg2,
-          "node: a provisioned peer config names a bccsp")
+    check(not any("bccsp" in c for c in ocfgs + [cfg1, cfg2]),
+          "node: a provisioned node config names a bccsp")
+    # the spare consenter identity is phase 17's, and never started: the
+    # peers know the three running orderers only
+    for cfg in (cfg1, cfg2):
+        cfg["orderers"] = [["127.0.0.1", oc["port"]] for oc in ocfgs]
 
     def ident(path):
         c = load(path)
@@ -6188,81 +6604,109 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
                 for c in (cfg1, cfg2)]
 
     tally, lock = {}, threading.Lock()
-    standin = node_orderer(ocfg, _ByCause(CudaProvider(), "orderer_filter",
-                                          tally, lock),
-                           os.path.join(root, "orderer1"))
+    procs, logs, argv_of = {}, {}, {}
+    child_env = {k: v for k, v in os.environ.items()
+                 if not k.startswith(("FABRIC_TPU_ORDERER_",
+                                      "FABRIC_TPU_PEER_"))}
+    child_env["PYTHONPATH"] = here
+
+    def spawn(name, argv):
+        """A node's process (its log appended to), as `name`."""
+        argv_of[name] = argv
+        if name in logs:
+            logs[name].close()
+        logs[name] = open(os.path.join(root, f"{name}.log"), "ab")
+        procs[name] = subprocess.Popen(argv, cwd=here, env=child_env,
+                                       stdout=logs[name],
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def tail(name) -> str:
+        logs[name].flush()
+        with open(os.path.join(root, f"{name}.log"), "rb") as f:
+            return f.read()[-3000:].decode(errors="replace")
+
+    def clients_up(tag, specs):
+        """A `node_clients` process a spec -> (tell, hear): `tell(word)`
+        writes a step to each, `hear(word)` waits for each one's line."""
+        import queue
+        names, heard = [], []
+        for k, spec in enumerate(specs):
+            name = f"{tag}{k}"
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            logs[name] = open(os.path.join(root, f"{name}.log"), "wb")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.node_clients(sys.argv[1]))", path],
+                cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=logs[name], text=True, env=child_env)
+            names.append(name)
+            heard.append(queue.Queue())
+            threading.Thread(target=lambda out, q: [q.put(line.strip())
+                                                    for line in out],
+                             args=(procs[name].stdout, heard[-1]),
+                             daemon=True).start()
+
+        def tell(word: str) -> None:
+            for name in names:
+                procs[name].stdin.write(word + "\n")
+                procs[name].stdin.flush()
+
+        def hear(word: str) -> list:
+            out = []
+            for name, q in zip(names, heard):
+                try:
+                    line = q.get(timeout=3 * NODE_WAIT_S)
+                except queue.Empty:
+                    line = "(nothing)"
+                check(line.split(" ", 1)[0] == word, f"node: client "
+                      f"process {name} said {line[:600]!r}, not {word!r} "
+                      f"({tail(name)})")
+                out.append(line[len(word):].strip())
+            return out
+        return tell, hear
+
+    # the ordering service: three of the port's orderers, a process
+    # each, on the factory's default (the card), ops ports on
+    for i, oc in enumerate(ocfgs):
+        oc["ops_port"] = free_port()
+        path = os.path.join(root, f"orderer{i + 1}.run.json")
+        with open(path, "w") as f:
+            json.dump(oc, f)
+        spawn(f"orderer{i + 1}", [sys.executable, "-m",
+                                  "fabric_tpu_torch.node.orderer", path])
     # the children: peer 2 (the entry point, the card) and the SW node
     cfg2["ops_port"] = free_port()
     sw_dir = os.path.join(root, "peerOrg1_sw")
     cfg_sw = dict(cfg1, port=free_port(), ops_port=free_port(),
                   data_dir=sw_dir, peers=[], gateway_enabled=False,
                   bccsp="SW")
-    procs, logs = {}, {}
     for name, cfg in (("peer2", cfg2), ("sw", cfg_sw)):
         path = os.path.join(root, f"{name}.json")
         with open(path, "w") as f:
             json.dump(cfg, f)
-        logs[name] = open(os.path.join(root, f"{name}.log"), "wb")
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-m", "fabric_tpu_torch.node.peer", path],
-            cwd=here, stdout=logs[name], stderr=subprocess.STDOUT,
-            env={**os.environ, "PYTHONPATH": here})
+        spawn(name, [sys.executable, "-m", "fabric_tpu_torch.node.peer",
+                     path])
 
     # the clients' processes start while block 0 is signed
-    import queue
     n_all = 2 * NODE_CLIENTS
     hot = {2 * j: j for j in range(NODE_HOT_PAIRS)}
     hot.update({2 * j + 1: j for j in range(NODE_HOT_PAIRS)})
-    heard = []
+    gateways = [["127.0.0.1", cfg1["port"]], ["127.0.0.1", cfg2["port"]]]
+    spec0 = {"txs_per_client": NODE_TXS_PER_CLIENT, "wait_s": NODE_WAIT_S,
+             "gateways": gateways,
+             "identities": [paths["clients"]["Org1"],
+                            paths["clients_ed25519"]["Org2"]],
+             "channel_config_hex": ocfgs[0]["channel_config_hex"]}
+    specs = []
     for k in range(NODE_CLIENT_PROCS):
-        name = f"clients{k}"
-        path = os.path.join(root, f"{name}.json")
         mine = list(range(k * n_all // NODE_CLIENT_PROCS,
                           (k + 1) * n_all // NODE_CLIENT_PROCS))
-        with open(path, "w") as f:
-            json.dump({"clients": mine, "txs_per_client": NODE_TXS_PER_CLIENT,
-                       "hot": {c: hot[c] for c in mine if c in hot},
-                       "wait_s": NODE_WAIT_S,
-                       "gateways": [["127.0.0.1", cfg1["port"]],
-                                    ["127.0.0.1", cfg2["port"]]],
-                       "identities": [paths["clients"]["Org1"],
-                                      paths["clients_ed25519"]["Org2"]],
-                       "channel_config_hex": ocfg["channel_config_hex"]}, f)
-        logs[name] = open(os.path.join(root, f"{name}.log"), "wb")
-        procs[name] = subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "sys.exit(chip_smoke.node_clients(sys.argv[1]))", path],
-            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=logs[name], text=True, env={**os.environ,
-                                               "PYTHONPATH": here})
-        heard.append(queue.Queue())
-        threading.Thread(target=lambda out, q: [q.put(line.strip())
-                                                for line in out],
-                         args=(procs[name].stdout, heard[-1]),
-                         daemon=True).start()
-
-    def tell(word: str) -> None:
-        for k in range(NODE_CLIENT_PROCS):
-            procs[f"clients{k}"].stdin.write(word + "\n")
-            procs[f"clients{k}"].stdin.flush()
-
-    def hear(word: str) -> list:
-        out = []
-        for k in range(NODE_CLIENT_PROCS):
-            try:
-                line = heard[k].get(timeout=3 * NODE_WAIT_S)
-            except queue.Empty:
-                line = "(nothing)"
-            check(line.split(" ", 1)[0] == word, f"node: client process "
-                  f"{k} said {line[:600]!r}, not {word!r} "
-                  f"({tail(f'clients{k}')})")
-            out.append(line[len(word):].strip())
-        return out
-
-    def tail(name) -> str:
-        logs[name].flush()
-        with open(os.path.join(root, f"{name}.log"), "rb") as f:
-            return f.read()[-3000:].decode(errors="replace")
+        specs.append(dict(spec0, clients=mine,
+                          hot={c: hot[c] for c in mine if c in hot}))
+    tell, hear = clients_up("clients", specs)
 
     node1 = node1_again = None
     conns = {}
@@ -6322,23 +6766,67 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
         node1.start()
         url1 = "http://127.0.0.1:%d" % cfg1["ops_port"]
         url2 = "http://127.0.0.1:%d" % cfg2["ops_port"]
+        ourl = ["http://127.0.0.1:%d" % oc["ops_port"] for oc in ocfgs]
         for name, url in (("peer2", url2), ("sw", "http://127.0.0.1:%d"
                                              % cfg_sw["ops_port"])):
             wait_until(lambda url=url: get_url(url + "/version"),
                        f"{name}'s ops server ({tail(name)})")
-        part("peer1_and_children_up")
+        ohealth = {}
+        for k, url in enumerate(ourl, 1):
+            # 200 once the orderer knows a Raft leader; its provider's
+            # fields are the card's
+            wait_until(lambda url=url, k=k: ohealth.__setitem__(
+                k, json.loads(get_url(url + "/healthz"))) or True,
+                f"orderer{k}'s /healthz ({tail(f'orderer{k}')})")
+            check(ohealth[k].get("status") == "OK" and ohealth[k].get(
+                "bccsp") == {"name": "cuda", "backend": "cuda",
+                             "degraded": False},
+                f"node: orderer{k}'s /healthz {ohealth[k]}")
+        part("peer1_children_and_orderers_up")
         spans2 = _BlockSpans(url2)
-        phase("node", orderer=f"127.0.0.1:{ocfg['port']}",
+
+        def ostatus(k):
+            return child_status(conns, f"orderer{k}",
+                                ("127.0.0.1", ocfgs[k - 1]["port"]),
+                                clients[0], node1.msps)
+        leader = [0]
+
+        def find_leader():
+            for k in range(1, NODE_ORDERERS + 1):
+                if f"orderer{k}" in procs and procs[f"orderer{k}"].poll() \
+                        is None and ostatus(k)["role"] == "leader":
+                    leader[0] = k
+                    return True
+            return False
+        wait_until(find_leader, "a Raft leader among the orderers")
+        phase("node", orderers=", ".join(
+            f"orderer{k} pid {procs[f'orderer{k}'].pid} port "
+            f"{ocfgs[k - 1]['port']} ops {ocfgs[k - 1]['ops_port']}"
+            for k in range(1, NODE_ORDERERS + 1)), leader=leader[0],
               peer1=f"in process, ops {cfg1['ops_port']}",
               peer2=f"child pid {procs['peer2'].pid}, ops {cfg2['ops_port']}",
               sw_node=f"child pid {procs['sw'].pid}",
               batch="500 / 10 MiB / 2 s", card=name_power)
 
-        # --- block 0 ----------------------------------------------------
+        # --- the seed ---------------------------------------------------
         base_phase = {f: fns[f].launches for f in fns}
-        with standin.ordering.lock:
-            standin.ordering._write(seed, "seed")
         t0 = time.perf_counter()
+        check(node1.speculative is not None and node1.gateway is not None,
+              "node: peer 1 has no gateway or speculative plane")
+        # what peer 1's gateway does with a batch: stamp the creators'
+        # verdicts (one batched verify) and send the attestations with
+        # the envelopes, which the orderer honours for an allowlisted peer
+        attests = node1.speculative.stamp(seed, ["ch"] * len(seed))
+        check(len(attests) == len(seed) and all(attests),
+              "node: the seed's creators were not all stamped")
+        stamp_s = time.perf_counter() - t0
+        for lo in range(0, len(seed), SEED_BATCH):
+            res = node1.gateway.broadcaster.broadcast_batch(
+                seed[lo:lo + SEED_BATCH], attests=attests[lo:lo + SEED_BATCH])
+            check(all(st == 200 for st, _info in res),
+                  f"node: a seed broadcast was refused: {res[:2]}")
+        broadcast_s = time.perf_counter() - t0 - stamp_s
+        seed_blocks = -(-NODE_SEED_TXS // SEED_BATCH)
         status = {}
 
         def at(height, names=("peer2", "sw")):
@@ -6354,42 +6842,66 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
                     and ch1.ledger.historydb.savepoint == height - 1
                     and all(status[n]["height"] >= height for n in names))
         # the SW node (untimed) catches up during the load
-        wait_until(lambda: at(1, ("peer2",)), "block 0 on peers 1 and 2",
+        wait_until(lambda: at(seed_blocks, ("peer2",)),
+                   f"the seed's {seed_blocks} blocks on peers 1 and 2",
                    step_s=0.1)
         seed_s = time.perf_counter() - t0
-        part("seed_commit")
+        part("seed_order_and_commit")
+        check(ch1.ledger.height == seed_blocks and all(
+            len(ch1.ledger.blockstore.get_by_number(n).data) == SEED_BATCH
+            for n in range(seed_blocks)),
+            f"node: the seed was not cut into {seed_blocks} blocks of "
+            f"{SEED_BATCH}")
+        seed_metrics = {k: scrape(url + "/metrics")
+                        for k, url in enumerate(ourl, 1)}
         phase("node", seed_txs=NODE_SEED_TXS, sign_s=parts["seed_sign"],
-              delivered_and_committed_on_peers_1_2_s=round(seed_s, 3),
-              peer1_commit_ms=round(commit_ms[0], 3))
+              seed_blocks=seed_blocks, stamp_s=round(stamp_s, 3),
+              broadcast_s=round(broadcast_s, 3),
+              ordered_delivered_and_committed_on_peers_1_2_s=round(
+                  seed_s, 3),
+              peer1_commit_ms_sum=round(sum(
+                  commit_ms[n] for n in range(seed_blocks)), 3),
+              leader_attested=round(moved_by(
+                  {}, seed_metrics[leader[0]],
+                  "verify_plane_attested_skips_total")),
+              card=name_power)
 
         # --- the load ---------------------------------------------------
         hear("up")
         base = {f: fns[f].launches for f in fns}
         tally0 = dict(tally)
         served0 = served[0]
-        gateways = [("127.0.0.1", cfg1["port"]), ("127.0.0.1", cfg2["port"])]
         per_tx, results = [], {}
+        om0 = {k: scrape(url + "/metrics") for k, url in enumerate(ourl, 1)}
+        # the leader's height on the monotonic clock: each block's cut
+        own = {}
+        cuts = _Heights(lambda: child_status(
+            own, "leader", ("127.0.0.1", ocfgs[leader[0] - 1]["port"]),
+            clients[0], node1.msps)["height"])
 
         def run_load():
             # every client endorses its txs, then all submit at once: 512
-            # envelopes reach the stand-in inside one BatchTimeout
+            # envelopes reach the leader inside one BatchTimeout
             tell("endorse")
             hear("endorsed")
             tell("submit")
             for said in hear("result"):
                 for (txid, e_s, s_s, t_sub, t_st, code, num, n_end, org,
-                     t_end) in json.loads(said):
+                     t_end, _resub) in json.loads(said):
                     results[txid] = (code, num)
                     per_tx.append((e_s, s_s, t_st - t_sub, n_end, org, num,
                                    t_sub, t_end, t_st))
         profiled = device_busy(torch, {"load": run_load}, threaded=True)
+        cut_at = cuts.stop()
+        for conn in own.values():
+            conn.close()
         part("load")
         n_load = n_all * NODE_TXS_PER_CLIENT
         check(len(results) == n_load, f"node: {len(results)} of {n_load} "
               "txs have a commit status")
 
         # one envelope with a broken creator signature
-        gw = GatewayClient(gateways[0], clients[0], node1.msps,
+        gw = GatewayClient(tuple(gateways[0]), clients[0], node1.msps,
                            channel_id="ch", call_timeout=NODE_WAIT_S)
         try:
             sp, responses = gw.endorse("assets", "transfer", [
@@ -6419,11 +6931,19 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
 
         part("broken_envelope")
         # --- checks -----------------------------------------------------
-        height = standin.store.height
+        om1 = {k: scrape(url + "/metrics") for k, url in enumerate(ourl, 1)}
+        height = ostatus(leader[0])["height"]
         wait_until(lambda: at(height), f"height {height} on every node",
                    step_s=0.1)
+        check(all(ostatus(k)["height"] == height
+                  for k in range(1, NODE_ORDERERS + 1)),
+              "node: the orderers are not at one height")
         chain1 = node_chain(ch1.ledger)
-        load_blocks = [b for b in standin.ordering.blocks if b[2] != "seed"]
+        # the load's blocks: (number, txs, cut at the count or the timeout)
+        load_blocks = []
+        for num in range(seed_blocks, height):
+            n = len(ch1.ledger.blockstore.get_by_number(num).data)
+            load_blocks.append((num, n, "count" if n == 500 else "timeout"))
         # each committed txid -> (flag, block).  A txid ordered twice (a
         # gateway's broadcast sent again after a call that failed) fails
         # the phase: its later copy is DUPLICATE_TXID, and the notifier
@@ -6441,9 +6961,8 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
                     twice.append((txid, flag_of[txid][1], num))
                 else:
                     flag_of[txid] = (int(flags.flag(j)), num)
-        check(not twice and not standin.ordering.faults,
-              f"node: {len(twice)} txs ordered twice {twice[:3]}; the "
-              f"stand-in's faults {standin.ordering.faults[:2]}; peer 1's "
+        check(not twice,
+              f"node: {len(twice)} txs ordered twice {twice[:3]}; peer 1's "
               f"broadcaster {node1.gateway.broadcaster.states()}; peer 2's "
               f"/gateway {get_url(url2 + '/gateway')[:1500]}")
         wrong = [(t, r, flag_of.get(t)) for t, r in results.items()
@@ -6456,9 +6975,8 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
               and valid + conflicts == n_load,
               f"node: load codes: {valid} valid, {conflicts} MVCC, "
               f"{n_load - valid - conflicts} other")
-        stats = [node1.provider.stats, standin.processor.provider.stats]
-        check(all(s.get("fallbacks", 0) == 0 for s in stats),
-              f"node: fallbacks {[s.get('fallbacks') for s in stats]}")
+        check(node1.provider.stats.get("fallbacks", 0) == 0,
+              f"node: fallbacks {node1.provider.stats.get('fallbacks')}")
         caused = sum(n for kerns in by_cause.values() for n in kerns.values())
         total = sum(launched[f] for f in ("p256_verify_rows", "p256_verify",
                                           "ed25519_verify_rows",
@@ -6472,6 +6990,11 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
 
         routes = {}
         for name, url in (("peer1", url1), ("peer2", url2)):
+            # a deliver pull refused while the orderers started marks the
+            # peer unhealthy until its next window ends (5 s at the tip)
+            wait_until(lambda url=url: json.loads(get_url(
+                url + "/healthz"))["status"] == "OK",
+                f"{name}'s /healthz OK", 30.0, 0.2)
             for route in NODE_ROUTES:
                 doc = json.loads(get_url(url + route))
                 routes[(name, route)] = sorted(doc) if isinstance(
@@ -6484,8 +7007,91 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
               and all(routes[("peer1", r)] == routes[("peer2", r)]
                       for r in NODE_ROUTES),
               f"node: the two peers' routes differ: {routes}")
+        for k, url in enumerate(ourl, 1):
+            health = json.loads(get_url(url + "/healthz"))
+            check(health.get("status") == "OK" and health.get("bccsp") == {
+                "name": "cuda", "backend": "cuda", "degraded": False},
+                f"node: orderer{k}'s /healthz {health}")
         block_ms2 = spans2.stop()
         part("flags_routes_spans")
+
+        # --- figures ----------------------------------------------------
+        # the phase's launches in this process (the seed and the load)
+        node_launches = {f: fns[f].launches - base_phase[f] for f in fns}
+        busy_ms, wall_ms, top = profiled["load"]
+        e_ms = [e * 1e3 for e, *_ in per_tx]
+        s_ms = [s * 1e3 for _e, s, *_ in per_tx]
+        c_ms = [c * 1e3 for _e, _s, c, *_ in per_tx]
+        # submit to the end of its block's commit at peer 1 (its clock)
+        k_ms = [(committed_at[num] - t_sub) * 1e3
+                for *_x, num, t_sub, _te, _ts in per_tx]
+        span_s = (max(x[8] for x in per_tx) - min(x[7] for x in per_tx))
+        count_cut = [n for _num, n, why in load_blocks if why == "count"]
+        # the first submit to each load block's cut at the leader (the
+        # timeout's 2 s start at the first envelope pending)
+        t_first_sub = min(x[6] for x in per_tx)
+        cut_s = {num: round(cut_at[num] - t_first_sub, 3)
+                 for num, _n, _why in load_blocks if num in cut_at}
+        print(name_power, flush=True)
+        phase("node", load_txs=n_load, clients=2 * NODE_CLIENTS,
+              endorsements_per_tx=sorted({x[3] for x in per_tx}),
+              endorse_p50_ms=round(pct(e_ms, 0.5), 3),
+              endorse_p99_ms=round(pct(e_ms, 0.99), 3),
+              submit_p50_ms=round(pct(s_ms, 0.5), 3),
+              submit_p99_ms=round(pct(s_ms, 0.99), 3),
+              submit_to_status_p50_ms=round(pct(c_ms, 0.5), 3),
+              submit_to_status_p99_ms=round(pct(c_ms, 0.99), 3),
+              submit_to_peer1_commit_p50_ms=round(pct(k_ms, 0.5), 3),
+              submit_to_peer1_commit_p99_ms=round(pct(k_ms, 0.99), 3),
+              committed_tx_per_s=round(n_load / span_s, 1),
+              valid=valid, mvcc_conflicts=conflicts, ordered_twice=0,
+              blocks_cut_at_count=count_cut, first_submit_to_cut_s=cut_s,
+              first_endorse_to_last_status_s=round(span_s, 3),
+              card=name_power)
+        phase("node", blocks=[list(b) for b in load_blocks],
+              peer1_validate_commit_ms={k: round(v, 3)
+                                        for k, v in sorted(
+                                            commit_ms.items())
+                                        if k >= seed_blocks},
+              peer2_validate_commit_ms={k: round(v, 3)
+                                        for k, v in sorted(
+                                            block_ms2.items())
+                                        if k >= seed_blocks},
+              refused=refused[:80])
+        for k in range(1, NODE_ORDERERS + 1):
+            # each orderer's own process, over the load and the broken
+            # envelope: its broadcast spans, its SigFilter's device
+            # verifies, its Raft entry verifies, its provider's
+            # dispatches by lane and their resolve seconds
+            phase("node", orderer=k,
+                  role="leader" if k == leader[0] else "follower",
+                  **orderer_figures(om0[k], om1[k]),
+                  card=name_power)
+        phase("node", launches_by_cause={
+            c: by_cause[c] for c in NODE_CAUSES if c in by_cause},
+              load_launches=launched, proposals_at_peer1=proposals,
+              creator_checks_on_card=creator_launches,
+              cache_hits_by_source=dict(spy.hits),
+              device_busy_ms=round(busy_ms, 3), wall_ms=round(wall_ms, 3),
+              device_idle_share=round(1 - busy_ms / wall_ms, 4),
+              top_device_ops=top, fallbacks=0, card=name_power)
+
+        # --- phase 17 on this network -----------------------------------
+        orderer_launches = {}
+        if orderer_drill:
+            orderer_launches = orderer_phase(torch, types.SimpleNamespace(
+                root=root, paths=paths, ocfgs=ocfgs, ourl=ourl, cfg1=cfg1,
+                cfg2=cfg2, node1=node1, ch1=ch1, clients=clients,
+                procs=procs, spawn=spawn, argv_of=argv_of, tail=tail,
+                ostatus=ostatus, find_leader=find_leader, leader=leader,
+                at=at, spec0=spec0, clients_up=clients_up,
+                committed_at=committed_at, seed_blocks=seed_blocks,
+                tally=tally, lock=lock), fns, name_power)
+            height = ostatus(leader[0])["height"]
+            wait_until(lambda: at(height), f"height {height} on every node "
+                       "after phase 17", step_s=0.1)
+            chain1 = node_chain(ch1.ledger)
+        t_tail = time.perf_counter()
 
         # drain the children, stop them, read their ledgers
         for conn in conns.values():
@@ -6507,8 +7113,6 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
                   "differ from peer 1's")
             check(rows == rows1, f"node: {name}'s state or history differs "
                   "from peer 1's")
-
-        part("children_drained_and_compared")
         # drain peer 1 and reopen it on its data_dir
         drain1 = post_url(url1 + "/drain")
         check(drain1["lifecycle"] == "drained"
@@ -6523,68 +7127,31 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
         again = node1_again.channels["ch"].ledger
         check((again.height, again.commit_hash) == before,
               "node: peer 1 reopened at another height or commit hash")
-
-        part("peer1_drained_and_reopened")
-        # --- figures ----------------------------------------------------
-        busy_ms, wall_ms, top = profiled["load"]
-        e_ms = [e * 1e3 for e, *_ in per_tx]
-        s_ms = [s * 1e3 for _e, s, *_ in per_tx]
-        c_ms = [c * 1e3 for _e, _s, c, *_ in per_tx]
-        # submit to the end of its block's commit at peer 1 (its clock)
-        k_ms = [(committed_at[num] - t_sub) * 1e3
-                for *_x, num, t_sub, _te, _ts in per_tx]
-        span_s = (max(x[8] for x in per_tx) - min(x[7] for x in per_tx))
-        count_cut = [n for _num, n, why in load_blocks if why == "count"]
-        # the first submit to each load block's cut (the timeout's 2 s
-        # start at the first envelope pending)
-        t_first_sub = min(x[6] for x in per_tx)
-        cut_s = {num: round(standin.ordering.cut_at[num] - t_first_sub, 3)
-                 for num, _n, _why in load_blocks}
-        print(name_power, flush=True)
-        phase("node", load_txs=n_load, clients=2 * NODE_CLIENTS,
-              endorsements_per_tx=sorted({x[3] for x in per_tx}),
-              endorse_p50_ms=round(pct(e_ms, 0.5), 3),
-              endorse_p99_ms=round(pct(e_ms, 0.99), 3),
-              submit_p50_ms=round(pct(s_ms, 0.5), 3),
-              submit_p99_ms=round(pct(s_ms, 0.99), 3),
-              submit_to_status_p50_ms=round(pct(c_ms, 0.5), 3),
-              submit_to_status_p99_ms=round(pct(c_ms, 0.99), 3),
-              submit_to_peer1_commit_p50_ms=round(pct(k_ms, 0.5), 3),
-              submit_to_peer1_commit_p99_ms=round(pct(k_ms, 0.99), 3),
-              committed_tx_per_s=round(n_load / span_s, 1),
-              valid=valid, mvcc_conflicts=conflicts, ordered_twice=0,
-              blocks_cut_at_count=count_cut, first_submit_to_cut_s=cut_s,
-              first_endorse_to_last_status_s=round(span_s, 3),
-              card=name_power)
-        phase("node", blocks=[list(b) for b in standin.ordering.blocks],
-              peer1_validate_commit_ms={k: round(v, 3)
-                                        for k, v in sorted(
-                                            commit_ms.items())},
-              peer2_validate_commit_ms={k: round(v, 3)
-                                        for k, v in sorted(
-                                            block_ms2.items())},
-              standin_filter_ms_per_batch_p50=round(pct(
-                  standin.ordering.filter_ms, 0.5), 3),
-              standin_filter_ms_per_batch_max=round(max(
-                  standin.ordering.filter_ms), 3),
-              broadcast_calls=len(standin.ordering.filter_ms),
-              refused=standin.ordering.refused[-1][:60])
-        phase("node", launches_by_cause={
-            c: by_cause[c] for c in NODE_CAUSES if c in by_cause},
-              load_launches=launched, proposals_at_peer1=proposals,
-              creator_checks_on_card=creator_launches,
-              cache_hits_by_source=dict(spy.hits),
-              device_busy_ms=round(busy_ms, 3), wall_ms=round(wall_ms, 3),
-              device_idle_share=round(1 - busy_ms / wall_ms, 4),
-              top_device_ops=top, fallbacks=0, card=name_power)
+        # the orderers stop; their block stores, read from disk, hold one
+        # chain a channel, header for header
+        for k in range(1, NODE_ORDERERS + 1):
+            proc = procs[f"orderer{k}"]
+            proc.terminate()
+            proc.wait(timeout=30)
+        stores = orderer_chains(ocfgs)
+        for cid, chains in stores.items():
+            check(len(chains) == NODE_ORDERERS and all(
+                c == chains[0] for c in chains[1:]) and chains[0],
+                f"node: the orderers' {cid} block stores differ: "
+                f"{[len(c) for c in chains]} blocks")
+        check(len(stores["ch"][0]) == before[0],
+              f"node: the orderers hold {len(stores['ch'][0])} blocks of ch, "
+              f"peer 1 {before[0]}")
         phase("node", nodes_equal="flags, commit hashes, state, history "
-              f"at {height} blocks", commit_status="== flags",
-              routes="answer on both peers", peer2_healthz="cuda, not "
-              "degraded", drained=drained["peer2"]["lifecycle"],
-              reopened=f"height {before[0]}", parts_s=parts,
+              f"at {before[0]} blocks", commit_status="== flags",
+              routes="answer on both peers", healthz="cuda, not degraded "
+              "on peer 2 and the three orderers",
+              drained=drained["peer2"]["lifecycle"],
+              reopened=f"height {before[0]}",
+              orderer_stores={cid: len(c[0]) for cid, c in stores.items()},
+              parts_s=parts, tail_s=round(time.perf_counter() - t_tail, 1),
               seconds=round(time.perf_counter() - t_phase, 1))
-        # the phase's launches in this process (block 0 and the load)
-        return {f: fns[f].launches - base_phase[f] for f in fns}
+        return node_launches, orderer_launches
     finally:
         for conn in conns.values():
             conn.close()
@@ -6596,8 +7163,6 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
                     pass
         if node1_again is not None:
             node1_again.rpc.stop()
-        standin.ordering.stop()
-        standin.srv.stop()
         for name, proc in procs.items():
             if proc.stdin is not None:
                 proc.stdin.close()
@@ -6611,9 +7176,10 @@ def node_phase(torch, args, fns, name_power, dev) -> dict:
             logs[name].close()
 
 
-def node_only(torch, args) -> int:
-    """`--node-only`: phase 16 alone.  Builds the kernels and the C
-    parts, then runs `node_phase`; prints no result line."""
+def node_only(torch, args, orderer_drill: bool = False) -> int:
+    """`--node-only`: phase 16 alone; `--orderer-only`: phases 16 and 17.
+    Builds the kernels and the C parts, then runs `node_phase`; prints
+    no result line."""
     from fabric_tpu_torch import native
     from fabric_tpu_torch.ops import _build, ed25519, p256, p256_fixed
     built = _build.build_all(force=True)
@@ -6626,7 +7192,7 @@ def node_only(torch, args) -> int:
            "ed25519_verify_rows": ed25519.ed25519_verify_rows,
            "ed25519_verify": ed25519.ed25519_verify}
     node_phase(torch, args, fns, smi("name,power.limit"),
-               torch.device("cuda"))
+               torch.device("cuda"), orderer_drill=orderer_drill)
     phase("done", by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     return 0
 
@@ -6659,6 +7225,10 @@ def main(argv=None) -> int:
     ap.add_argument("--node-only", action="store_true",
                     help="phase 16 alone (the kernels, then the peer "
                     "node); prints no result line")
+    ap.add_argument("--orderer-only", action="store_true",
+                    help="phases 16 and 17 alone (the kernels, the peer "
+                    "node behind the port's Raft orderers, then the "
+                    "ordering service's drills); prints no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -6693,8 +7263,8 @@ def main(argv=None) -> int:
         return intake_only(torch, args)
     if args.endorse_only:
         return endorse_only(torch, args)
-    if args.node_only:
-        return node_only(torch, args)
+    if args.node_only or args.orderer_only:
+        return node_only(torch, args, orderer_drill=args.orderer_only)
 
     # --- 2. build ----------------------------------------------------------
     built = _build.build_all(force=True)
@@ -7414,8 +7984,9 @@ def main(argv=None) -> int:
     endorse_launches = endorse_phase(torch, args, provider, fns, name_power,
                                      dev)
 
-    # --- 16. node ------------------------------------------------------------
-    node_launches = node_phase(torch, args, fns, name_power, dev)
+    # --- 16. node, 17. orderer ----------------------------------------------
+    node_launches, orderer_launches = node_phase(torch, args, fns,
+                                                 name_power, dev)
 
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
@@ -7465,13 +8036,14 @@ def main(argv=None) -> int:
         *experiment_rows(exp_results, total, field_err),
     ]
     for row in kernels:
-        # phases 12's, 13's, 14's, 15's and 16's main-path launches, each
-        # in its own count
+        # phases 12's, 13's, 14's, 15's, 16's and 17's main-path
+        # launches, each in its own count
         row["classic_launches"] = classic_launches.get(row["name"], 0)
         row["window_launches"] = window_launches.get(row["name"], 0)
         row["intake_launches"] = intake_launches.get(row["name"], 0)
         row["endorse_launches"] = endorse_launches.get(row["name"], 0)
         row["node_launches"] = node_launches.get(row["name"], 0)
+        row["orderer_launches"] = orderer_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

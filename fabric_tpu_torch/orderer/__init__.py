@@ -1,14 +1,17 @@
-"""Ordering service plane: the parts the peer and its tests need.
+"""Ordering service plane.
 
-Counterpart of `fabric_tpu/orderer`, so far these modules, each a whole
-copy on the port's imports: the block cutter (`blockcutter`:
-`BatchConfig`, `BlockCutter`), the message processor (`msgprocessor`:
-`classify`, `StandardChannelProcessor`), the block writer and signature
-(`blockwriter`), and the deliver stream (`deliver`); and two partial
-modules the byzantine monitor reads: `raft` (only `entry_signed_bytes`)
-and `cluster` (only `cert_fingerprint`).  Consensus (solo, the Raft
-state machine), broadcast, the cluster's transport and the registrar
-come with the port's orderer.
+Reference parity (SURVEY.md §2 "Ordering service", §3.4):
+  orderer/common/blockcutter   -> blockcutter.BlockCutter
+  orderer/common/msgprocessor  -> msgprocessor.{StandardChannelProcessor,...}
+  orderer/common/multichannel  -> blockwriter.BlockWriter, registrar.Registrar
+  orderer/consensus/solo       -> consensus.SoloChain
+  orderer/consensus/etcdraft   -> raft.RaftNode + consensus.RaftChain
+  orderer/common/broadcast     -> broadcast.BroadcastHandler
+  common/deliver               -> deliver.DeliverHandler
+
+Counterpart of `fabric_tpu/orderer/__init__.py`, whole, on the port's
+imports: every module of the reference's ordering plane, the same
+exports.
 """
 
 from fabric_tpu_torch.orderer.blockcutter import BatchConfig, BlockCutter
@@ -23,10 +26,15 @@ from fabric_tpu_torch.orderer.msgprocessor import (
     StandardChannelProcessor,
     classify,
 )
+from fabric_tpu_torch.orderer.consensus import Chain, SoloChain
+from fabric_tpu_torch.orderer.broadcast import BroadcastHandler, BroadcastResponse
 from fabric_tpu_torch.orderer.deliver import DeliverHandler, SeekInfo
+from fabric_tpu_torch.orderer.registrar import ChainSupport, Registrar
 
 __all__ = [
     "BatchConfig", "BlockCutter", "BlockWriter", "block_signed_bytes",
     "block_signature_items", "MsgClass", "MsgProcessorError",
-    "StandardChannelProcessor", "classify", "DeliverHandler", "SeekInfo",
+    "StandardChannelProcessor", "classify", "Chain", "SoloChain",
+    "BroadcastHandler", "BroadcastResponse", "DeliverHandler", "SeekInfo",
+    "ChainSupport", "Registrar",
 ]

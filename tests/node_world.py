@@ -1,14 +1,23 @@
 """The shared world of the node tests (tests/test_torch_gateway.py,
-test_torch_node.py, test_torch_provision.py): networks provisioned on
-disk, with the reference's orderer behind either package's peers.
+test_torch_node.py, test_torch_provision.py, test_torch_orderer.py,
+test_torch_admin.py, test_torch_chaos.py): networks provisioned on disk,
+orderers and peers of either package.
 
-- `provision_sw(...)`: the port's `provision_network`, with
-  `"bccsp": "SW"` written into every peer's config.  The port's peer runs
-  on the card unless its config asks for the host, and these tests run
-  on the CPU; the reference's peer reads the same key (its default).
+- `provision_sw(...)`, `provision_orderers_sw(...)`: the port's
+  `provision_network` and `provision_orderers`, with `"bccsp": "SW"`
+  written into every orderer's and peer's config.  The
+  port's nodes run on the card unless their config asks for the host,
+  and these tests run on the CPU; the reference's nodes read the same
+  key (the peer's default; the reference's orderer is always SW).
 - `on_port(src)`: the `ref_scenarios` edit that runs a reference
-  scenario's peers, gateway and provisioning on the port while its
-  `OrdererNode` stays the reference's (the port has no orderer process).
+  scenario's orderers, peers, gateway and provisioning on the port,
+  every provisioned node on SW.
+- `on_port_ref_orderer(src)`: `on_port`, but the scenario's
+  `OrdererNode` stays the reference's: the port's peers behind the
+  reference's orderer.
+- `sw_chaos_net(...)`, `on_port_chaos(src)`: the port's `ChaosNet`
+  with every node on SW, and the edit that puts it into a reference
+  scenario.
 - `load_json`, `signer(path, pkg)`: a provisioned file, and the signing
   identity of a provisioned client or admin in either package.
 - `mod(pkg, name)`: package `pkg`'s ("ref" or "port") module `name`;
@@ -40,7 +49,7 @@ def load_json(path: str) -> dict:
 
 
 def set_sw(paths) -> None:
-    """Write `"bccsp": "SW"` into each peer config file of `paths`."""
+    """Write `"bccsp": "SW"` into each node config file of `paths`."""
     for path in paths:
         cfg = load_json(path)
         cfg["bccsp"] = "SW"
@@ -51,21 +60,58 @@ def set_sw(paths) -> None:
 def provision_sw(*args, **kwargs) -> dict:
     from fabric_tpu_torch.node.provision import provision_network
     out = provision_network(*args, **kwargs)
-    set_sw(out["peers"])
+    set_sw(out["orderers"] + out["peers"]
+           + out.get("spare_orderers", []))
     return out
 
 
+def provision_orderers_sw(*args, **kwargs) -> list:
+    from fabric_tpu_torch.node.provision import provision_orderers
+    out = provision_orderers(*args, **kwargs)
+    set_sw(out)
+    return out
+
+
+PROVISION = {
+    "from fabric_tpu_torch.node.provision import provision_network":
+        "from node_world import provision_sw as provision_network",
+    "from fabric_tpu_torch.node.provision import provision_orderers":
+        "from node_world import provision_orderers_sw as "
+        "provision_orderers"}
+
+
 def on_port(src: str) -> str:
+    assert any(k in src for k in PROVISION)
+    for k, v in PROVISION.items():
+        src = src.replace(k, v)
+    return src
+
+
+def on_port_ref_orderer(src: str) -> str:
     orderer = ("from fabric_tpu_torch.node.orderer import OrdererNode, "
                "load_signing_identity")
-    provision = ("from fabric_tpu_torch.node.provision import "
-                 "provision_network")
-    assert provision in src
+    assert orderer in src
     src = src.replace(orderer, "from fabric_tpu.node.orderer import "
                       "OrdererNode\nfrom fabric_tpu_torch.node.orderer "
                       "import load_signing_identity")
-    return src.replace(provision, "from node_world import provision_sw "
-                       "as provision_network")
+    return on_port(src)
+
+
+def sw_chaos_net(*args, **kwargs):
+    """The port's `ChaosNet` with `"bccsp": "SW"` under every node's
+    own overrides."""
+    from fabric_tpu_torch.testing import ChaosNet
+    for key in ("peer_overrides", "orderer_overrides"):
+        kwargs[key] = dict({"bccsp": "SW"}, **(kwargs.get(key) or {}))
+    return ChaosNet(*args, **kwargs)
+
+
+def on_port_chaos(src: str) -> str:
+    """A reference scenario's `ChaosNet` on the port, every node on SW."""
+    chaos = "from fabric_tpu_torch.testing import ChaosNet"
+    assert chaos in src
+    return src.replace(chaos, "from node_world import sw_chaos_net as "
+                       "ChaosNet")
 
 
 def signer(path: str, pkg: str):

@@ -3,9 +3,8 @@
 `scenario_module(name, pkg)` executes tests/<name>.py as a module whose
 `fabric_tpu.` imports name `pkg` (`fabric_tpu` or `fabric_tpu_torch`),
 strings included, so a chaincode script a scenario writes to disk
-imports the same package as the scenario.  `fabric_tpu.testing.adversary`
-(not ported) becomes `adversary(pkg)`: the reference's `forge_sibling`
-and `break_signature`, their source compiled with the same rewrite.
+imports the same package as the scenario (`fabric_tpu.testing.adversary`
+becomes the port's own `fabric_tpu_torch.testing.adversary`).
 
 `scenario_module(name, pkg, edit=...)` applies `edit(src)` after the
 rewrite, e.g. to keep one import on the reference's side (the
@@ -25,13 +24,14 @@ replace another test's provider; one set where there was none stays,
 as the reference's own test modules leave it.
 
 Used by tests/test_torch_endorse.py, test_torch_extcc.py,
-test_torch_scc.py, test_torch_byzantine.py and test_torch_gateway.py.
+test_torch_scc.py, test_torch_byzantine.py, test_torch_gateway.py,
+test_torch_provision.py, test_torch_raft.py, test_torch_orderer.py,
+test_torch_admin.py, test_torch_chaos.py and test_torch_network.py.
 """
 import ast
 import importlib
 import inspect
 import re
-import sys
 import types
 from pathlib import Path
 
@@ -39,7 +39,6 @@ import pytest
 
 PKGS = ("fabric_tpu", "fabric_tpu_torch")
 TESTS_DIR = Path(__file__).resolve().parent
-_ADV = "fabric_tpu.testing.adversary"
 _modules: dict = {}
 _module_fixtures: dict = {}
 _module_finalizers: dict = {}
@@ -55,22 +54,7 @@ def scenario_names(name: str, skip=()) -> list:
 def rewrite(src: str, pkg: str) -> str:
     if pkg == "fabric_tpu":
         return src
-    src = src.replace(_ADV, adversary(pkg).__name__)
     return re.sub(r"\bfabric_tpu\.", f"{pkg}.", src)
-
-
-def adversary(pkg: str) -> types.ModuleType:
-    """The reference's block forgeries on package `pkg`'s types."""
-    name = f"_{pkg}_adversary"
-    if name not in sys.modules:
-        ref = importlib.import_module(_ADV)
-        mod = types.ModuleType(name)
-        for fn in ("forge_sibling", "break_signature"):
-            src = re.sub(r"\bfabric_tpu\.", f"{pkg}.",
-                         inspect.getsource(getattr(ref, fn)))
-            exec(compile(src, ref.__file__, "exec"), mod.__dict__)
-        sys.modules[name] = mod
-    return sys.modules[name]
 
 
 def scenario_module(name: str, pkg: str, edit=None) -> types.ModuleType:

@@ -1,13 +1,13 @@
 """The port's byzantine plane (fabric_tpu_torch.byzantine: the witness
 log, the quarantine registry, the monitor with its fraud proofs and
-pardons, ProofGossip, the ops view; and the partial orderer/raft.py and
-orderer/cluster.py it reads) against the reference's, on the CPU.
+pardons, ProofGossip, the ops view; and orderer/raft.py's
+`entry_signed_bytes` and orderer/cluster.py's `cert_fingerprint`, which
+it reads) against the reference's, on the CPU.
 
 * The reference's own scenarios on both packages: every test function
   of tests/test_byzantine.py (but the `node.top` column, which the port
   does not have) and tests/test_proof_gossip.py (tests/ref_scenarios.py;
-  the reference's `testing.adversary` forgeries compiled on each
-  package's types).
+  each package's own `testing.adversary` forgeries on its types).
 * Differentials, with one fixed clock patched into both packages'
   `monitor` and `quarantine` modules, and the accusers and pardon
   issuers Ed25519 peers (their signatures are deterministic), so files
@@ -20,7 +20,7 @@ orderer/cluster.py it reads) against the reference's, on the CPU.
   - tamper, replay, an unknown accuser, crash-stop accusations and
     unprovable reasons: the same verdicts; pardons, score decay and a
     reload after a restart: the same standing and files;
-  - the Raft-entry equivocation pair through the port's partial
+  - the Raft-entry equivocation pair through the port's
     `orderer/raft.py` (`entry_signed_bytes`) and `cluster.py`
     (`cert_fingerprint`), and its malformed variants;
   - the port's `gossip/state.py` monitor branches (garbage and bad

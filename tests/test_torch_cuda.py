@@ -1755,15 +1755,18 @@ def test_peer_node_on_its_default_provider_commits_a_block(cuda_device,
                                                             tmp_path):
     """The port's PeerNode from a provisioned config with no `bccsp`
     key: the factory's CUDA provider, fail-stop.  Its /healthz reports
-    the CUDA backend, not degraded; one block written by chip_smoke's
-    orderer stand-in is delivered and commits VALID, its orderer
-    signature checked by one KP2 launch (a one-item batch)."""
+    the CUDA backend, not degraded; one block ordered by the port's
+    OrdererNode (on SW, so this process's default stays the peer's) is
+    delivered and commits VALID, its orderer signature checked by one
+    KP2 launch (a one-item batch)."""
     import json as _json
     import time as _time
     import urllib.request
     import chip_smoke as cs
+    from fabric_tpu_torch.comm.rpc import connect
     from fabric_tpu_torch.config import BatchConfig
-    from fabric_tpu_torch.node.orderer import load_signing_identity
+    from fabric_tpu_torch.node.orderer import (OrdererNode,
+                                               load_signing_identity)
     from fabric_tpu_torch.node.peer import PeerNode
     from fabric_tpu_torch.node.provision import provision_network
 
@@ -1776,13 +1779,13 @@ def test_peer_node_on_its_default_provider_commits_a_block(cuda_device,
                                      c["key_pem"].encode())
     paths = provision_network(str(tmp_path), n_orderers=1,
                               peer_orgs=("Org1",), peers_per_org=1,
-                              batch=BatchConfig())
+                              batch=BatchConfig(timeout_s=0.5))
     ocfg, cfg = load(paths["orderers"][0]), load(paths["peers"][0])
-    assert "bccsp" not in cfg
+    assert "bccsp" not in cfg and "bccsp" not in ocfg
     cfg["ops_port"] = cs.free_port()
     client = ident(load(paths["clients"]["Org1"]))
-    standin = cs.node_orderer(ocfg, SoftwareProvider(),
-                              str(tmp_path / "standin"))
+    orderer = OrdererNode(dict(ocfg, bccsp="SW"),
+                          data_dir=ocfg["data_dir"]).start()
     node = None
     try:
         node = PeerNode(cfg, data_dir=cfg["data_dir"])
@@ -1791,9 +1794,17 @@ def test_peer_node_on_its_default_provider_commits_a_block(cuda_device,
         before = (p256.p256_verify.launches,
                   p256_fixed.p256_verify_rows.launches)
         node.start()
-        with standin.ordering.lock:
-            standin.ordering._write(cs.node_seed(
-                (client, client), [ident(cfg)], 8), "seed")
+        deadline = _time.monotonic() + 60
+        while orderer.support.chain.node.role != "leader":
+            assert _time.monotonic() < deadline, "no raft leader"
+            _time.sleep(0.05)
+        conn = connect(orderer.rpc.addr, client, node.msps, timeout=30.0)
+        try:
+            out = conn.call("broadcast_batch", {"envelopes": cs.node_seed(
+                (client, client), [ident(cfg)], 8)}, timeout=60.0)
+        finally:
+            conn.close()
+        assert out["statuses"] == [200] * 8
         ledger = node.channels["ch"].ledger
         deadline = _time.monotonic() + 120
         while ledger.height < 1:
@@ -1815,9 +1826,114 @@ def test_peer_node_on_its_default_provider_commits_a_block(cuda_device,
     finally:
         if node is not None:
             node.stop()
-        standin.ordering.stop()
-        standin.srv.stop()
+        orderer.stop()
         init_factories(FactoryOpts(default="SW"))
+
+
+@pytest.mark.cuda
+def test_entry_verifier_on_the_cuda_default(cuda_device):
+    """The cluster's EntryVerifier on the factory's CUDA provider (the
+    orderer's default): a signed Raft entry is accepted with one KP2
+    launch, its retransmit answered from the slot cache with none, and
+    the entry with a spliced payload rejected as `bad_entry_sig` by the
+    card's verdict (one more launch)."""
+    from fabric_tpu_torch.msp import CachedMSP
+    from fabric_tpu_torch.msp.ca import DevOrg
+    from fabric_tpu_torch.orderer.cluster import (EntryVerifier,
+                                                  cert_fingerprint)
+    from fabric_tpu_torch.orderer.consensus import make_entry_signer
+    from fabric_tpu_torch.orderer.raft import Entry
+    prov = init_factories(FactoryOpts(default="CUDA"))
+    try:
+        org = DevOrg("OrdererOrg")
+        osn = org.new_identity("osn1")
+        ver = EntryVerifier("ch", {"OrdererOrg": CachedMSP(org.msp())},
+                            {1: (osn.mspid, cert_fingerprint(osn.cert))})
+        proposer, sig = make_entry_signer(osn)(3, 7, b"batch", "normal")
+        good = Entry(3, 7, b"batch", "normal", proposer, sig)
+        spliced = Entry(3, 8, b"batch+spliced", "normal", proposer, sig)
+        n0 = p256.p256_verify.launches + p256_fixed.p256_verify_rows.launches
+
+        def launched():
+            return (p256.p256_verify.launches
+                    + p256_fixed.p256_verify_rows.launches - n0)
+        assert ver.check([good]) == (True, None, [])
+        assert launched() == 1
+        assert ver.check([good]) == (True, None, [])
+        assert launched() == 1
+        ok, reason, crimes = ver.check([spliced])
+        assert (ok, reason, crimes) == (False, "bad_entry_sig", [])
+        assert launched() == 2
+        assert prov.stats["fallbacks"] == 0
+    finally:
+        init_factories(FactoryOpts(default="SW"))
+
+
+@pytest.mark.cuda
+def test_sig_filter_on_cuda_matches_sw(cuda_device):
+    """The orderer's SigFilter (StandardChannelProcessor.process) on the
+    CUDA provider and on SW over one corpus: good envelopes of an Org1
+    P-256 and an Org2 Ed25519 client, each with its creator signature
+    forged (one bit of the signature flipped): the same admit/reject,
+    case by case, and the CUDA provider launched for each good envelope
+    at least."""
+    from fabric_tpu_torch.bccsp import SCHEME_ED25519 as ED
+    from fabric_tpu_torch.config import (BatchConfig, Bundle, BundleSource,
+                                         ChannelConfig, OrgConfig,
+                                         default_policies)
+    from fabric_tpu_torch.msp.ca import DevOrg
+    from fabric_tpu_torch.orderer import (MsgProcessorError,
+                                          StandardChannelProcessor)
+    from fabric_tpu_torch.protocol import (Envelope, KVWrite, NsRwSet,
+                                           TxRwSet, build)
+    init_factories(FactoryOpts(default="SW"))
+    orgs = (DevOrg("Org1"), DevOrg("Org2", scheme=ED))
+    cfg = ChannelConfig(
+        channel_id="ch", sequence=0,
+        orgs=tuple(OrgConfig(o.mspid, tuple(o.msp_config().root_certs_pem),
+                             tuple(o.msp_config().admin_certs_pem))
+                   for o in orgs),
+        policies=default_policies([o.mspid for o in orgs]),
+        batch=BatchConfig())
+    source = BundleSource(Bundle(cfg))
+    envs, labels = [], []
+    for i in range(8):
+        who = orgs[i % 2].new_identity(f"client{i}")
+        rw = TxRwSet((NsRwSet("cc", writes=(KVWrite(f"k{i}", b"v"),)),))
+        env = build.endorser_tx("ch", "cc", "1.0", rw, who, [who])
+        if i % 4 >= 2:       # P-256: the DER's last byte (s); Ed25519: R
+            sig = bytearray(env.signature)
+            sig[-1 if i % 2 == 0 else 5] ^= 1
+            env = Envelope(env.payload, bytes(sig))
+        envs.append(env)
+        labels.append(i % 4 < 2)
+    verdicts = {}
+    for name, prov in (("sw", SoftwareProvider()),
+                       ("cuda", CudaProvider())):
+        proc = StandardChannelProcessor(
+            "ch", source.current().msps, prov, writers_policy=None,
+            absolute_max_bytes=cfg.batch.absolute_max_bytes,
+            bundle_source=source)
+        n0 = sum(f.launches for f in (p256.p256_verify,
+                                      p256_fixed.p256_verify_rows,
+                                      E.ed25519_verify,
+                                      E.ed25519_verify_rows))
+        out = []
+        for env in envs:
+            try:
+                proc.process(env, raw_size=len(env.serialize()))
+                out.append(True)
+            except MsgProcessorError as exc:
+                assert "SigFilter" in str(exc)
+                out.append(False)
+        verdicts[name] = out
+        if name == "cuda":
+            n = sum(f.launches for f in (
+                p256.p256_verify, p256_fixed.p256_verify_rows,
+                E.ed25519_verify, E.ed25519_verify_rows)) - n0
+            assert sum(labels) <= n <= len(envs)
+            assert prov.stats["fallbacks"] == 0
+    assert verdicts["cuda"] == verdicts["sw"] == labels
 
 
 @pytest.mark.cuda

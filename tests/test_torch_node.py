@@ -4,9 +4,9 @@ the CPU.
 
 The network is the reference's dev network, provisioned by the
 reference's `provision_network` (two orgs, two peers an org, one Raft
-orderer, small batches): the reference's `OrdererNode` orders, and in
-each org the first peer is the reference's `PeerNode` and the second the
-port's, all four with `"bccsp": "SW"` (the host; every node of both
+orderer, small batches): the port's `OrdererNode` orders, and in each
+org the first peer is the reference's `PeerNode` and the second the
+port's, all five nodes with `"bccsp": "SW"` (the host; every node of both
 packages in this process runs on SW, each package's factory default
 SW), ops servers on ephemeral ports, the tracer on at the node's
 defaults.  The configs are JSON, PEM and hex, so both packages load the
@@ -61,14 +61,14 @@ COMMIT_S = 60.0
 @pytest.fixture(scope="module")
 def net(tmp_path_factory):
     from fabric_tpu.config import BatchConfig
-    from fabric_tpu.node.orderer import OrdererNode
     from fabric_tpu.node.provision import provision_network
+    from fabric_tpu_torch.node.orderer import OrdererNode
     sw_defaults()
     base = str(tmp_path_factory.mktemp("nodenet"))
     paths = provision_network(
         base, n_orderers=1, peer_orgs=["Org1", "Org2"], peers_per_org=2,
         batch=BatchConfig(max_message_count=8, timeout_s=0.1))
-    set_sw(paths["peers"])
+    set_sw(paths["orderers"] + paths["peers"])
     nodes = []
     try:
         ocfg = load_json(paths["orderers"][0])
@@ -364,7 +364,7 @@ def test_cscc_join_of_a_lator_made_channel(net):
     assert refused[0] == refused[1] and "cscc/JoinChain" in refused[0]
 
     net["orderer"].join_channel(
-        mod("ref", "config").ChannelConfig.deserialize(raw2))
+        mod("port", "config").ChannelConfig.deserialize(raw2))
     for i, p in enumerate(net["peers"]):
         p.join_channel(mod(PKG_OF[i], "config").ChannelConfig
                        .deserialize(raw2))

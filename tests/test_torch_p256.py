@@ -217,3 +217,32 @@ def test_port_imports_neither_jax_nor_reference():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "fabric_tpu_torch.bccsp.cuda" in loaded
     assert not [m for m in loaded if _banned(m)]
+
+
+CLIS = ("fabric_tpu_torch.node.orderer", "fabric_tpu_torch.node.peer",
+        "fabric_tpu_torch.node.admin", "fabric_tpu_torch.scc.discover")
+
+
+@pytest.mark.parametrize("cli", CLIS)
+def test_cli_entry_point_imports_neither_jax_nor_reference(cli):
+    """`python -m <cli>` as an operator starts it: its usage path runs
+    (no arguments for the nodes, `--help` for the clients) and loads no
+    module of JAX or of the reference package."""
+    argv = [] if cli.rsplit(".", 1)[1] in ("orderer", "peer") \
+        else ["--help"]
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.argv = [{cli!r}] + {argv!r}\n"
+        "code = None\n"
+        "try:\n"
+        f"    runpy.run_module({cli!r}, run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    code = exc.code\n"
+        "print(json.dumps([code, sorted(sys.modules)]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    rc, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rc == (2 if not argv else 0)
+    assert cli in loaded or "__main__" in loaded
+    assert not [m for m in loaded if _banned(m)]
