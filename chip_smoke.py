@@ -24,9 +24,9 @@ ends with one JSON line.  Phases:
              KF2's presets relaxed, stacked (proto_pallas2.py), min
              (proto_pallas4.py), planes (proto_planes.py) and ilp
              (proto_ilp.py) on the scripts' data and grids, KI3's eight
-             probes (proto_pallas3.py); at the reference's B = 16,384 and
-             at a card-filling B = SMs x 2,048, each held against its plain
-             version (the first 16,384 lanes) and Python ints (64 lanes),
+             probes (proto_pallas3.py); at the reference's B = 16,384
+             (a card-filling B is left out for the time limit), each held
+             against its plain version and Python ints (64 lanes),
              timed, with SM-cycles per multiply, SASS instructions per
              multiply (cuobjdump) and one warp's clock64 cycles per multiply
 4. block   — 10,000 txs x (3 endorsements from 3 org keys + 1 creator
@@ -108,11 +108,12 @@ ends with one JSON line.  Phases:
              the provider's idemix_pair_probe(128), green and red; a
              seeded load of 4,096 pairing checks under 2 issuers, 2%
              corrupted (3 kinds), KB8 against its plain version and the
-             labels, timed; a block of 32 txs whose creators are idemix
-             signers of two issuers (the port's idemixgen; a presentation
-             over another payload, a forged credential and garbage among
-             them), endorsed by Org1 under OR('Org1.member'), committed
-             by two port stacks (the factory's CUDA provider and the SW
+             labels, timed; a block of IDEMIX_TXS (16) txs whose creators
+             are idemix signers of two issuers (the port's idemixgen; a
+             presentation over another payload, a forged credential and
+             garbage among them), endorsed by Org1 under
+             OR('Org1.member'), committed by two port stacks (the
+             factory's CUDA provider and the SW
              provider, KV7 on in both): flags, state, history and commit
              hash equal, flags equal to the labels; KB8 against its plain
              version at the block's shape; the creators' items and two
@@ -371,6 +372,28 @@ ends with one JSON line.  Phases:
              that node as `testing.adversary.EquivocatingOrderer`
              convicted of a fork by peer 1's monitor.  Its launches in
              this process are counted apart (`orderer_launches`)
+18. workload — (after 17 and phase 16's drains, before the kernels line)
+             the workload plane on the card: (a) the catalog's
+             membership-churn (`run_scenario(..., strict=True)` on the
+             default provider, in this process: three orderers and a
+             spare, a peer in each of two orgs, 10 tx/s open loop for 14
+             s; the spare added by an add-consenter config entry,
+             started, handed leadership, then orderer1 removed and
+             killed): the SLO's 5 checks pass, every node on the CUDA
+             provider with no fallback, KP3 and KP2 launched (KP3 only
+             by the orderers' start-up warm-up: no key brings 64
+             signatures to one batch at 10 tx/s), KP2 also by the load,
+             every remaining orderer's Raft entry verifies moved; offered, accepted and committed
+             per phase, sojourn p50/p99, the drill's timeline; (b) the
+             CLI's burst load shape (`python -m fabric_tpu_torch.workload
+             --scenario burst --rate 30 --duration 8`) in a child on the
+             card: exit 0, load offered and committed, the gateway's
+             admission snapshot; (c) run inside phase 16 before its
+             drains: the port's `top` (`collect_node`, `render`, and
+             `python -m fabric_tpu_torch.node.top --once` as a child) on
+             every orderer's and peer's ops address: every row up, each
+             peer's height its ledger's, peer 1's slots on cuda:0.  (a)'s
+             launches are counted apart (`workload_launches`)
 8. kernels — one JSON line per the port's kernel table, then the result
 
 Each main-path run (block cold and warm, config 2 cold and warm, config
@@ -398,6 +421,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --endorse-only  # phase 15 alone
     python3 chip_smoke.py --node-only     # phase 16 alone
     python3 chip_smoke.py --orderer-only  # phases 16 and 17 alone
+    python3 chip_smoke.py --workload-only # phase 18's (a) and (b) alone
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It imports nothing of JAX or of the JAX package.
@@ -445,7 +469,6 @@ SMALL_BATCH = 64               # KE6's lone-chain batch (the block's KE5 64)
 CHAIN_K = 256
 SPILL_TXS = 500
 H2D_BYTES = 1 << 28            # the one large copy that gives the link rate
-FILL_THREADS_PER_SM = 2048     # the card-filling size of phase 3b: SMs x this
 # the commit stream: the mix of blocks 1 and 2 (fractions of txs; the
 # rest are plain transfers), its policy, and the validator's window
 COMMIT_MIX = (("hot", 0.01), ("stale", 0.02), ("delete", 0.01),
@@ -466,15 +489,18 @@ ORG4_POLICY = "AND('Org1.member', 'Org4.member')"
 IDEMIX_PROBE = 128
 IDEMIX_CHECKS = 4096
 PAIR_KINDS = ("x_plus_1", "other_slot", "swapped")
-IDEMIX_TXS = 24               # was 32: cut for the time limit (PERF.md §4)
+IDEMIX_TXS = 16               # was 32, then 24: cut for the time limit
+#                                (PERF.md §4)
 IDEMIX_SIGNERS = 2             # per issuer, two issuers
-IDEMIX_BAD = {5: "nonce", 13: "forged", 21: "garbage"}
+IDEMIX_BAD = {5: "nonce", 9: "forged", 13: "garbage"}
 IDEMIX_POLICY = "OR('Org1.member')"
 # the default peer's tail (phase 12): the verify-once cache's capacity
 # (the reference peer's default), the SBE stream's blocks and txs, its
 # chaincode policy (either org), its key policies by name, and the share
 # of its txs that set or delete a key policy
 CACHE_CAPACITY = 65536
+CLASSIC_TIMED_TRIALS = 2       # (g)'s turns of the four stacks: was
+#                                --trials (3), cut for the time limit
 # envelopes a gateway batch hands to the speculative verifier: the
 # reference gateway's default max_batch (fabric_tpu/gateway/service.py:72)
 SPEC_BATCH = 64
@@ -2527,7 +2553,7 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
               "deep host": {}, "deep kv7": {"kv7": True},
               "classic spec-filled": {"classic": True}}
     times = {k: [] for k in stacks}
-    for _ in range(args.trials):
+    for _ in range(CLASSIC_TIMED_TRIALS):
         for name, kw in stacks.items():
             cache = VerdictCache(CACHE_CAPACITY)
             c, _ = stack(cache=cache if kw.get("classic") else None, **kw)
@@ -2544,7 +2570,8 @@ def classic_phase(torch, args, provider, orgs, raws, labels, mem_rows,
     for name, rows in times.items():
         med = {k: statistics.median(r[k] for r in rows) * 1e3
                for k in rows[0]}
-        phase("classic", block=2, stack=name, warm=True, trials=args.trials,
+        phase("classic", block=2, stack=name, warm=True,
+              trials=CLASSIC_TIMED_TRIALS,
               validate_commit_ms=round(med.pop("total"), 3),
               **{f"{k}_ms": round(v, 3) for k, v in med.items()},
               card=name_power)
@@ -4121,16 +4148,16 @@ def _fmt(v):
     return round(v, 4) if isinstance(v, float) else v
 
 
-def experiments_phase(torch, dev, trials: int, sms: int) -> dict:
-    """Each experiments module's run() at the reference's B and at a
-    card-filling B; every check raises inside run().  -> {(module, B):
-    result}."""
+def experiments_phase(torch, dev, trials: int) -> dict:
+    """Each experiments module's run() at the reference's B (a
+    card-filling B = SMs x 2,048 is left out for the time limit, PERF.md
+    §4); every check raises inside run().  -> {(module, B): result}."""
     from fabric_tpu_torch import experiments as X
     from fabric_tpu_torch.experiments import (proto_ilp, proto_pallas,
                                               proto_pallas2, proto_pallas3,
                                               proto_pallas4, proto_planes)
     out = {}
-    for B in (X.REF_B, sms * FILL_THREADS_PER_SM):
+    for B in (X.REF_B,):
         for mod in (proto_pallas, proto_pallas2, proto_pallas4, proto_planes,
                     proto_ilp, proto_pallas3):
             t0 = time.perf_counter()
@@ -7091,6 +7118,18 @@ def node_phase(torch, args, fns, name_power, dev,
             wait_until(lambda: at(height), f"height {height} on every node "
                        "after phase 17", step_s=0.1)
             chain1 = node_chain(ch1.ledger)
+        # --- phase 18 (c): the port's top on this network ---------------
+        heights = {"peer1": ch1.ledger.height}
+        for name, cfg in (("peer2", cfg2), ("sw", cfg_sw)):
+            heights[name] = child_status(conns, name, ("127.0.0.1",
+                                                       cfg["port"]),
+                                         clients[0], node1.msps)["height"]
+        top_phase(dict({f"orderer{k}": "127.0.0.1:%d" % oc["ops_port"]
+                        for k, oc in enumerate(ocfgs, 1)},
+                       **{name: "127.0.0.1:%d" % cfg["ops_port"]
+                          for name, cfg in (("peer1", cfg1), ("peer2", cfg2),
+                                            ("sw", cfg_sw))}),
+                  heights, name_power)
         t_tail = time.perf_counter()
 
         # drain the children, stop them, read their ledgers
@@ -7197,6 +7236,277 @@ def node_only(torch, args, orderer_drill: bool = False) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# 18. the workload plane
+# ---------------------------------------------------------------------------
+
+WORKLOAD_SCENARIO = "membership-churn"   # the catalog scenario on the card
+WORKLOAD_SEED = 7
+WORKLOAD_CLI = ["--scenario", "burst", "--rate", "30", "--duration", "8",
+                "--seed", "7"]           # the load shape through the CLI
+WORKLOAD_WAIT_S = 300.0        # bound on the CLI child
+WORKLOAD_KERNELS = ("p256_verify_rows", "p256_verify", "ed25519_verify_rows",
+                    "ed25519_verify")
+
+
+def workload_child_env(here: str) -> dict:
+    """A child's environment: no `FABRIC_TPU_*` setting of ours, so
+    its nodes take their defaults; the checkout on its path."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("FABRIC_TPU_")}
+    env["PYTHONPATH"] = here
+    return env
+
+
+def workload_phase(torch, fns, name_power) -> dict:
+    """Phase 18 (a) and (b): the workload plane on the card.
+    (a) `run_scenario(WORKLOAD_SCENARIO, seed=7, strict=True)` with the
+        default provider (the card), in this process: the catalog's
+        membership churn (scenarios.py: three orderers and a spare, Org1
+        and Org2 with a peer each, 10 tx/s open loop for 14 s; at 2 s the
+        spare is added by an add-consenter config entry through the Raft
+        log, started, handed leadership, then orderer1 is removed by a
+        second entry and killed).  Held: the SLO passes with its 5
+        checks; every node built is on the CUDA provider with no
+        fallback; KP3 and KP2 launched, KP2 also beyond the orderers'
+        start-up warm launches (the load's own checks: at 10 tx/s no key
+        brings the 64 signatures to one batch that earn it a KP3 table);
+        each orderer still running verified Raft entry
+        signatures (`EntryVerifier.verifies`, its share of
+        orderer_entry_verifies_total).  Printed: offered, accepted and
+        committed per phase, sojourn p50/p99, committed tx/s, the drill's
+        timeline (add, start, leadership, remove, kill) in seconds from
+        the call, launches by kernel, the wall time.
+    (b) `python -m fabric_tpu_torch.workload <WORKLOAD_CLI> --json-out
+        build/workload/burst.json` in a child process on its default
+        provider (the card), its log build/workload/burst.log.  Held:
+        exit 0, offered > 0 and committed >= 1.  Printed: the gateway's
+        admission snapshot (shed by level).
+    -> (a)'s launches by kernel (this process)."""
+    import shutil
+    import threading
+    from fabric_tpu_torch.node.orderer import OrdererNode
+    from fabric_tpu_torch.testing import chaos
+    from fabric_tpu_torch.workload import scenarios
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "workload")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.monotonic()
+    built, timeline, warm, lock = [], [], [], threading.Lock()
+
+    def at():
+        return round(time.monotonic() - t0, 3)
+    real_build, real_restart = chaos.ChaosNet._build, chaos.ChaosNet.restart
+    real_kill, real_admin = chaos.ChaosNet.kill, scenarios._admin_call
+    real_warm = OrdererNode.warm_kernels
+
+    def build(self, name):
+        node = real_build(self, name)
+        built.append((name, node))
+        return node
+
+    def restart(self, name, *a, **kw):
+        timeline.append(("start", name, at()))
+        return real_restart(self, name, *a, **kw)
+
+    def kill(self, name):
+        timeline.append(("kill", name, at()))
+        return real_kill(self, name)
+
+    def admin_call(net, admin, msps, method, body, *a, **kw):
+        who, resp = real_admin(net, admin, msps, method, body, *a, **kw)
+        timeline.append((method.split(".", 1)[1], who,
+                         (resp or {}).get("status"), at()))
+        return who, resp
+
+    def warm_kernels(self):
+        with lock:
+            before = {f: fns[f].launches for f in WORKLOAD_KERNELS}
+            out = real_warm(self)
+            warm.append({f: fns[f].launches - before[f]
+                         for f in WORKLOAD_KERNELS})
+        return out
+    base = {f: fns[f].launches for f in fns}
+    chaos.ChaosNet._build, chaos.ChaosNet.restart = build, restart
+    chaos.ChaosNet.kill, scenarios._admin_call = kill, admin_call
+    OrdererNode.warm_kernels = warm_kernels
+    verifiers = {}
+    real_stop_all = chaos.ChaosNet.stop_all
+    try:
+        def stop_all(self):
+            # the orderers still running, read before they stop
+            for name, node in self.nodes.items():
+                if self._specs[name][0] == "orderer":
+                    verifiers[name] = sum(
+                        v.verifies for v in node.cluster._verifiers.values())
+            return real_stop_all(self)
+        chaos.ChaosNet.stop_all = stop_all
+        report = scenarios.run_scenario(
+            WORKLOAD_SCENARIO, seed=WORKLOAD_SEED,
+            base_dir=os.path.join(root, "mc"),
+            report_path=os.path.join(root, "mc.json"), strict=True)
+    finally:
+        chaos.ChaosNet._build, chaos.ChaosNet.restart = real_build, \
+            real_restart
+        chaos.ChaosNet.kill, scenarios._admin_call = real_kill, real_admin
+        chaos.ChaosNet.stop_all = real_stop_all
+        OrdererNode.warm_kernels = real_warm
+    wall_s = time.monotonic() - t0
+    launched = {f: fns[f].launches - base[f] for f in fns}
+    slo = report["slo"]
+    names = sorted(n for n, _ in built)
+    # the three first orderers warm up one at a time before the load; the
+    # spare's warm-up overlaps it, so it is taken to launch what they did
+    beyond = {f: launched[f] - len(warm) * warm[0][f]
+              for f in WORKLOAD_KERNELS} if warm else {}
+    tot = report["totals"]
+    churn = report["membership_churn"]
+    print(name_power, flush=True)
+    phase("workload", scenario=WORKLOAD_SCENARIO, seed=WORKLOAD_SEED,
+          slo=f"pass={slo['pass']} ({slo['checks']} checks)",
+          phases=[(p["name"], p["offered"], p["accepted"], p["committed"],
+                   p["conflicts"]) for p in report["phases"]],
+          sojourn_p50_ms=(tot["sojourn_ms"] or {}).get("p50"),
+          sojourn_p99_ms=(tot["sojourn_ms"] or {}).get("p99"),
+          commit_p50_ms=(tot["commit_ms"] or {}).get("p50"),
+          commit_p99_ms=(tot["commit_ms"] or {}).get("p99"),
+          committed_tx_per_s=tot["committed_rate"],
+          offered_tx_per_s=tot["offered_rate"], card=name_power)
+    phase("workload", drill={k: churn.get(k) for k in (
+        "spare", "added_joined", "leader_transferred", "removed_isolated",
+        "removed_self_evicted", "error")}, timeline_s=timeline,
+          entry_verifies=verifiers, nodes=names,
+          providers={n: (node.provider.name,
+                         node.provider.stats.get("fallbacks"))
+                     for n, node in built})
+    phase("workload", launches=launched, warm_ups=len(warm),
+          warm_launches={f: sum(w[f] for w in warm)
+                         for f in WORKLOAD_KERNELS},
+          beyond_warm=beyond, wall_s=round(wall_s, 1))
+    check(slo["pass"] and slo["checks"] == 5,
+          f"workload: {WORKLOAD_SCENARIO} SLO {slo}")
+    check(names == ["orderer1", "orderer2", "orderer3", "orderer4",
+                    "peerOrg1_0", "peerOrg2_0"],
+          f"workload: nodes built {names}")
+    for name, node in built:
+        prov = node.provider
+        check(prov.name == "cuda" and prov.stats.get("fallbacks", 0) == 0,
+              f"workload: {name}'s provider {prov.name} "
+              f"{getattr(prov, 'stats', None)}")
+    check(len(warm) == 4 and warm[0] == warm[1] == warm[2],
+          f"workload: the orderers' warm launches {warm}")
+    for f in ("p256_verify_rows", "p256_verify"):
+        check(launched[f] > 0, f"workload: {f} not launched on the card")
+    # the traffic's own checks reach the card (past the start-up warm-up)
+    check(beyond["p256_verify"] > 0, "workload: no P-256 check of the "
+          f"load launched on the card ({launched})")
+    remaining = sorted(verifiers)
+    check(remaining == ["orderer2", "orderer3", "orderer4"]
+          and all(verifiers[n] > 0 for n in remaining),
+          f"workload: Raft entry verifies by orderer {verifiers}")
+
+    # (b) a load shape through the CLI, in a child on the card
+    out = os.path.join(root, "burst.json")
+    env = workload_child_env(here)
+    t1 = time.monotonic()
+    with open(os.path.join(root, "burst.log"), "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fabric_tpu_torch.workload",
+             *WORKLOAD_CLI, "--json-out", out], cwd=here, env=env,
+            stdout=log, stderr=subprocess.STDOUT)
+        try:
+            rc = proc.wait(timeout=WORKLOAD_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+    with open(os.path.join(root, "burst.log"), "rb") as f:
+        tail = f.read()[-3000:].decode(errors="replace")
+    check(rc == 0, f"workload: the CLI exited {rc} ({tail})")
+    with open(out) as f:
+        cli = json.load(f)
+    ctot = cli["totals"]
+    check(ctot["offered"] > 0 and ctot["committed"] >= 1,
+          f"workload: the CLI's totals {ctot}")
+    adm = cli.get("admission") or {}
+    phase("workload", cli=" ".join(WORKLOAD_CLI),
+          phases=[(p["name"], p["offered"], p["accepted"], p["shed"],
+                   p["committed"]) for p in cli["phases"]],
+          committed_tx_per_s=ctot["committed_rate"],
+          sojourn_p99_ms=(ctot["sojourn_ms"] or {}).get("p99"),
+          admission={k: adm[k] for k in sorted(adm)
+                     if k not in ("transitions",)},
+          transitions=len(adm.get("transitions") or ()),
+          client_sheds=cli["clients"]["sheds"],
+          child_s=round(time.monotonic() - t1, 1), card=name_power)
+    return launched
+
+
+def top_phase(targets: dict, heights: dict, name_power) -> None:
+    """Phase 18 (c), on phase 16's network before its drains: the port's
+    `top.collect_node` on every orderer's and peer's ops address
+    (`targets`: name -> host:port), `render`, then `python -m
+    fabric_tpu_torch.node.top --targets <all> --once` as a child.  Held:
+    every row up and the child's exit 0 with every address in its frame;
+    each peer's row height equals its ledger's (`heights`); peer 1's row
+    reads its slot series on device cuda:0."""
+    from fabric_tpu_torch.node import top
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = {name: top.collect_node(addr, timeout=10.0)
+            for name, addr in targets.items()}
+    down = sorted(n for n, r in rows.items() if not r["up"])
+    check(not down, f"workload: top rows down {down}: "
+          f"{[rows[n].get('error') for n in down]}")
+    for name, h in heights.items():
+        check(rows[name]["height"] == h, f"workload: top's height for "
+              f"{name} {rows[name]['height']} != its ledger's {h}")
+    check("cuda:0" in (rows["peer1"].get("devices") or {}),
+          f"workload: peer 1's device cell {rows['peer1'].get('devices')}")
+    table = top.render(list(rows.values()))
+    res = subprocess.run(
+        [sys.executable, "-m", "fabric_tpu_torch.node.top", "--targets",
+         ",".join(targets.values()), "--once", "--timeout", "10"],
+        cwd=here, env=workload_child_env(here), capture_output=True,
+        text=True, timeout=120)
+    check(res.returncode == 0 and all(a in res.stdout
+                                      for a in targets.values())
+          and "DOWN" not in res.stdout,
+          f"workload: top --once exited {res.returncode}: "
+          f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    os.makedirs(os.path.join(here, "build", "workload"), exist_ok=True)
+    with open(os.path.join(here, "build", "workload", "top.txt"), "w") as f:
+        f.write(table + "\n\n" + res.stdout)
+    phase("workload", top_rows={n: {"height": r["height"],
+                                    "devices": r.get("devices"),
+                                    "health": r.get("health"),
+                                    "occupancy": r.get("occupancy")}
+                                for n, r in rows.items()},
+          top_child="exit 0, every row up", card=name_power)
+    for line in table.splitlines():
+        print("   ", line, flush=True)
+
+
+def workload_only(torch, args) -> int:
+    """`--workload-only`: phase 18 (a) and (b) alone (its (c) needs phase
+    16's network).  Builds the kernels and the C parts first; prints no
+    result line."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.ops import _build, ed25519, p256, p256_fixed
+    built = _build.build_all(force=True)
+    phase("build", libs=sorted(built))
+    native.build("der")
+    for ext in native.EXTENSIONS:
+        native.build_extension(ext)
+    fns = {"p256_verify_rows": p256_fixed.p256_verify_rows,
+           "p256_verify": p256.p256_verify,
+           "ed25519_verify_rows": ed25519.ed25519_verify_rows,
+           "ed25519_verify": ed25519.ed25519_verify}
+    workload_phase(torch, fns, smi("name,power.limit"))
+    phase("done", by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--txs", type=int, default=10_000,
@@ -7229,6 +7539,10 @@ def main(argv=None) -> int:
                     help="phases 16 and 17 alone (the kernels, the peer "
                     "node behind the port's Raft orderers, then the "
                     "ordering service's drills); prints no result line")
+    ap.add_argument("--workload-only", action="store_true",
+                    help="phase 18's catalog scenario and CLI load shape "
+                    "alone (the kernels, then the workload plane); prints "
+                    "no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -7265,6 +7579,8 @@ def main(argv=None) -> int:
         return endorse_only(torch, args)
     if args.node_only or args.orderer_only:
         return node_only(torch, args, orderer_drill=args.orderer_only)
+    if args.workload_only:
+        return workload_only(torch, args)
 
     # --- 2. build ----------------------------------------------------------
     built = _build.build_all(force=True)
@@ -7320,7 +7636,7 @@ def main(argv=None) -> int:
 
     # --- 3b. experiments ----------------------------------------------------
     t0 = time.perf_counter()
-    exp_results = experiments_phase(torch, dev, args.trials, sms)
+    exp_results = experiments_phase(torch, dev, args.trials)
     phase("experiments", seconds=round(time.perf_counter() - t0, 2))
 
     # --- 4. block ----------------------------------------------------------
@@ -7984,9 +8300,12 @@ def main(argv=None) -> int:
     endorse_launches = endorse_phase(torch, args, provider, fns, name_power,
                                      dev)
 
-    # --- 16. node, 17. orderer ----------------------------------------------
+    # --- 16. node, 17. orderer (18 (c), top, on their network) -------------
     node_launches, orderer_launches = node_phase(torch, args, fns,
                                                  name_power, dev)
+
+    # --- 18. workload ------------------------------------------------------
+    workload_launches = workload_phase(torch, fns, name_power)
 
     # --- 8. kernels ----------------------------------------------------------
     def by(ops_s, bytes_s):
@@ -8036,7 +8355,7 @@ def main(argv=None) -> int:
         *experiment_rows(exp_results, total, field_err),
     ]
     for row in kernels:
-        # phases 12's, 13's, 14's, 15's, 16's and 17's main-path
+        # phases 12's, 13's, 14's, 15's, 16's, 17's and 18's main-path
         # launches, each in its own count
         row["classic_launches"] = classic_launches.get(row["name"], 0)
         row["window_launches"] = window_launches.get(row["name"], 0)
@@ -8044,6 +8363,7 @@ def main(argv=None) -> int:
         row["endorse_launches"] = endorse_launches.get(row["name"], 0)
         row["node_launches"] = node_launches.get(row["name"], 0)
         row["orderer_launches"] = orderer_launches.get(row["name"], 0)
+        row["workload_launches"] = workload_launches.get(row["name"], 0)
     phase("done", seconds=round(time.perf_counter() - t_start, 1),
           by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
     print(json.dumps({"kernels": kernels}), flush=True)

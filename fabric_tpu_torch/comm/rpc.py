@@ -12,7 +12,8 @@ Responses may be streamed: {"kind": "stream", "id": n, "body": dict,
 "done": bool} — used by Deliver.
 
 Counterpart of `fabric_tpu/comm/rpc.py`, the same code on the port's
-imports.
+imports, but for `RpcServer.stop` and `RpcConnection.close`, which join
+the threads they started (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -181,7 +182,11 @@ class RpcConnection:
             self._waiters.pop(w.rid, None)
 
     def close(self) -> None:
+        """Close the channel and join the reader (it ends as the
+        channel's recv fails), unless called from the reader itself."""
         self.channel.close()
+        if self._reader is not threading.current_thread():
+            self._reader.join(5.0)
 
 
 class _Waiter:
@@ -220,6 +225,9 @@ class RpcServer:
         # without this a stopped server's port stays claimed by
         # ESTABLISHED sockets and a restart on the same port fails
         self._channels: "weakref.WeakSet" = weakref.WeakSet()
+        # connection loops and request handlers, so stop() can join them
+        self._threads: set = set()
+        self._threads_lock = threading.Lock()
         self.server = SecureServer(host, port, signer, msps, self._on_channel)
 
     @property
@@ -240,17 +248,37 @@ class RpcServer:
         return self
 
     def stop(self) -> None:
+        """Stop accepting, close every live connection, and join the
+        connection loops and the request handlers still running, for at
+        most 10 s in all (a handler blocked past it is left)."""
         self.server.stop()
         for ch in list(self._channels):
             try:
                 ch.close()
             except OSError:
                 pass
+        deadline = _time.monotonic() + 10.0
+        with self._threads_lock:
+            threads = list(self._threads)
+        for th in threads:
+            if th is not threading.current_thread():
+                th.join(max(0.0, deadline - _time.monotonic()))
+
+    def _spawn(self, target, *args) -> None:
+        def run():
+            try:
+                target(*args)
+            finally:
+                with self._threads_lock:
+                    self._threads.discard(threading.current_thread())
+        th = threading.Thread(target=run, daemon=True)
+        with self._threads_lock:
+            self._threads.add(th)
+        th.start()
 
     def _on_channel(self, ch: SecureChannel) -> None:
         self._channels.add(ch)
-        threading.Thread(target=self._conn_loop, args=(ch,),
-                         daemon=True).start()
+        self._spawn(self._conn_loop, ch)
 
     def _conn_loop(self, ch: SecureChannel) -> None:
         try:
@@ -276,9 +304,7 @@ class RpcServer:
                     continue
                 if kind != "req":
                     continue
-                threading.Thread(
-                    target=self._handle_req, args=(ch, msg), daemon=True
-                ).start()
+                self._spawn(self._handle_req, ch, msg)
         except Exception:
             ch.close()
 

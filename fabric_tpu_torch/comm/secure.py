@@ -24,7 +24,8 @@ integrity, replay protection within a connection) with one fewer
 moving part (no X.509-for-TLS second certificate hierarchy).
 
 Counterpart of `fabric_tpu/comm/secure.py`, the same code on the port's
-imports.
+imports, but for `SecureServer.stop`, which shuts the listener down and
+joins the accept loop and the handshakes in flight (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -205,6 +206,10 @@ class SecureServer:
         self.addr = self._lsock.getsockname()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
+        # handshakes in flight: stop() closes their sockets and joins
+        # them, so no channel is handed on after it returns
+        self._pending: Dict[threading.Thread, socket.socket] = {}
+        self._pending_lock = threading.Lock()
 
     def start(self) -> "SecureServer":
         self._thread.start()
@@ -216,25 +221,52 @@ class SecureServer:
                 sock, _ = self._lsock.accept()
             except OSError:
                 return
-            threading.Thread(target=self._accept_one, args=(sock,),
-                             daemon=True).start()
+            th = threading.Thread(target=self._accept_one, args=(sock,),
+                                  daemon=True)
+            with self._pending_lock:
+                if self._stop.is_set():
+                    sock.close()
+                    return
+                self._pending[th] = sock
+            th.start()
 
     def _accept_one(self, sock) -> None:
         try:
             sock.settimeout(10.0)
             ch = _handshake(sock, self.signer, self.msps, initiator=False)
             sock.settimeout(None)
+            if self._stop.is_set():
+                ch.close()
+            else:
+                self.on_channel(ch)
         except Exception:
             try:
                 sock.close()
             except OSError:
                 pass
-            return
-        self.on_channel(ch)
+        finally:
+            with self._pending_lock:
+                self._pending.pop(threading.current_thread(), None)
 
     def stop(self) -> None:
+        """Close the listener and every handshake in flight, and join
+        the accept loop and the handshake threads (5 s each at most).
+        shutdown() wakes a thread blocked in accept(), which close()
+        alone does not."""
         self._stop.set()
-        try:
-            self._lsock.close()
-        except OSError:
-            pass
+        for fn in (lambda: self._lsock.shutdown(socket.SHUT_RDWR),
+                   self._lsock.close):
+            try:
+                fn()
+            except OSError:
+                pass
+        with self._pending_lock:
+            pending = dict(self._pending)
+        for sock in pending.values():
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for th in [self._thread, *pending]:
+            if th.is_alive() and th is not threading.current_thread():
+                th.join(5.0)

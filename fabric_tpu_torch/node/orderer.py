@@ -21,7 +21,9 @@ asks for the host), fail-stop.  On the card `start()` builds and loads
 every kernel library and runs each signature lane once before the
 cluster's clock starts, so no first-use build lands inside a Raft step.
 `/healthz` carries the provider's `name`, `backend` and `degraded`
-beside the reference's fields, as the peer's does.
+beside the reference's fields, as the peer's does.  `stop()` releases
+the deliver streams waiting at each channel's tip and joins the
+onboarding loop (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -975,7 +977,10 @@ class OrdererNode:
         self.cluster.stop()
         for support in self.registrar.channels().values():
             support.chain.halt()
+            support.release()
         self.rpc.stop()
+        if getattr(self, "_onboard_thread", None) is not None:
+            self._onboard_thread.join(10.0)
         if getattr(self, "slo", None) is not None:
             self.slo.stop()
         if getattr(self, "timeseries", None) is not None:

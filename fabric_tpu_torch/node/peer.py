@@ -27,7 +27,9 @@ factory's CUDA kind unless the config names one (`"bccsp": "SW"` asks for
 the host), and `bccsp_degrade` unset means fail-stop (the bare
 `CudaProvider`; `true` wraps it in `DegradingProvider`).  `/healthz`
 carries the provider's `name`, `backend` and `degraded` beside the
-reference's fields.
+reference's fields.  `stop()` closes each channel's deliver client and
+joins its deliver loop, so nothing writes under the data directory once
+it returns (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -135,6 +137,31 @@ class RemoteDeliver:
         # optional containment hook: callable(sender_identity) -> bool;
         # a True verdict skips the endpoint (quarantined orderer)
         self.blocked = None
+        # the connection of the pull in progress, and whether close()
+        # was called: a closed facade dials nothing more
+        self._conn = None
+        self._closed = False
+
+    def close(self) -> None:
+        """End the pull in progress (its stream raises RpcClosed) and
+        refuse later pulls: the peer is stopping."""
+        self._closed = True
+        conn = self._conn
+        if conn is not None:
+            conn.close()
+
+    def _connect(self, addr):
+        if self._closed:
+            raise RuntimeError("deliver client closed")
+        # stream_views: block bytes arrive as memoryviews into the
+        # received frame and go straight to the native span parser —
+        # no frame->block copy, no per-tx objects
+        self._conn = connect(tuple(addr), self.signer, self.msps,
+                             timeout=3.0, stream_views=True)
+        if self._closed:
+            self._conn.close()
+            raise RuntimeError("deliver client closed")
+        return self._conn
 
     def advance(self) -> None:
         """Rotate away from the current endpoint — called when the
@@ -165,11 +192,7 @@ class RemoteDeliver:
             idx = (self._rr + k) % len(self.orderers)
             addr = self.orderers[idx]
             try:
-                # stream_views: block bytes arrive as memoryviews into
-                # the received frame and go straight to the native span
-                # parser — no frame->block copy, no per-tx objects
-                conn = connect(tuple(addr), self.signer, self.msps,
-                               timeout=3.0, stream_views=True)
+                conn = self._connect(addr)
                 try:
                     sender = getattr(conn.channel, "peer_identity", None)
                     if self.blocked is not None and self.blocked(sender):
@@ -194,8 +217,7 @@ class RemoteDeliver:
         for idx in deferred:
             addr = self.orderers[idx]
             try:
-                conn = connect(tuple(addr), self.signer, self.msps,
-                               timeout=3.0, stream_views=True)
+                conn = self._connect(addr)
                 try:
                     sender = getattr(conn.channel, "peer_identity", None)
                     logger.warning(
@@ -665,6 +687,8 @@ class PeerChannel:
                         SeekInfo(start=height, stop=height + 31,
                                  behavior="block_until_ready"),
                         timeout_s=5):
+                    if self.node._stop.is_set():
+                        break
                     items = block_signature_items(block, self.msps)
                     if not items or not bool(
                             self.node.provider.batch_verify(items).all()):
@@ -708,11 +732,11 @@ class PeerChannel:
                 self.deliver_healthy = True
                 backoff = 0.2
                 if not got:
-                    time.sleep(0.1)
+                    self.node._stop.wait(0.1)
             except Exception:
                 self.deliver_healthy = False
                 logger.debug("deliver pull failed; retrying", exc_info=True)
-                time.sleep(backoff)
+                self.node._stop.wait(backoff)
                 backoff = min(backoff * 2, 3.0)
             try:
                 self.gossip.tick()
@@ -730,6 +754,17 @@ class PeerChannel:
 
     def start(self) -> None:
         self._thread.start()
+
+    def stop(self) -> None:
+        """After the node's stop event is set: end the pull in progress
+        and join the deliver loop, so that nothing of this channel
+        writes to the ledger once the node's stop() has returned."""
+        close = getattr(self.deliver_client, "close", None)
+        if close is not None:
+            close()
+        if self._thread.is_alive() \
+                and self._thread is not threading.current_thread():
+            self._thread.join(30.0)
 
 
 class PeerNode:
@@ -1594,6 +1629,8 @@ class PeerNode:
 
     def stop(self) -> None:
         self._stop.set()
+        for ch in self.channels.values():
+            ch.stop()
         if self.gateway is not None:
             self.gateway.stop()
         if self.speculative is not None:

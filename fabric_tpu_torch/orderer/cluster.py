@@ -14,7 +14,9 @@ reference orderers form one cluster.  `EntryVerifier.check` verifies
 each new entry's proposer signature through the process's default
 provider (`msp.identity`), on the card under the CUDA provider; the one
 addition is the counter `orderer_entry_verifies_total{result}` on
-/metrics, the count of those checks.
+/metrics, the count of those checks (and each verifier's own count,
+`EntryVerifier.verifies`).  `ClusterService.stop` joins each peer
+sender's thread (ROADMAP C25).
 """
 
 from __future__ import annotations
@@ -74,6 +76,17 @@ class _PeerSender:
             self._stopped = True
             self._cond.notify()
         conn = self._conn
+        if conn is not None:
+            try:
+                conn.close()
+            except Exception:
+                pass
+
+    def join(self, timeout_s: float = 5.0) -> None:
+        """Wait for the sender's thread after stop(); a connection it
+        made meanwhile is closed."""
+        self._thread.join(timeout_s)
+        conn, self._conn = self._conn, None
         if conn is not None:
             try:
                 conn.close()
@@ -190,6 +203,9 @@ class EntryVerifier:
         # proposer bytes -> (binding, identity): one deserialize per
         # consenter, not per retransmitted entry
         self._idents: Dict[bytes, tuple] = {}
+        # signatures this verifier checked (this node's share of
+        # orderer_entry_verifies_total, which is process-wide)
+        self.verifies = 0
 
     def set_consenters(self, consenters) -> None:
         """Rebind after a committed membership change.  The proposer
@@ -245,6 +261,7 @@ class EntryVerifier:
             except Exception:
                 ok = False
             _count_entry_verify(ok)
+            self.verifies += 1
             if not ok:
                 return False, "bad_entry_sig", crimes
             rec = {"digest": digest, "kind": e.kind, "data": e.data,
@@ -523,6 +540,8 @@ class ClusterService:
             senders = list(self._senders.values())
         for s in senders:
             s.stop()
+        for s in senders:
+            s.join()
 
     def _drive(self) -> None:
         last_tick = time.monotonic()

@@ -8,7 +8,9 @@ deliver traffic to them.
 
 Counterpart of `fabric_tpu/orderer/registrar.py`, whole, on the port's
 imports: config blocks' Admins signatures and deliver's Readers check
-verify through the channel's provider.
+verify through the channel's provider.  `ChainSupport.release()` wakes
+the deliver streams waiting at the tip when the node stops (ROADMAP
+C25).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class ChainSupport:
         self.readers_policy = readers_policy
         self.bundle_source = bundle_source
         self._tip_cond = threading.Condition()
+        self._released = False
         self.chain = chain_factory(cutter=cutter, writer=writer,
                                    on_block=self._on_block)
 
@@ -64,10 +67,20 @@ class ChainSupport:
 
     def wait_for_height(self, height: int,
                         timeout_s: Optional[float] = None) -> bool:
-        """Block until ledger height >= height (deliver tip waiting)."""
+        """Block until ledger height >= height (deliver tip waiting),
+        or until `release()`."""
         with self._tip_cond:
-            return self._tip_cond.wait_for(
-                lambda: self.ledger.height >= height, timeout=timeout_s)
+            self._tip_cond.wait_for(
+                lambda: self.ledger.height >= height or self._released,
+                timeout=timeout_s)
+            return self.ledger.height >= height
+
+    def release(self) -> None:
+        """Wake every deliver stream waiting at the tip, now and later,
+        as if its wait had timed out: the node is stopping."""
+        with self._tip_cond:
+            self._released = True
+            self._tip_cond.notify_all()
 
     def authorize_read(self, signed: Optional[SignedData]) -> None:
         """deliver/acl.go sessionAC equivalent: Readers policy check,

@@ -5,8 +5,8 @@ pardons, ProofGossip, the ops view; and orderer/raft.py's
 it reads) against the reference's, on the CPU.
 
 * The reference's own scenarios on both packages: every test function
-  of tests/test_byzantine.py (but the `node.top` column, which the port
-  does not have) and tests/test_proof_gossip.py (tests/ref_scenarios.py;
+  of tests/test_byzantine.py (the `node.top` BYZ column on each
+  package's own `node.top`) and tests/test_proof_gossip.py (tests/ref_scenarios.py;
   each package's own `testing.adversary` forgeries on its types).
 * Differentials, with one fixed clock patched into both packages'
   `monitor` and `quarantine` modules, and the accusers and pardon
@@ -45,8 +45,7 @@ from intake_world import load, msps_for, signer_for
 from ref_scenarios import PKGS, run_scenario, scenario_module, scenario_names
 
 REF_FILES = ("test_byzantine", "test_proof_gossip")
-SKIP = ("test_top_byz_column_formats",)      # node/top.py: not ported
-RUNS = [(f, t, p) for f in REF_FILES for t in scenario_names(f, skip=SKIP)
+RUNS = [(f, t, p) for f in REF_FILES for t in scenario_names(f)
         for p in PKGS]
 SIDES = ("ref", "port")
 T0 = 1_760_000_000.0

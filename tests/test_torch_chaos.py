@@ -20,8 +20,19 @@ the CPU.
   fraud proof, and the verdicts are the same as with the reference on
   both sides.
 
+* Teardown (ROADMAP C25): after `stop_all()` on a two-peer port
+  `ChaosNet` on SW that has just committed blocks, no thread its nodes
+  started is alive (`threading.enumerate()` before `start()` and after
+  `stop_all()`, in a process of its own), and no file under its
+  directory changes afterwards.
+
 Every wait has its own bound.  Tolerance: exact equality.
 """
+import json
+import os
+import subprocess
+import sys
+
 import pytest
 
 from node_world import mod, on_port_chaos, sw_defaults, wait_for
@@ -102,3 +113,62 @@ def test_equivocating_orderer_convicted(adv, peer_pkg, tmp_path):
     assert got["crimes"] and got["crimes"][0] == ("equivocate", 2)
     assert got["proofs"] == [("fork", True)]
     assert got["quarantined"] is True
+
+
+
+TEARDOWN = """
+import json, os, sys, threading, time
+sys.path[:0] = [{tests!r}, {repo!r}]
+from fabric_tpu_torch.config import BatchConfig
+from node_world import sw_chaos_net, sw_defaults
+
+
+def tree(root):
+    out = {{}}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.join(d, f)] = [st.st_size, st.st_mtime_ns]
+    return out
+
+
+sw_defaults()
+before = set(threading.enumerate())
+net = sw_chaos_net({base!r}, n_orderers=1, peer_orgs=["Org1", "Org2"],
+                   batch=BatchConfig(max_message_count=1, timeout_s=0.1))
+net.start()
+try:
+    gw = net.client("Org1")
+    try:
+        codes = [gw.submit_transaction("assets", "create",
+                                       [b"t%d" % i, b"alice"],
+                                       commit_timeout_s=30.0)[0]
+                 for i in range(3)]
+    finally:
+        gw.close()
+    net.wait_converged(timeout_s=30.0)
+    during = len([t for t in threading.enumerate() if t not in before])
+finally:
+    net.stop_all()
+alive = [t.name for t in threading.enumerate()
+         if t not in before and t.is_alive()]
+files = tree({base!r})
+time.sleep(1.0)
+print(json.dumps({{"codes": codes, "during": during, "alive": alive,
+                  "files_changed": tree({base!r}) != files}}))
+"""
+
+
+def test_stop_all_leaves_no_node_thread_running(tmp_path):
+    """In a process of its own, so that no other test's network adds
+    threads while this one counts them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = TEARDOWN.format(tests=here, repo=os.path.dirname(here),
+                           base=str(tmp_path / "net"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["codes"] == [0, 0, 0]
+    assert got["during"] >= 8
+    assert got["alive"] == []
+    assert got["files_changed"] is False

@@ -1968,3 +1968,38 @@ def test_threaded_busy_matches_the_event_tree(cuda_device):
                and e.time_range.start >= end[0]) / 1e3
     assert want > 0 and wall == 1.0 and len(top) >= 1
     assert abs(busy - want) <= 0.01 * want + 0.01
+
+
+@pytest.mark.cuda
+def test_workload_cli_on_its_default_provider(cuda_device, capsys,
+                                              monkeypatch):
+    """`python -m fabric_tpu_torch.workload --scenario poisson --rate 5
+    --duration 2` with no `--bccsp`: the factory's CUDA provider and every
+    booted node's, fail-stop.  It returns 0, offers load, and no node's
+    provider fell back; the nodes' P-256 checks launched on the card."""
+    import fabric_tpu_torch.workload.__main__ as cli
+    nodes = []
+
+    def recording(cls):
+        class Recorded(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                nodes.append(self)
+        return Recorded
+    monkeypatch.setattr(cli, "PeerNode", recording(cli.PeerNode))
+    monkeypatch.setattr(cli, "OrdererNode", recording(cli.OrdererNode))
+    before = (p256.p256_verify.launches, p256_fixed.p256_verify_rows.launches)
+    try:
+        rc = cli.main(["--scenario", "poisson", "--rate", "5",
+                       "--duration", "2"])
+        report = json.loads(capsys.readouterr().out)
+    finally:
+        init_factories(FactoryOpts(default="SW"))
+    assert rc == 0
+    assert report["totals"]["offered"] > 0
+    assert len(nodes) == 2
+    for node in nodes:
+        assert isinstance(node.provider, CudaProvider)
+        assert node.provider.stats["fallbacks"] == 0
+    assert (p256.p256_verify.launches - before[0]
+            + p256_fixed.p256_verify_rows.launches - before[1]) > 0

@@ -7,10 +7,9 @@ Two kinds of test:
   every test function of tests/test_ops_plane.py, test_sampler.py,
   test_timeseries.py and test_incidents.py is executed once against
   each package, from its source with the package's imports pointing at
-  that package (`fabric_tpu.` -> `fabric_tpu_torch.`; the reference's
-  `node.top` dashboard, which the port does not have, stays the
-  reference's and scrapes the port's server).  Fixtures are the test's
-  own (`tmp_path`, `caplog`).  The one scenario that is not the
+  that package (`fabric_tpu.` -> `fabric_tpu_torch.`, the `node.top`
+  dashboard included: each package's `top` scrapes its own server).
+  Fixtures are the test's own (`tmp_path`, `caplog`).  The one scenario that is not the
   module's own on the port, the device capture behind /debug/profile
   (a jax.profiler trace directory in the reference, a torch.profiler
   trace here), runs on the reference only; its port counterpart is
@@ -59,13 +58,13 @@ _modules: dict = {}
 
 def scenario_module(name: str, pkg: str):
     """tests/<name>.py executed as a module whose `fabric_tpu.` imports
-    name `pkg` (node.* stays the reference's)."""
+    name `pkg`."""
     key = (name, pkg)
     if key not in _modules:
         path = TESTS_DIR / f"{name}.py"
         src = path.read_text()
         if pkg != "fabric_tpu":
-            src = re.sub(r"\bfabric_tpu\.(?!node\b)", f"{pkg}.", src)
+            src = re.sub(r"\bfabric_tpu\.", f"{pkg}.", src)
         mod = types.ModuleType(f"_{pkg}_{name}")
         mod.__file__ = str(path)
         exec(compile(src, str(path), "exec"), mod.__dict__)

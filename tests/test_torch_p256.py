@@ -220,7 +220,8 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 CLIS = ("fabric_tpu_torch.node.orderer", "fabric_tpu_torch.node.peer",
-        "fabric_tpu_torch.node.admin", "fabric_tpu_torch.scc.discover")
+        "fabric_tpu_torch.node.admin", "fabric_tpu_torch.scc.discover",
+        "fabric_tpu_torch.workload", "fabric_tpu_torch.node.top")
 
 
 @pytest.mark.parametrize("cli", CLIS)
