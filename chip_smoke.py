@@ -131,7 +131,26 @@ ends with one JSON line.  Phases:
              verdicts, one table build a key, one bank replica, launches a
              shard, times in turns, the mesh code's own host ms), the
              spill drill and KB8's 4,096 seeded checks on two shards, and
-             a device trace of two warm blocks (capture_device_trace)
+             a device trace of two warm blocks (capture_device_trace);
+             then its kv7_mesh part (`[kv7_mesh]` lines), KV7's
+             multi-device branch: a DeviceValidator built as the peer
+             builds it has one shard on a one-card host (every card when
+             their count is > 1 and a power of two); the fold-range and
+             finish entry points against their plain versions over 1, 2,
+             3, 4 and 8 shards of cuda:0 (seeded 10,000-tx lanes, the
+             heavy txs of the card's tests, one sig lane and no read
+             lane); phase 6's stream through KV7 stacks of 1, 2 and 4
+             shards of cuda:0 (and across the cards when there are
+             several): flags, metadata flags, gate flags and commit hash
+             equal phase 6's after every block, state and history after
+             the last, block 3
+             demoted by its range query, one dispatch and one KV7 launch a
+             device block, one fold launch a non-empty shard, `fallbacks`
+             0; block 2's validate + commit ms at 1, 2 and 4 shards in 2
+             turns (the second on ledgers set at height 2 by phase 6's
+             flags) with each shard's fold ms, the gather and finish ms,
+             and the folds and finish alone by CUDA events against their
+             plain versions
 11. durable — (run after 10, before the kernels line) the commit stream
              of phase 6 through the port's stack on the factory's CUDA
              provider with KV7, on a durable ledger: KVLedger(root=
@@ -409,14 +428,17 @@ benchmark kernels, the counterparts of experiments/, and KB8's tower
 probe and KP2's field probe tests of their routines; they are on no main
 path: their counts there are 0.  Phase 10's mesh providers are not the
 main path either: their launches stay out of the kernels line, and its
-[mesh] lines give them per provider, cell and shard; nor are phase 11's
-durable runs, whose launches its [durable] lines give per run.
+[mesh] lines give them per provider, cell and shard, and its
+[kv7_mesh] lines the KV7 and fold launches of each sharded stack; nor
+are phase 11's durable runs, whose launches its [durable] lines give
+per run.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py [--txs N] [--ed N] [--gen N] [--trials K]
                           [--commit-txs N] [--commit-last N]
     python3 chip_smoke.py --ops-only   # phase 6's ops-plane check alone
+    python3 chip_smoke.py --kv7-mesh-only # phase 10's kv7_mesh part alone
     python3 chip_smoke.py --intake-only   # phase 14 alone
     python3 chip_smoke.py --endorse-only  # phase 15 alone
     python3 chip_smoke.py --node-only     # phase 16 alone
@@ -526,6 +548,12 @@ WINDOW_MEMORY_TRIALS = 2       # timed memory streams (was 3) and durable
 WINDOW_DURABLE_TRIALS = 1      # ones (was 2): cut for the script's time
 #                                limit when phase 17 came (PERF.md §4)
 WINDOW_DEMOTIONS = ("savepoint", "range_query")
+# KV7's multi-device branch (phase 10, its kv7_mesh part): the shard
+# counts its entry points are held to their plain versions at, on cuda:0
+# repeated, and the shards of the commit stacks timed in turns (1, 2, 4,
+# 4, 2, 1)
+KV7_MESH_SHARDS = (1, 2, 3, 4, 8)
+KV7_MESH_STACKS = (1, 2, 4)
 
 # H100 SXM rates: HBM 3.35 TB/s (data sheet); 32-bit integer multiply-add
 # 64 per SM per clock (CUDA C Programming Guide, arithmetic instruction
@@ -1253,7 +1281,7 @@ def chain_blocks(env_blocks):
 def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
                  policy: str = COMMIT_POLICY, classic: bool = False,
                  cache=None, early_abort: bool = False, bundle=None,
-                 **ledger_kw):
+                 devices=None, **ledger_kw):
     """Committer -> TxValidator -> DeviceValidator (window=16384) or the
     host gate -> KVLedger (in memory, 8 state shards) -> (committer,
     device validator or None).  The validator's deep tail, or with
@@ -1262,8 +1290,10 @@ def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
     verify-once VerdictCache or None; early_abort: an
     EarlyAbortAnalyzer on the ledger's state (on a windowed ledger fed
     its pending overlay); msps: the orgs' MSPs unless given; bundle: a
-    BundleSource whose bundle gives the MSPs; ledger_kw: more
-    LedgerConfig fields (commit_window, parallel_commit, ...)."""
+    BundleSource whose bundle gives the MSPs; devices: the
+    DeviceValidator's device list (KV7's multi-device branch) in place
+    of `dev`; ledger_kw: more LedgerConfig fields (commit_window,
+    parallel_commit, ...)."""
     from fabric_tpu_torch.committer import PolicyRegistry
     from fabric_tpu_torch.ledger import KVLedger, LedgerConfig
     from fabric_tpu_torch.msp import CachedMSP
@@ -1275,21 +1305,26 @@ def commit_stack(provider, orgs, device_validate: bool, dev, msps=None,
     ledger = KVLedger("ch", LedgerConfig(device_validate=device_validate,
                                          state_shards=8, **ledger_kw))
     return wire_stack(ledger, provider, policies, msps, dev, classic=classic,
-                      cache=cache, early_abort=early_abort, bundle=bundle)
+                      cache=cache, early_abort=early_abort, bundle=bundle,
+                      devices=devices)
 
 
 def wire_stack(ledger, provider, policies, msps, dev, classic=False,
-               cache=None, early_abort=False, bundle=None, history=None):
+               cache=None, early_abort=False, bundle=None, history=None,
+               devices=None):
     """The validator and committer over `ledger` -> (committer, device
-    validator or None): a DeviceValidator (KV7, window=16384) when the
-    ledger's config asks for device validation."""
+    validator or None): a DeviceValidator (KV7, window=16384; over
+    `devices` when given, else on `dev`) when the ledger's config asks
+    for device validation."""
     from fabric_tpu_torch.committer import Committer, TxValidator, sbe
     from fabric_tpu_torch.committer.device_validate import DeviceValidator
     from fabric_tpu_torch.committer.parallel_commit import (
         EarlyAbortAnalyzer)
     dv = None
     if ledger.config.device_validate:
-        dv = DeviceValidator(ledger.statedb, "ch", device=dev,
+        dv = DeviceValidator(ledger.statedb, "ch",
+                             **({"devices": devices} if devices is not None
+                                else {"device": dev}),
                              window=COMMIT_WINDOW)
         ledger.set_prepared_source(dv.take_prepared)
     overlay = (ledger.pending_overlay if ledger.config.commit_window
@@ -4052,6 +4087,302 @@ def mesh_phase(torch, args, cells, spill, builds, host_tables, fns,
     return out
 
 
+def nonempty_shards(d: dict, k: int) -> int:
+    """The shards of k that get a sig lane or a read lane of dims d."""
+    from fabric_tpu_torch.parallel.mesh import shard_bounds
+    return sum(s_r[1] > s_r[0] or r_r[1] > r_r[0] for s_r, r_r in zip(
+        shard_bounds(d["S"], k), shard_bounds(d["R"], k)))
+
+
+def kv7_mesh_entry_points(torch, dev) -> int:
+    """KV7's multi-device entry points against their plain versions on
+    cuda:0: each shard's fold (partial mask, read codes) and the finish
+    (gate and final codes), over KV7_MESH_SHARDS shards of three lane
+    sets (the card's tests' kv7_lanes at a block's size, kv7_heavy_lanes,
+    one sig lane and no read lane), then block_validate_sharded on a mesh
+    of cuda:0 repeated; all equal to block_validate_plain too.  -> the
+    largest difference (0)."""
+    import numpy as np
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.parallel.mesh import make_mesh, shard_bounds
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import kv7_cases
+    rng = np.random.default_rng(SEED + 22)
+    sets = {"kv7_lanes": (kv7_cases.kv7_lanes(rng, 10_000, 20_000), 3),
+            "kv7_heavy_lanes": (kv7_cases.kv7_heavy_lanes(rng, 600, 4_096),
+                                3),
+            "one sig lane": (kv7_cases.lanes(**kv7_cases.DIRECTED[
+                "no_plan_keeps_pre"][0]), kv7_cases.BLK)}
+    err = 0
+    for name, (ln, blk) in sets.items():
+        buf, d = kv7.pack(ln)
+        buf_d = kv7.upload(buf, dev)
+        pg, pf = kv7.block_validate_plain(ln, blk)
+        live = {}
+        for k in KV7_MESH_SHARDS:
+            masks, rcodes = [], []
+            for s_r, r_r in zip(shard_bounds(d["S"], k),
+                                shard_bounds(d["R"], k)):
+                if s_r[1] == s_r[0] and r_r[1] == r_r[0]:
+                    continue
+                m, rc = kv7.block_validate_fold_kernel(buf_d, d, blk, s_r,
+                                                       r_r)
+                pm, prc = kv7.block_validate_fold_plain(ln, blk, s_r, r_r)
+                check(torch.equal(m.cpu(), pm) and torch.equal(rc.cpu(), prc),
+                      f"kv7_mesh {name}, {k} shards: the fold of lanes "
+                      f"{s_r}, {r_r} != block_validate_fold_plain")
+                masks.append(m)
+                rcodes.append(rc)
+            live[k] = len(masks)
+            stacked = torch.stack(masks) if masks else torch.zeros(
+                (0, d["E"]), dtype=torch.int32, device=dev)
+            gathered = torch.cat(rcodes) if rcodes else torch.zeros(
+                0, dtype=torch.int32, device=dev)
+            out = kv7.block_validate_finish_kernel(buf_d, d, blk, stacked,
+                                                   gathered).cpu()
+            gate, final = kv7.block_validate_finish_plain(
+                ln, blk, stacked.cpu(), gathered.cpu())
+            T = d["T"]
+            check(torch.equal(out[:T], gate) and torch.equal(out[T:], final),
+                  f"kv7_mesh {name}, {k} shards: the finish != "
+                  f"block_validate_finish_plain")
+            check(torch.equal(gate, pg) and torch.equal(final, pf),
+                  f"kv7_mesh {name}, {k} shards: the plain composition != "
+                  f"block_validate_plain")
+            err = max(err, int((out.to(torch.int16) - torch.cat(
+                [gate, final]).to(torch.int16)).abs().max()))
+            g2, f2 = kv7.block_validate_sharded(ln, blk, make_mesh([dev] * k))
+            check(np.array_equal(g2, pg.numpy())
+                  and np.array_equal(f2, pf.numpy()),
+                  f"kv7_mesh {name}: block_validate_sharded over {k} shards "
+                  f"!= block_validate_plain")
+        phase("kv7_mesh", lanes=name, T=d["T"], S=d["S"], R=d["R"],
+              shards=list(KV7_MESH_SHARDS), non_empty=list(live.values()),
+              fold_and_finish_vs_plain="equal", sharded_vs_plain="equal",
+              mvcc=int((pf == 11).sum()), max_abs_err=err)
+    return err
+
+
+def kv7_mesh_stream(torch, provider, orgs, raws, mem_rows, dev, devices,
+                    checked: bool, gates: dict) -> dict:
+    """Phase 6's stream through a fresh KV7 stack over `devices` (None:
+    on `dev`, one device): all of it when `checked`, else block 2 on the
+    stack's ledger set at height 2 (`at_height`).  Checked: after every block the final and metadata flags and
+    the commit hash equal phase 6's (mem_rows) and the gate flags equal
+    `gates` (filled by the first stack), after the last the state and
+    history rows too; block 3 demoted by
+    its range query and nothing else; one dispatch a device-validated
+    block, one KV7 launch each and one fold launch a non-empty shard;
+    `fallbacks` 0.  -> block 2's validate + commit seconds and the
+    validator's timings of it."""
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.protocol import wire
+    from fabric_tpu_torch.protocol.types import META_TXFLAGS
+    # check() runs once a KV7 call (pack calls it on the card)
+    seen, check_lanes = [], kv7.check
+
+    def keep_lanes(lanes):
+        d = check_lanes(lanes)
+        seen.append((lanes, dict(d)))
+        return d
+
+    k = 1 if devices is None else len(devices)
+    run = f"kv7_mesh {k} shards{'' if checked else ' (timed)'}"
+    before = (kv7.block_validate_kernel.launches,
+              kv7.block_validate_fold_kernel.launches)
+    kv7.check = keep_lanes
+    try:
+        c, dv = commit_stack(provider, orgs, True, dev, devices=devices)
+        check(dv.shards == k, f"{run}: {dv.shards} shards")
+        if not checked:
+            at_height(c, raws, mem_rows, 2)
+        out = {}
+        for num, raw in enumerate(raws):
+            if not checked and num != 2:
+                continue
+            block = wire.parse_block(raw)
+            t0 = time.perf_counter()
+            res = c.store_block(block)
+            secs = time.perf_counter() - t0
+            if num == 2:
+                out = {"secs": secs, "timings": dict(dv.last_timings)}
+            if not checked:
+                continue
+            mcodes, mmeta, mrows = mem_rows[num]
+            check(res.final_flags.codes() == mcodes,
+                  f"{run} block {num}: flags != phase 6's")
+            check(bytes(block.metadata.items[META_TXFLAGS]) == mmeta,
+                  f"{run} block {num}: metadata flags != phase 6's")
+            check(c.ledger.commit_hash == mrows[2],
+                  f"{run} block {num}: commit hash != phase 6's")
+            if num == len(raws) - 1:
+                check(ledger_rows(c.ledger) == mrows[:2],
+                      f"{run} block {num}: state or history != phase 6's")
+            gate = res.validation.flags.codes()
+            check(gates.setdefault(num, gate) == gate,
+                  f"{run} block {num}: gate flags != the one-device stack's")
+    finally:
+        kv7.check = check_lanes
+    st = dv.stats
+    n_dev = len(seen)
+    demoted = {r: n for r, n in
+               st["validator_device_demotions_total"].items() if n}
+    check(demoted == ({"range_query": 1} if checked else {}),
+          f"{run}: demotions {demoted}")
+    check(st["validator_device_dispatches_total"]
+          == st["validator_device_blocks_total"] == n_dev,
+          f"{run}: dispatches and device blocks {st}")
+    fold_want = 0 if k == 1 else sum(nonempty_shards(d, k)
+                                     for _ln, d in seen)
+    got = (kv7.block_validate_kernel.launches - before[0],
+           kv7.block_validate_fold_kernel.launches - before[1])
+    check(got == (n_dev, fold_want), f"{run}: (KV7, fold) launches {got}, "
+          f"expected ({n_dev}, {fold_want})")
+    check(provider.stats["fallbacks"] == 0, f"{run}: fallbacks")
+    out.update(lanes=seen[-1][0], launches=got, device_blocks=n_dev)
+    return out
+
+
+def kv7_mesh_phase(torch, provider, orgs, raws, mem_rows, name_power,
+                   clock_hz: float, trials: int) -> dict:
+    """Phase 10's kv7_mesh part: KV7's multi-device branch (the
+    reference's shard_map of its program over a device list,
+    device_validate.py:499-511) on the card.  The default devices of a
+    DeviceValidator built as the peer builds it; the entry points against
+    their plain versions (kv7_mesh_entry_points); phase 6's stream through
+    KV7 stacks of KV7_MESH_STACKS shards of cuda:0 in turns (1, 2, 4, 4,
+    2, 1), the first turn checked (kv7_mesh_stream), the second block 2
+    alone on ledgers set at height 2; block 2 timed in both;
+    across the host's cards when it has more than one; block 2's folds
+    and finish (and KV7 whole) timed alone by CUDA events at 2 and 4
+    shards, each held against its plain version.  Its launches stay out
+    of the kernels line.  -> the part's numbers."""
+    from fabric_tpu_torch.committer.device_validate import DeviceValidator
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.parallel.mesh import make_mesh, shard_bounds
+    t_start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    # the peer's call: no device, no devices
+    peer_dv = DeviceValidator(None, "ch", window=COMMIT_WINDOW)
+    want = n_cards if n_cards > 1 and n_cards & (n_cards - 1) == 0 else 1
+    check(peer_dv.shards == want, f"kv7_mesh: the peer's validator has "
+          f"{peer_dv.shards} shards on {n_cards} cards, expected {want}")
+    branch = ("one card: shards of cuda:0 repeated; the distinct-card "
+              "branch not run" if n_cards == 1 else
+              f"{n_cards} cards: shards of cuda:0 repeated and across the "
+              "cards")
+    phase("kv7_mesh", card=name_power, cards=n_cards,
+          peer_default_shards=peer_dv.shards, branch=branch)
+    del peer_dv
+    dev = torch.device("cuda", 0)
+    err = kv7_mesh_entry_points(torch, dev)
+    t_entry = time.perf_counter() - t_start
+
+    gates, runs = {}, {k: [] for k in KV7_MESH_STACKS}
+    order = (*KV7_MESH_STACKS, *reversed(KV7_MESH_STACKS))
+    for turn, k in enumerate(order):
+        checked = turn < len(KV7_MESH_STACKS)
+        out = kv7_mesh_stream(torch, provider, orgs, raws, mem_rows, dev,
+                              None if k == 1 else [dev] * k, checked, gates)
+        runs[k].append(out)
+        if checked:
+            phase("kv7_mesh", shards=k, stream="equal to phase 6 (flags, "
+                  "metadata flags, gate flags and commit hash after every "
+                  "block, state and history after the last)",
+                  demotions={"range_query": 1},
+                  device_blocks=out["device_blocks"],
+                  kv7_fold_launches=out["launches"], fallbacks=0)
+    if n_cards > 1:
+        cards = [f"cuda:{i}" for i in range(n_cards)]
+        out = kv7_mesh_stream(torch, provider, orgs, raws, mem_rows, dev,
+                              cards, True, gates)
+        phase("kv7_mesh", shards=n_cards, devices=cards,
+              stream="equal to phase 6",
+              kv7_fold_launches=out["launches"],
+              fold_ms=out["timings"]["fold_ms"],
+              gather_ms=out["timings"]["gather_ms"],
+              finish_ms=out["timings"]["finish_ms"])
+
+    # block 2's times, each shard count's two turns, beside the bound of
+    # its KV7 call: the packed lanes once to each distinct device, the
+    # gather and the outputs (sharded_bytes_moved) against the walk's
+    # dependent steps, one shared-memory round trip a link of the
+    # block's longest chain (dep_depth)
+    print(name_power, flush=True)
+    result = {"entry_max_abs_err": err, "shards": {}}
+    ln2 = runs[1][0]["lanes"]
+    depth = kv7.dep_depth(ln2, 2)
+    ops_s = depth * SHMEM_CYCLES / clock_hz
+    # the kernels alone on block 2's lanes (CUDA events, after a warm-up):
+    # KV7 whole on one device, each shard's fold and the finish, each
+    # held against its plain version, whose one comparison call is timed
+    buf, d2 = kv7.pack(ln2)
+    buf_d = kv7.upload(buf, dev)
+    kernels = {1: {"kv7_kernel_ms": round(event_ms(
+        torch, lambda: kv7.block_validate_kernel(buf_d, d2, 2), trials), 4),
+        **{n: d2[n] for n in ("T", "E", "S", "R", "W", "K")}}}
+    for k in KV7_MESH_STACKS[1:]:
+        folds, fold_ms, fold_plain_ms = [], [], []
+        for s_r, r_r in zip(shard_bounds(d2["S"], k),
+                            shard_bounds(d2["R"], k)):
+            m, rc = kv7.block_validate_fold_kernel(buf_d, d2, 2, s_r, r_r)
+            (pm, prc), ms = timed_once(
+                torch, lambda: kv7.block_validate_fold_plain(ln2, 2, s_r, r_r))
+            check(torch.equal(m.cpu(), pm) and torch.equal(rc.cpu(), prc),
+                  f"kv7_mesh block 2, {k} shards: a fold != its plain version")
+            folds.append((m, rc))
+            fold_plain_ms.append(round(ms, 3))
+            fold_ms.append(round(event_ms(
+                torch, lambda: kv7.block_validate_fold_kernel(
+                    buf_d, d2, 2, s_r, r_r, m, rc), trials), 4))
+        masks = torch.stack([m for m, _rc in folds])
+        rcode = torch.cat([rc for _m, rc in folds])
+        out = kv7.block_validate_finish_kernel(buf_d, d2, 2, masks,
+                                               rcode).cpu()
+        (gate, final), plain_ms = timed_once(
+            torch, lambda: kv7.block_validate_finish_plain(
+                ln2, 2, masks.cpu(), rcode.cpu()))
+        check(torch.equal(out, torch.cat([gate, final])),
+              f"kv7_mesh block 2, {k} shards: the finish != its plain version")
+        kernels[k] = {
+            "fold_kernel_ms": fold_ms, "fold_plain_ms": fold_plain_ms,
+            "finish_kernel_ms": round(event_ms(
+                torch, lambda: kv7.block_validate_finish_kernel(
+                    buf_d, d2, 2, masks, rcode), trials), 4),
+            "finish_plain_ms": round(plain_ms, 3)}
+    for k in KV7_MESH_STACKS:
+        secs = [r["secs"] * 1e3 for r in runs[k]]
+        tims = [r["timings"] for r in runs[k]]
+        d = kv7.pack(runs[k][0]["lanes"])[1]
+        n_bytes = (kv7.bytes_moved(d) if k == 1 else
+                   kv7.sharded_bytes_moved(d, make_mesh([dev] * k)))
+        bytes_s = n_bytes / HBM_BYTES_PER_S
+        row = {"validate_commit_ms": round(statistics.median(secs), 3),
+               "turns_ms": [round(x, 3) for x in secs],
+               "kv7_wall_ms": round(statistics.median(
+                   t["kv7_s"] for t in tims) * 1e3, 3),
+               "bytes": n_bytes, "dep_depth": depth,
+               "bound_ms": round(max(bytes_s, ops_s) * 1e3, 6),
+               "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
+        if k > 1:
+            row.update(
+                fold_ms=[round(statistics.median(t["fold_ms"][i]
+                                                 for t in tims), 4)
+                         for i in range(k)],
+                gather_ms=round(statistics.median(t["gather_ms"]
+                                                  for t in tims), 4),
+                finish_ms=round(statistics.median(t["finish_ms"]
+                                                  for t in tims), 4))
+        row.update(kernels[k])
+        result["shards"][k] = row
+        phase("kv7_mesh", block=2, shards=k, warm=True, **row)
+    result["seconds"] = round(time.perf_counter() - t_start, 1)
+    phase("kv7_mesh", entry_points_s=round(t_entry, 1),
+          seconds=result["seconds"])
+    return result
+
+
 # ---------------------------------------------------------------------------
 # KP2's field probe (phase 3) and KP2's work (phase 7)
 # ---------------------------------------------------------------------------
@@ -4847,6 +5178,39 @@ def intake_phase(torch, args, provider, orgs, raws, mem_rows, fns,
           provider=provider.name, fallbacks=0, card=name_power,
           seconds=round(time.perf_counter() - t_phase, 1))
     return launches
+
+
+def kv7_mesh_only(torch, args) -> int:
+    """`--kv7-mesh-only`: phase 10's kv7_mesh part alone.  Builds the
+    kernels, the commit stream (spawn pool) and, for the reference rows,
+    the stream through the host stack on the CUDA provider (phase 6's
+    host stack), then runs `kv7_mesh_phase`; prints no result line."""
+    from fabric_tpu_torch import native
+    from fabric_tpu_torch.bccsp import FactoryOpts, init_factories
+    from fabric_tpu_torch.ops import _build
+    built = _build.build_all(force=True)
+    phase("build", libs=sorted(built))
+    native.build("der")
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, multiprocessing.cpu_count())) as pool:
+        orgs, signers, endorsers, clients = commit_identities()
+        env_blocks, labels, _kinds = build_stream(
+            args.commit_txs, args.commit_last, signers, endorsers, clients,
+            pool)
+    raws = chain_blocks(env_blocks)
+    del env_blocks
+    provider = init_factories(FactoryOpts(default="CUDA"))
+    host, _ = commit_stack(provider, orgs, False, torch.device("cuda"))
+    mem_rows = [(r.final_flags.codes(), meta, after) for r, meta, _s, after
+                in commit_stream(host, raws, rows=True)]
+    check([c for c, _m, _r in mem_rows] == labels,
+          "kv7-mesh-only: host stack flags != labels")
+    del host
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    kv7_mesh_phase(torch, provider, orgs, raws, mem_rows,
+                   smi("name,power.limit"), clock_hz, args.trials)
+    phase("done", by_phase={k: round(v, 1) for k, v in _PHASE_S.items()})
+    return 0
 
 
 def intake_only(torch, args) -> int:
@@ -6874,11 +7238,13 @@ def node_phase(torch, args, fns, name_power, dev,
                    step_s=0.1)
         seed_s = time.perf_counter() - t0
         part("seed_order_and_commit")
-        check(ch1.ledger.height == seed_blocks and all(
-            len(ch1.ledger.blockstore.get_by_number(n).data) == SEED_BATCH
-            for n in range(seed_blocks)),
-            f"node: the seed was not cut into {seed_blocks} blocks of "
-            f"{SEED_BATCH}")
+        sizes = [len(ch1.ledger.blockstore.get_by_number(n).data)
+                 for n in range(ch1.ledger.height)]
+        check(ch1.ledger.height == seed_blocks
+              and sizes == [SEED_BATCH] * seed_blocks,
+              f"node: the seed was not cut into {seed_blocks} blocks of "
+              f"{SEED_BATCH}: peer 1 holds {len(sizes)} blocks of {sizes} "
+              f"txs, broadcast in {broadcast_s:.3f} s")
         seed_metrics = {k: scrape(url + "/metrics")
                         for k, url in enumerate(ourl, 1)}
         phase("node", seed_txs=NODE_SEED_TXS, sign_s=parts["seed_sign"],
@@ -7525,6 +7891,10 @@ def main(argv=None) -> int:
                     help="phase 6's ops-plane check alone (the commit "
                     "stream, then a warm block 2 read back over HTTP); "
                     "prints no result line")
+    ap.add_argument("--kv7-mesh-only", action="store_true",
+                    help="phase 10's kv7_mesh part alone (the kernels, the "
+                    "commit stream and its host-stack rows, then KV7's "
+                    "multi-device branch); prints no result line")
     ap.add_argument("--intake-only", action="store_true",
                     help="phase 14 alone (the kernels, the commit stream "
                     "and its host-stack rows, then the intake); prints no "
@@ -7573,6 +7943,8 @@ def main(argv=None) -> int:
     print(name_power, flush=True)
     if args.ops_only:
         return ops_only(torch, args)
+    if args.kv7_mesh_only:
+        return kv7_mesh_only(torch, args)
     if args.intake_only:
         return intake_only(torch, args)
     if args.endorse_only:
@@ -8271,6 +8643,11 @@ def main(argv=None) -> int:
     mesh_phase(torch, args, cells, (items[:n_spill], labels[:n_spill],
                                     kinds[:n_spill]), (hot_keys, ED_KEYS),
                host_tables, fns, name_power)
+    # KV7's row of the kernels line carries the multi-device branch's
+    # numbers; its launches stay out of the row's count
+    kv7_row["multi_device"] = kv7_mesh_phase(
+        torch, provider, orgs, commit_raws, mem_rows, name_power,
+        max_clock_mhz * 1e6, args.trials)
 
     # --- 11. durable ---------------------------------------------------------
     durable_out = durable_phase(torch, args, provider, orgs, signers,

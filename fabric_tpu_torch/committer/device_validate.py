@@ -36,20 +36,35 @@ Exactly-one-launch: all demotion checks run BEFORE the launch; a
 device-validated block therefore issues exactly one dispatch
 (`stats["validator_device_dispatches_total"]`).
 
+Devices: one, or a mesh.  `device` alone is one torch device
+(`device.py`: CUDA unless the caller names the CPU, where the plain
+version of KV7 runs).  `devices`, a list of any length with repeats
+allowed (`["cuda:0"] * 2` is two shards on one card, `["cpu"] * 3`
+three plain shards), builds a `parallel.mesh.DeviceMesh`; with more
+than one shard every block goes through KV7's multi-device branch
+(`ops/block_validate.py` `block_validate_sharded`: the sig and read
+lanes split over the shards, each shard's fold on its own device and
+stream, the partial masks summed and the walk run on the first shard's
+device), the counterpart of the reference's `shard_map` of its program
+over the batch axis.  With neither, the reference's rule: every visible
+card when their count is above 1 and a power of two, else the one
+resolved device.  Either way a device-validated block is one dispatch.
+
 Counterpart of `fabric_tpu/committer/device_validate.py`, with the same
 `run`/`take_prepared` contract, demotion reasons and host helpers
 (`_build_gate`, `_gather_committed`, `_rebuild`, copied).  Differences:
-the reference's jitted program becomes one KV7 launch; the counters go
+the reference's jitted program becomes one KV7 call; the counters go
 to the process-wide registry under the reference's names and labels, as
 the reference's do, and each validator also keeps its own in `stats`
-(the tests' and `chip_smoke.py`'s per-stack counts); there is no
-mesh, no power-of-two padding and no program cache; `device` is a torch
-device (`device.py`: CUDA unless the caller names the CPU, where the
-plain version of KV7 runs).  And an error from KV7's build, launch or
-synchronisation propagates out of `run`, where the reference demotes
-any exception to the host path (reason `error`); that catch-all covers
-the host steps only (lane extraction, key decoding, the committed-state
-gather, the truth tables and the rebuild).
+(the tests' and `chip_smoke.py`'s per-stack counts); an explicit device
+list of any length builds a mesh (the reference shards only over a
+power-of-two count); there is no padding (the shards take
+`torch.tensor_split`'s sizes) and no program cache.  And an error from
+KV7's build, launch, copy or synchronisation, on any shard, propagates
+out of `run`, where the reference demotes any exception to the host
+path (reason `error`); that catch-all covers the host steps only (lane
+extraction, key decoding, the committed-state gather, the truth tables
+and the rebuild).
 """
 
 from __future__ import annotations
@@ -61,8 +76,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from fabric_tpu_torch.device import resolve_device
+from fabric_tpu_torch.device import resolve_device, visible_devices
 from fabric_tpu_torch.ops import block_validate as kv7
+from fabric_tpu_torch.parallel.mesh import make_mesh
 from fabric_tpu_torch.protocol import Version
 from fabric_tpu_torch.protocol.txflags import TxFlags
 
@@ -125,10 +141,28 @@ class DeviceValidator:
     _STASH_CAP = 16
 
     def __init__(self, statedb, channel_id: str = "", device=None,
-                 window: int = 4096):
+                 devices=None, window: int = 4096):
         self.statedb = statedb
         self.channel_id = channel_id
         self.window = window          # max txs per launch
+        if device is not None and devices is not None:
+            raise ValueError("give device or devices, not both")
+        if device is None and devices is None:
+            # the reference's rule (_get_mesh): shard over every visible
+            # card when their count is > 1 and a power of two
+            vis = visible_devices()
+            n = len(vis)
+            if n > 1 and n & (n - 1) == 0:
+                devices = vis
+        # the mesh KV7 runs over, None for one device
+        self.mesh = None
+        if devices is not None:
+            mesh = make_mesh(list(devices))
+            if len({dev.type for dev in mesh.devices}) != 1:
+                raise ValueError(f"devices mixes device types: {devices}")
+            device = mesh.devices[0]
+            if len(mesh) > 1:
+                self.mesh = mesh
         self.device = resolve_device(device)
         self._stash: Dict[int, tuple] = {}
         self._lock = threading.Lock()
@@ -139,8 +173,15 @@ class DeviceValidator:
             "validator_device_demotions_total": dict.fromkeys(
                 DEMOTION_REASONS, 0),
         }
-        # wall seconds of the host stages and the launch, last block
-        self.last_timings: Dict[str, float] = {}
+        # wall seconds of the host stages and the launch, last block;
+        # over a mesh also the shards and each one's fold ms, the gather
+        # and finish ms (block_validate_sharded)
+        self.last_timings: Dict[str, object] = {}
+
+    @property
+    def shards(self) -> int:
+        """The shards each block's KV7 call runs over."""
+        return 1 if self.mesh is None else len(self.mesh)
 
     def _demoted(self, reason: str) -> None:
         with self._lock:
@@ -395,13 +436,18 @@ class DeviceValidator:
     # -- the launch ---------------------------------------------------------
 
     def _dispatch(self, lanes, num):
-        """One KV7 launch (the plain version on the CPU): -> (gate code
-        bytes, final codes).  Errors propagate (no demotion)."""
+        """One KV7 call, over the mesh when there is one (the plain
+        versions on the CPU): -> (gate code bytes, final codes).  Errors
+        propagate (no demotion)."""
         with self._lock:
             self.stats["validator_device_dispatches_total"] += 1
         _note(_C_DISPATCH, channel=self.channel_id)
-        gate, final = kv7.block_validate(lanes, num, self.device,
-                                         self.last_timings)
+        if self.mesh is not None:
+            gate, final = kv7.block_validate_sharded(lanes, num, self.mesh,
+                                                     self.last_timings)
+        else:
+            gate, final = kv7.block_validate(lanes, num, self.device,
+                                             self.last_timings)
         return bytes(gate), final
 
     # -- batch / history rebuild (oracle insertion order) --------------------

@@ -67,6 +67,9 @@ SIGNATURES = {
         "block_validate_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
         "block_validate_phase1_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
         "block_validate_walk_launch": [_P, *[_I] * 9, _P, _P, _I, _P],
+        "block_validate_fold_range_launch": [_P, *[_I] * 13, _P, _P, _P],
+        "block_validate_finish_launch": [_P, *[_I] * 9, _P, _P, _I, _P, _I,
+                                         _P, _P],
         "block_validate_smem_slots": [],
     },
 }

@@ -37,6 +37,25 @@
 // slot << 1 | deleted), kv7_entry_kernel (each failed entry adds one to
 // its tx's fail count), kv7_gate_kernel (gate codes and code0).
 //
+// The multi-device branch (the reference's shard_map over a device list,
+// device_validate.py:499-511) splits the sig lanes and the read lanes
+// over shards and replicates the rest.  Each shard runs
+// block_validate_fold_range_launch on its device: kv7_fold_range_kernel
+// folds its sig lanes into a full-length partial entry mask (sig_ent
+// indexes global entry rows) and reduces its read lanes to their int32
+// codes.  The first shard's device then runs
+// block_validate_finish_launch on the whole packed buffer, the k partial
+// masks stacked [k, E] and the read codes gathered in global lane order:
+// the write codes, kv7_entry_kernel summing the k masks (each sig lane
+// lies in one shard, so the sum is the reference's psum of the masks),
+// kv7_gate_kernel and the walk.  The reference's per-step psum of the
+// read failures needs no exchange: every read lane of a tx is in the
+// gathered codes, so the one walk sees the same sum.  Its bound adds to
+// KV7's the packed lanes once more for each further distinct device and
+// the copy of those devices' partial masks and codes to the first
+// (ops/block_validate.py:sharded_bytes_moved); the depth term is the
+// same, since the walk is one chain on one device.
+//
 // Phase 2, kv7_walk_kernel, one block of WALK_THREADS: warp 0 walks the
 // txs in windows of WIN_T, which the other warps stage into shared
 // memory one window ahead (two buffers; a window whose lanes exceed RCAP
@@ -120,34 +139,59 @@ struct Scratch {
 
 // --- phase 1 ---------------------------------------------------------------
 
+// Read lane j reduced to one int32: the state word an in-block writer
+// must hold for it to pass (written by tx txn of this block and not
+// deleted; 0 matches no state, a state is > 0) << 2, whether it has a
+// version << 1, and its verdict against the committed version.
+__device__ __forceinline__ int read_code(const Lanes& L, int j, int T,
+                                         int blk_num) {
+  const int slot = L.r_slot[j];
+  const int has = L.r_has[j], blk = L.r_blk[j], txn = L.r_txn[j];
+  const int cok = has ? (L.c_has[slot] != 0 && L.c_blk[slot] == blk &&
+                         L.c_txn[slot] == txn)
+                      : (L.c_has[slot] == 0);
+  const int want = (has && blk == blk_num && txn >= 0 && txn < T)
+                       ? (txn + 1) << 1 : 0;
+  return (want << 2) | (has ? 2 : 0) | cok;
+}
+
 __global__ void __launch_bounds__(FOLD_THREADS) kv7_fold_kernel(
     Lanes L, int S, int R, int W, int T, int blk_num, Scratch X) {
   const int stride = gridDim.x * blockDim.x;
   const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
   for (int s = i0; s < S; s += stride)
     atomicAdd(&X.mask[L.sig_ent[s]], L.verdict[L.sig_item[s]] << L.sig_bit[s]);
-  for (int j = i0; j < R; j += stride) {
-    const int slot = L.r_slot[j];
-    const int has = L.r_has[j], blk = L.r_blk[j], txn = L.r_txn[j];
-    const int cok = has ? (L.c_has[slot] != 0 && L.c_blk[slot] == blk &&
-                           L.c_txn[slot] == txn)
-                        : (L.c_has[slot] == 0);
-    // the state word an in-block writer must hold: written by tx txn of
-    // this block and not deleted; 0 matches no state (a state is > 0)
-    const int want = (has && blk == blk_num && txn >= 0 && txn < T)
-                         ? (txn + 1) << 1 : 0;
-    X.rcode[j] = (want << 2) | (has ? 2 : 0) | cok;
-  }
+  for (int j = i0; j < R; j += stride)
+    X.rcode[j] = read_code(L, j, T, blk_num);
   for (int j = i0; j < W; j += stride)
     X.wcode[j] = (L.w_slot[j] << 1) | (L.w_del[j] != 0);
 }
 
-__global__ void __launch_bounds__(FOLD_THREADS) kv7_entry_kernel(
-    Lanes L, int E, Scratch X) {
+// One shard's part of the fold: sig lanes [s_lo, s_hi) into the
+// full-length entry mask `mask` (zeroed first), read lanes [r_lo, r_hi)
+// into rcode[0, r_hi - r_lo).  T is the block's, not the shard's.
+__global__ void __launch_bounds__(FOLD_THREADS) kv7_fold_range_kernel(
+    Lanes L, int s_lo, int s_hi, int r_lo, int r_hi, int T, int blk_num,
+    int32_t* __restrict__ mask, int32_t* __restrict__ rcode) {
   const int stride = gridDim.x * blockDim.x;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E; e += stride)
-    if (L.tables[L.ent_off[e] + X.mask[e]] == 0)
+  const int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int s = s_lo + i0; s < s_hi; s += stride)
+    atomicAdd(&mask[L.sig_ent[s]], L.verdict[L.sig_item[s]] << L.sig_bit[s]);
+  for (int j = r_lo + i0; j < r_hi; j += stride)
+    rcode[j - r_lo] = read_code(L, j, T, blk_num);
+}
+
+// Each failed entry adds one to its tx's fail count; an entry's mask is
+// the sum of its k partial masks, stacked [k, E] (k = 1: phase 1's own).
+__global__ void __launch_bounds__(FOLD_THREADS) kv7_entry_kernel(
+    Lanes L, int E, const int32_t* __restrict__ masks, int k, Scratch X) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E; e += stride) {
+    int m = 0;
+    for (int i = 0; i < k; ++i) m += masks[(size_t)i * E + e];
+    if (L.tables[L.ent_off[e] + m] == 0)
       atomicAdd(&X.ent_fail[L.ent_tx[e]], 1);
+  }
 }
 
 __global__ void __launch_bounds__(FOLD_THREADS) kv7_gate_kernel(
@@ -472,6 +516,15 @@ int launch_walk(const Lanes& L, int T, int K, const Scratch& X,
   return (int)cudaGetLastError();
 }
 
+// the walk, one block, its state in shared memory when smem_state is set
+int walk(const Lanes& L, int T, int K, const Scratch& X, uint8_t* final_out,
+         int smem_state, cudaStream_t stream) {
+  const size_t smem = (size_t)(STAMPS + 2 * BUF_INTS + (smem_state ? K : 0)) *
+                      sizeof(int32_t);
+  return smem_state ? launch_walk<true>(L, T, K, X, final_out, smem, stream)
+                    : launch_walk<false>(L, T, K, X, final_out, smem, stream);
+}
+
 int fold_blocks(int n) {
   return n <= 0 ? 1 : (int)std::min<long>((n + FOLD_THREADS - 1) / FOLD_THREADS,
                                           FOLD_BLOCKS_MAX);
@@ -512,7 +565,8 @@ extern "C" int block_validate_phase1_launch(const void* buf, int T, int E,
   kv7_fold_kernel<<<fold_blocks(std::max(S, std::max(R, W))), FOLD_THREADS, 0,
                     st>>>(L, S, R, W, T, blk_num, X);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  kv7_entry_kernel<<<fold_blocks(E), FOLD_THREADS, 0, st>>>(L, E, X);
+  kv7_entry_kernel<<<fold_blocks(E), FOLD_THREADS, 0, st>>>(L, E, X.mask, 1,
+                                                            X);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   kv7_gate_kernel<<<fold_blocks(T), FOLD_THREADS, 0, st>>>(L, T, X,
                                                           (uint8_t*)out);
@@ -530,12 +584,8 @@ extern "C" int block_validate_walk_launch(const void* buf, int T, int E,
   if (T <= 0) return 0;
   const Lanes L = lanes_of(buf, T, E, S, R, W, K, TB);
   const Scratch X = scratch_of(scratch, T, E, R, W, K);
-  const size_t smem = (size_t)(STAMPS + 2 * BUF_INTS + (smem_state ? K : 0)) *
-                      sizeof(int32_t);
-  uint8_t* final_out = (uint8_t*)out + T;
-  cudaStream_t st = (cudaStream_t)stream;
-  return smem_state ? launch_walk<true>(L, T, K, X, final_out, smem, st)
-                    : launch_walk<false>(L, T, K, X, final_out, smem, st);
+  return walk(L, T, K, X, (uint8_t*)out + T, smem_state,
+              (cudaStream_t)stream);
 }
 
 // Both phases on one stream: the wrapper's one call per block.
@@ -549,4 +599,66 @@ extern "C" int block_validate_launch(const void* buf, int T, int E, int S,
   if (err) return err;
   return block_validate_walk_launch(buf, T, E, S, R, W, K, TB, V, blk_num,
                                     out, scratch, smem_state, stream);
+}
+
+// The multi-device branch, one shard: sig lanes [s_lo, s_hi) folded into
+// mask (E int32, a full-length partial entry mask, zeroed here) and read
+// lanes [r_lo, r_hi) reduced into rcode (r_hi - r_lo int32), on the
+// shard's device and stream; buf is the whole block's packed buffer (its
+// replica on that device).
+extern "C" int block_validate_fold_range_launch(const void* buf, int T, int E,
+                                                int S, int R, int W, int K,
+                                                int TB, int V, int blk_num,
+                                                int s_lo, int s_hi, int r_lo,
+                                                int r_hi, void* mask,
+                                                void* rcode, void* stream) {
+  (void)V;
+  if (s_lo < 0 || s_lo > s_hi || s_hi > S || r_lo < 0 || r_lo > r_hi ||
+      r_hi > R)
+    return (int)cudaErrorInvalidValue;
+  if (T <= 0) return 0;
+  const Lanes L = lanes_of(buf, T, E, S, R, W, K, TB);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (E > 0 &&
+      (err = cudaMemsetAsync(mask, 0, sizeof(int32_t) * E, st)) != cudaSuccess)
+    return (int)err;
+  const int n = std::max(s_hi - s_lo, r_hi - r_lo);
+  if (n == 0) return 0;
+  kv7_fold_range_kernel<<<fold_blocks(n), FOLD_THREADS, 0, st>>>(
+      L, s_lo, s_hi, r_lo, r_hi, T, blk_num, (int32_t*)mask, (int32_t*)rcode);
+  return (int)cudaGetLastError();
+}
+
+// The multi-device branch, on the first shard's device: the write codes,
+// the entry fold over the k partial masks (masks: [k, E] int32), the gate
+// and the walk over the gathered read codes (rcode: R int32 in global lane
+// order).  Other arguments as block_validate_launch; scratch's mask and
+// read-code parts go unused.
+extern "C" int block_validate_finish_launch(const void* buf, int T, int E,
+                                            int S, int R, int W, int K,
+                                            int TB, int V, int blk_num,
+                                            void* out, void* scratch,
+                                            int smem_state, const void* masks,
+                                            int k, const void* rcode,
+                                            void* stream) {
+  if (T <= 0) return 0;
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  const Lanes L = lanes_of(buf, T, E, S, R, W, K, TB);
+  Scratch X = scratch_of(scratch, T, E, R, W, K);
+  X.rcode = (int32_t*)rcode;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(X.ent_fail, 0, sizeof(int32_t) * T, st);
+  if (err != cudaSuccess) return (int)err;
+  // the write codes alone: no sig or read lane
+  kv7_fold_kernel<<<fold_blocks(W), FOLD_THREADS, 0, st>>>(L, 0, 0, W, T,
+                                                           blk_num, X);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  kv7_entry_kernel<<<fold_blocks(E), FOLD_THREADS, 0, st>>>(
+      L, E, (const int32_t*)masks, k, X);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  kv7_gate_kernel<<<fold_blocks(T), FOLD_THREADS, 0, st>>>(L, T, X,
+                                                          (uint8_t*)out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return walk(L, T, K, X, (uint8_t*)out + T, smem_state, st);
 }

@@ -3,7 +3,9 @@ shared by the CPU tests against the reference (test_torch_block_validate,
 test_torch_kv7_walk) and the card's (test_torch_cuda).  Imports neither
 JAX nor fabric_tpu.  DIRECTED maps a name to (lane spec, final codes):
 one case for each place where a walk can drift from the reference's
-`local`."""
+`local`.  `big_lanes`, `kv7_lanes` and `kv7_heavy_lanes` make seeded
+lane sets at a block's size (the card's tests and chip_smoke.py's
+kv7_mesh part)."""
 import numpy as np
 
 from fabric_tpu_torch.ops import block_validate as kv7
@@ -211,3 +213,97 @@ def big_lanes(rng, T, K, slots, wide_every=0):
             cur[s] = (0, 0, 0) if gone else (1, BLK, t)
     spec.update(rw(reads, writes))
     return lanes(**spec)
+
+
+def kv7_lanes(rng, T, K, blk_num=3):
+    """Seeded lanes in tx order: plans of up to 2 entries of up to 3
+    sigs, committed versions, reads that hit the committed version, an
+    in-block writer, nothing, or a stale version; writes with deletes."""
+    V = 64
+    ln = {n: [] for n in kv7.FIELDS}
+    ln["pre"] = rng.choice([0, 0, 0, 255, 12], size=T).tolist()
+    ln["status"] = rng.choice([0, 0, 0, 0, 1, 2], size=T).tolist()
+    ln["has_plan"] = (rng.random(T) < 0.9).astype(int).tolist()
+    ln["c_live"] = (rng.random(T) < 0.95).astype(int).tolist()
+    ln["c_idx"] = [int(rng.integers(0, V)) if c else 0
+                   for c in ln["c_live"]]
+    ln["verdict"] = (rng.random(V) < 0.9).astype(int).tolist()
+    for tx in range(T):
+        if not ln["has_plan"][tx]:
+            continue
+        for _ in range(int(rng.integers(0, 3))):
+            k = int(rng.integers(0, 4))
+            e = len(ln["ent_tx"])
+            ln["ent_tx"].append(tx)
+            ln["ent_off"].append(len(ln["tables"]))
+            for b in range(k):
+                ln["sig_ent"].append(e)
+                ln["sig_item"].append(int(rng.integers(0, V)))
+                ln["sig_bit"].append(b)
+            ln["tables"] += (rng.random(1 << k) < 0.8).astype(int).tolist()
+    ln["c_has"] = (rng.random(K) < 0.8).astype(int).tolist()
+    ln["c_blk"] = rng.integers(0, 3, K).tolist()
+    ln["c_txn"] = rng.integers(0, 50, K).tolist()
+    for tx in range(T):
+        if ln["status"][tx] != 0:
+            continue
+        for _ in range(int(rng.integers(0, 4))):
+            s = int(rng.integers(0, K))
+            mode = rng.random()
+            ln["r_tx"].append(tx)
+            ln["r_slot"].append(s)
+            if mode < 0.5:
+                has = ln["c_has"][s]
+                ver = (ln["c_blk"][s], ln["c_txn"][s]) if has else (0, 0)
+            elif mode < 0.8:
+                has, ver = 1, (blk_num, int(rng.integers(0, max(tx, 1))))
+            elif mode < 0.9:
+                has, ver = 0, (0, 0)
+            else:
+                has, ver = 1, (int(rng.integers(0, 5)), -1)
+            ln["r_has"].append(has)
+            ln["r_blk"].append(ver[0])
+            ln["r_txn"].append(ver[1])
+        for _ in range(int(rng.integers(0, 3))):
+            ln["w_tx"].append(tx)
+            ln["w_slot"].append(int(rng.integers(0, K)))
+            ln["w_del"].append(int(rng.random() < 0.2))
+    return {n: np.asarray(v, dtype=np.int32) for n, v in ln.items()}
+
+
+def kv7_heavy_lanes(rng, T, K, blk_num=3):
+    """`kv7_lanes` behind three heavy txs that push the first window past
+    the kernel's staged read and write lanes (2,048 each): tx 0 reads
+    3,000 slots at their committed versions, tx 1 writes 5,000 times to
+    2,500 slots (about 2,160 distinct ones, most of them several times,
+    some deleting), and tx 2 reads each of those 2,500 slots expecting
+    tx 1's last write to it, if any."""
+    ln = {n: v.tolist() for n, v in kv7_lanes(rng, T, K, blk_num).items()}
+    for n in ("ent_tx", "r_tx", "w_tx"):
+        ln[n] = [t + 3 for t in ln[n]]
+    for n, v in (("pre", 0), ("status", 0), ("has_plan", 0),
+                 ("c_idx", 0), ("c_live", 1)):
+        ln[n] = [v] * 3 + ln[n]
+    reads = []
+    for s in rng.choice(K, 3_000, replace=False).tolist():
+        has = ln["c_has"][s]
+        reads.append((0, s, has, ln["c_blk"][s] if has else 0,
+                      ln["c_txn"][s] if has else 0))
+    w_slot = rng.integers(0, 2_500, 5_000).tolist()
+    w_del = (rng.random(5_000) < 0.3).astype(int).tolist()
+    last = dict(zip(w_slot, w_del))
+    for s in range(2_500):
+        if s not in last:
+            has = ln["c_has"][s]
+            reads.append((2, s, has, ln["c_blk"][s] if has else 0,
+                          ln["c_txn"][s] if has else 0))
+        else:
+            gone = last[s]
+            reads.append((2, s, 0 if gone else 1, 0 if gone else blk_num,
+                          0 if gone else 1))
+    for i, n in enumerate(("r_tx", "r_slot", "r_has", "r_blk", "r_txn")):
+        ln[n] = [r[i] for r in reads] + ln[n]
+    ln["w_tx"] = [1] * 5_000 + ln["w_tx"]
+    ln["w_slot"] = w_slot + ln["w_slot"]
+    ln["w_del"] = w_del + ln["w_del"]
+    return {n: np.asarray(v, dtype=np.int32) for n, v in ln.items()}

@@ -30,6 +30,7 @@ from fabric_tpu_torch.ops import ed25519_tables as T
 from fabric_tpu_torch.ops import p256, p256_fixed, p256_tables
 
 import kv7_cases
+from kv7_cases import kv7_heavy_lanes, kv7_lanes
 
 R = 1 << 256
 
@@ -537,102 +538,6 @@ def test_cuda_provider_mixed_curves_match_sw(cuda_device):
 
 # -- KV7: the fused gate fold and MVCC (ops/block_validate.py) -----------------
 
-def kv7_lanes(rng, T, K, blk_num=3):
-    """Seeded lanes in tx order: plans of up to 2 entries of up to 3
-    sigs, committed versions, reads that hit the committed version, an
-    in-block writer, nothing, or a stale version; writes with deletes."""
-    from fabric_tpu_torch.ops import block_validate as kv7
-    V = 64
-    ln = {n: [] for n in kv7.FIELDS}
-    ln["pre"] = rng.choice([0, 0, 0, 255, 12], size=T).tolist()
-    ln["status"] = rng.choice([0, 0, 0, 0, 1, 2], size=T).tolist()
-    ln["has_plan"] = (rng.random(T) < 0.9).astype(int).tolist()
-    ln["c_live"] = (rng.random(T) < 0.95).astype(int).tolist()
-    ln["c_idx"] = [int(rng.integers(0, V)) if c else 0
-                   for c in ln["c_live"]]
-    ln["verdict"] = (rng.random(V) < 0.9).astype(int).tolist()
-    for tx in range(T):
-        if not ln["has_plan"][tx]:
-            continue
-        for _ in range(int(rng.integers(0, 3))):
-            k = int(rng.integers(0, 4))
-            e = len(ln["ent_tx"])
-            ln["ent_tx"].append(tx)
-            ln["ent_off"].append(len(ln["tables"]))
-            for b in range(k):
-                ln["sig_ent"].append(e)
-                ln["sig_item"].append(int(rng.integers(0, V)))
-                ln["sig_bit"].append(b)
-            ln["tables"] += (rng.random(1 << k) < 0.8).astype(int).tolist()
-    ln["c_has"] = (rng.random(K) < 0.8).astype(int).tolist()
-    ln["c_blk"] = rng.integers(0, 3, K).tolist()
-    ln["c_txn"] = rng.integers(0, 50, K).tolist()
-    for tx in range(T):
-        if ln["status"][tx] != 0:
-            continue
-        for _ in range(int(rng.integers(0, 4))):
-            s = int(rng.integers(0, K))
-            mode = rng.random()
-            ln["r_tx"].append(tx)
-            ln["r_slot"].append(s)
-            if mode < 0.5:
-                has = ln["c_has"][s]
-                ver = (ln["c_blk"][s], ln["c_txn"][s]) if has else (0, 0)
-            elif mode < 0.8:
-                has, ver = 1, (blk_num, int(rng.integers(0, max(tx, 1))))
-            elif mode < 0.9:
-                has, ver = 0, (0, 0)
-            else:
-                has, ver = 1, (int(rng.integers(0, 5)), -1)
-            ln["r_has"].append(has)
-            ln["r_blk"].append(ver[0])
-            ln["r_txn"].append(ver[1])
-        for _ in range(int(rng.integers(0, 3))):
-            ln["w_tx"].append(tx)
-            ln["w_slot"].append(int(rng.integers(0, K)))
-            ln["w_del"].append(int(rng.random() < 0.2))
-    return {n: np.asarray(v, dtype=np.int32) for n, v in ln.items()}
-
-
-def kv7_heavy_lanes(rng, T, K, blk_num=3):
-    """`kv7_lanes` behind three heavy txs that push the first window past
-    the kernel's staged read and write lanes (2,048 each): tx 0 reads
-    3,000 slots at their committed versions, tx 1 writes 5,000 times to
-    2,500 slots (about 2,160 distinct ones, most of them several times,
-    some deleting), and tx 2 reads each of those 2,500 slots expecting
-    tx 1's last write to it, if any."""
-    from fabric_tpu_torch.ops import block_validate as kv7
-    ln = {n: v.tolist() for n, v in kv7_lanes(rng, T, K, blk_num).items()}
-    for n in ("ent_tx", "r_tx", "w_tx"):
-        ln[n] = [t + 3 for t in ln[n]]
-    for n, v in (("pre", 0), ("status", 0), ("has_plan", 0),
-                 ("c_idx", 0), ("c_live", 1)):
-        ln[n] = [v] * 3 + ln[n]
-    reads = []
-    for s in rng.choice(K, 3_000, replace=False).tolist():
-        has = ln["c_has"][s]
-        reads.append((0, s, has, ln["c_blk"][s] if has else 0,
-                      ln["c_txn"][s] if has else 0))
-    w_slot = rng.integers(0, 2_500, 5_000).tolist()
-    w_del = (rng.random(5_000) < 0.3).astype(int).tolist()
-    last = dict(zip(w_slot, w_del))
-    for s in range(2_500):
-        if s not in last:
-            has = ln["c_has"][s]
-            reads.append((2, s, has, ln["c_blk"][s] if has else 0,
-                          ln["c_txn"][s] if has else 0))
-        else:
-            gone = last[s]
-            reads.append((2, s, 0 if gone else 1, 0 if gone else blk_num,
-                          0 if gone else 1))
-    for i, n in enumerate(("r_tx", "r_slot", "r_has", "r_blk", "r_txn")):
-        ln[n] = [r[i] for r in reads] + ln[n]
-    ln["w_tx"] = [1] * 5_000 + ln["w_tx"]
-    ln["w_slot"] = w_slot + ln["w_slot"]
-    ln["w_del"] = w_del + ln["w_del"]
-    return {n: np.asarray(v, dtype=np.int32) for n, v in ln.items()}
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", ["small", "block", "wide_keys",
                                    "unstaged"])
@@ -707,6 +612,95 @@ def test_kv7_colliding_stamps_match_plain(state, cuda_device):
     assert np.array_equal(gate, pg.numpy())
     assert np.array_equal(final, pf.numpy())
     assert (final == 11).any() and (final == 0).any()
+
+
+def kv7_sharded_case(shape):
+    """(lanes, blk_num) of a sharded KV7 case: seeded lanes at a small
+    and at a block's size, the heavy txs of `kv7_heavy_lanes`, and a
+    directed case with one sig lane and no read lane."""
+    rng = np.random.default_rng(20 + ["small", "block", "heavy",
+                                      "one_sig"].index(shape))
+    if shape == "small":
+        return kv7_lanes(rng, 40, 16), 3
+    if shape == "block":
+        return kv7_lanes(rng, 10_000, 20_000), 3
+    if shape == "heavy":
+        return kv7_heavy_lanes(rng, 600, 4_096), 3
+    spec, _ = kv7_cases.DIRECTED["no_plan_keeps_pre"]
+    return kv7_cases.lanes(**spec), kv7_cases.BLK
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("shape", ["small", "block", "heavy", "one_sig"])
+def test_kv7_sharded_entry_points_match_plain(shape, k, cuda_device):
+    """The multi-device branch's entry points over k shards on one card:
+    each shard's fold (its partial mask and read codes) against
+    block_validate_fold_plain, the finish over the stacked masks and the
+    gathered codes against block_validate_finish_plain and
+    block_validate_plain, and block_validate_sharded on a mesh of k
+    shards of cuda:0: equal, one fold launch a non-empty shard, one KV7
+    launch a call."""
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.parallel.mesh import make_mesh, shard_bounds
+    ln, blk = kv7_sharded_case(shape)
+    buf, d = kv7.pack(ln)
+    buf_d = kv7.upload(buf, cuda_device)
+    masks, rcodes = [], []
+    for s_r, r_r in zip(shard_bounds(d["S"], k), shard_bounds(d["R"], k)):
+        m, rc = kv7.block_validate_fold_kernel(buf_d, d, blk, s_r, r_r)
+        pm, prc = kv7.block_validate_fold_plain(ln, blk, s_r, r_r)
+        torch.cuda.synchronize()
+        assert torch.equal(m.cpu(), pm) and torch.equal(rc.cpu(), prc)
+        masks.append(m)
+        rcodes.append(rc)
+    stacked, gathered = torch.stack(masks), torch.cat(rcodes)
+    out = kv7.block_validate_finish_kernel(buf_d, d, blk, stacked, gathered)
+    torch.cuda.synchronize()
+    gate, final = kv7.block_validate_finish_plain(ln, blk, stacked.cpu(),
+                                                  gathered.cpu())
+    pg, pf = kv7.block_validate_plain(ln, blk)
+    assert torch.equal(gate, pg) and torch.equal(final, pf)
+    T = d["T"]
+    assert torch.equal(out.cpu()[:T], gate)
+    assert torch.equal(out.cpu()[T:], final)
+    live = sum(s_r[1] > s_r[0] or r_r[1] > r_r[0] for s_r, r_r in zip(
+        shard_bounds(d["S"], k), shard_bounds(d["R"], k)))
+    before = (kv7.block_validate_kernel.launches,
+              kv7.block_validate_fold_kernel.launches)
+    timings = {}
+    g2, f2 = kv7.block_validate_sharded(ln, blk, make_mesh(["cuda:0"] * k),
+                                        timings)
+    assert np.array_equal(g2, pg.numpy()) and np.array_equal(f2, pf.numpy())
+    assert (kv7.block_validate_kernel.launches,
+            kv7.block_validate_fold_kernel.launches) == (before[0] + 1,
+                                                         before[1] + live)
+    assert timings["shards"] == k and sum(timings["fold_launches"]) == live
+    assert timings["finish_ms"] > 0
+    if shape == "one_sig":
+        assert live == 1
+
+
+@pytest.mark.cuda
+def test_kv7_sharded_across_cards(cuda_device):
+    """block_validate_sharded over every card of the host (the partial
+    masks and read codes of shards past the first copied between cards)
+    and over them twice each: equal to the plain version.  Skips on a
+    host with one card."""
+    from fabric_tpu_torch.ops import block_validate as kv7
+    from fabric_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    ln, blk = kv7_sharded_case("block")
+    pg, pf = kv7.block_validate_plain(ln, blk)
+    cards = [f"cuda:{i}" for i in range(n)]
+    for devices in (cards, cards * 2):
+        timings = {}
+        g, f = kv7.block_validate_sharded(ln, blk, make_mesh(devices),
+                                          timings)
+        assert np.array_equal(g, pg.numpy()) and np.array_equal(f, pf.numpy())
+        assert timings["shards"] == len(devices)
 
 
 def port_stack(device_validate, provider, orgs, device):
