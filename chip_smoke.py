@@ -13,7 +13,9 @@ ends with one JSON line.  Phases:
              fastparse, fastcollect) from fabric_tpu_torch/native/
 3. field   — KP1 (field_mul_chain) against its plain version and Python
              ints, mod p, mod n, mod p25519 and mod BN254's p, edge values
-             included; the field probe (p256_field_probe: field_ptx.cuh's
+             included, at the plan's threads a lane and at each forced
+             TPI (1: one thread, 4: field_group.cuh's group multiply);
+             the field probe (p256_field_probe: field_ptx.cuh's
              mul_p, sqr_p and mont_mul_ptx mod n, KP2's, and mul_25519,
              KE5's and KE6's) on 65,536 seeded inputs
              plus edge values each, bit for bit against the plain field and
@@ -25,10 +27,15 @@ ends with one JSON line.  Phases:
              (proto_pallas4.py), planes (proto_planes.py) and ilp
              (proto_ilp.py) on the scripts' data and grids, KI3's eight
              probes (proto_pallas3.py); at the reference's B = 16,384
-             (a card-filling B is left out for the time limit), each held
-             against its plain version and Python ints (64 lanes),
-             timed, with SM-cycles per multiply, SASS instructions per
-             multiply (cuobjdump) and one warp's clock64 cycles per multiply
+             (a card-filling B is left out for the time limit; there
+             tools/field_ab.py times KP1 and KF2), each held against its
+             plain version and Python ints (64 lanes), timed, with the
+             TPI it ran at, SM-cycles per multiply, SASS instructions per
+             multiply (cuobjdump) and one warp's clock64 cycles per
+             multiply; then every KF2 preset (each K) at each forced TPI
+             (1: the one-thread kernel, which the plan takes only at a
+             card-filling B; 4: the group) on the same data against its
+             plain version on every lane and Python ints
 4. block   — 10,000 txs x (3 endorsements from 3 org keys + 1 creator
              signature from 64 clients) = 40,000 P-256 items, 2% of them
              corrupted (7 kinds), plus 64 Ed25519 items under one-off
@@ -4500,44 +4507,88 @@ def experiments_phase(torch, dev, trials: int) -> dict:
                     k: _fmt(v) for k, v in row.items() if k != "replaces"})
             phase("experiments", script=name, B=B,
                   seconds=round(time.perf_counter() - t0, 2))
+    kf2_every_tpi(dev, out)
     return out
 
 
-def experiment_rows(results: dict, total: dict, kp1_err: int) -> list:
-    """The kernels line's rows of KP1 (at the reference's shape), KF2's
-    five presets and KI3's two sites, from the B = 16,384 runs: each
-    preset's row is its 128-thread configuration (ilp: K = 4).  run()
-    raised on any difference, so the errors are 0; KP1's is phase 3's
-    largest, over every modulus and both R."""
+def kf2_every_tpi(dev, results: dict) -> None:
+    """Every KF2 preset, each K, at each instantiated TPI forced (1: the
+    one-thread kf2_kernel, which the plan takes only where the lanes fill
+    the card; 4: the group), on the scripts' 16,384-lane data at each
+    script's n, against the plain version on every lane and Python ints
+    on 64 (experiments.check_chain raises on any difference)."""
     from fabric_tpu_torch import experiments as X
+    from fabric_tpu_torch.ops import field
     from fabric_tpu_torch.ops import field_variants as FV
 
-    def row(name, source, replaces, launches, r, err=0):
+    B = X.REF_B
+    a, b = X.operands(B, dev)
+    t0 = time.perf_counter()
+    runs = 0
+    for preset, (site, ks) in FV.PRESETS.items():
+        n = results[site.split("/")[1].split(".")[0], B]["n"]
+        ref = X.reference(B, n, dev)
+        for k in ks:
+            v = FV.variant_of(preset, k)
+            x, y = (FV.to_planes(a), FV.to_planes(b)) if v.planes else (a, b)
+            for tpi in field.TPIS:
+                got = FV.field_chain_variant(x, y, n, preset, k, tpi=tpi)
+                X.check_chain(FV.from_planes(got) if v.planes else got, ref,
+                              f"KF2 {preset} K={v.k} n={n} B={B} tpi={tpi}")
+                runs += 1
+    phase("experiments", kf2_forced_tpis=",".join(map(str, field.TPIS)),
+          runs=runs, B=B, vs_plain=f"equal on {B} lanes",
+          vs_ints=f"equal on {X.INT_LANES} lanes",
+          seconds=round(time.perf_counter() - t0, 2))
+
+
+def experiment_rows(results: dict, total: dict, kp1_err: int,
+                    logs: dict) -> list:
+    """The kernels line's rows of KP1 (at the reference's shape), KF2's
+    five presets and KI3's two sites, from the B = 16,384 runs: each
+    preset's row is its launch plan's configuration (ilp: K = 4), with the
+    threads a lane (TPI) and block size it ran at and ptxas' registers,
+    frame and spills of that instantiation (`logs`: the build logs by
+    library).  run() raised on any difference, so the errors are 0; KP1's
+    is phase 3's largest, over every modulus, both R and every TPI."""
+    from fabric_tpu_torch import experiments as X
+    from fabric_tpu_torch.ops import _build, field
+    from fabric_tpu_torch.ops import field_variants as FV
+
+    def row(name, source, replaces, launches, r, err=0, lib=None,
+            symbol=None):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None, "on_main_path": False}
+                "library_ms": None, "on_main_path": False,
+                "tpi": r["tpi"], "block_threads": r["block_threads"],
+                "sm_cycles_per_mul": r["sm_cycles_per_mul"],
+                **_build.kernel_resources(logs[lib], symbol)}
 
     def config(script, preset, k=None):
         for r in results[script, X.REF_B]["configs"]:
-            if (r["preset"] == preset and r["threads"] == 128
+            if (r["preset"] == preset and r["plan"]
                     and (k is None or r["k"] == k)):
                 return r
         raise KeyError((script, preset, k))
 
+    kp1 = config("proto_pallas", "kp1")
     rows = [row("field_mul_chain", "fabric_tpu_torch/ops/csrc/field_chain.cu",
                 "experiments/proto_pallas.py:94", total["field_mul_chain"],
-                config("proto_pallas", "kp1"), kp1_err)]
+                kp1, kp1_err, "field_chain",
+                field.kp1_symbol("p", kp1["tpi"]))]
     kf2 = "fabric_tpu_torch/ops/csrc/field_chain_variants.cu"
     for script, preset, k in (("proto_pallas2", "relaxed", None),
                               ("proto_pallas2", "stacked", None),
                               ("proto_pallas4", "min", None),
                               ("proto_planes", "planes", None),
                               ("proto_ilp", "ilp", 4)):
+        r = config(script, preset, k)
         rows.append(row(f"field_chain_variant:{preset}", kf2,
                         FV.PRESETS[preset][0], total["field_chain_variant"],
-                        config(script, preset, k)))
+                        r, 0, "field_chain_variants",
+                        FV.kernel_symbol(preset, k, tpi=r["tpi"])))
     probes = results["proto_pallas3", X.REF_B]["probes"]
     for site, group in (("int32", [r for r in probes if r["probe"] != "f32"]),
                         ("f32", [r for r in probes if r["probe"] == "f32"])):
@@ -7990,20 +8041,27 @@ def main(argv=None) -> int:
         for r_log2 in field.R_LOG2S:
             rinv = pow(1 << r_log2, -1, m)
             for k in (0, 1, 8):
-                got = field.field_mul_chain(a, b, k, mod, r_log2)
                 plain = field.mul_chain_plain(a, b, k, mod, r_log2)
-                torch.cuda.synchronize()
-                got_i = field.words_le_to_ints(got)
+                plain_i = field.words_le_to_ints(plain)
                 want = [x * pow(y * rinv, k, m) % m
                         for x, y in zip(vals_a, vals_b)]
-                what = f"KP1 mod {mod} k={k} r_log2={r_log2}"
-                check(got_i == want, f"{what} != python ints")
-                check(torch.equal(got, plain), f"{what} != mul_chain_plain")
-                field_err = max(field_err, max(
-                    abs(g - p) for g, p in zip(
-                        got_i, field.words_le_to_ints(plain))))
+                # the plan's TPI (a group at these lanes), then each
+                # instantiation forced: one thread and both groups
+                for tpi in (None, *field.TPIS):
+                    got = field.field_mul_chain(a, b, k, mod, r_log2, tpi)
+                    torch.cuda.synchronize()
+                    got_i = field.words_le_to_ints(got)
+                    what = f"KP1 mod {mod} k={k} r_log2={r_log2} tpi={tpi}"
+                    check(got_i == want, f"{what} != python ints")
+                    check(torch.equal(got, plain),
+                          f"{what} != mul_chain_plain")
+                    field_err = max(field_err, max(
+                        abs(g - p) for g, p in zip(got_i, plain_i)))
         phase("field", modulus=mod, lanes=FIELD_LANES, k="0,1,8",
-              r_log2=field.R_LOG2S, vs_ints="equal", vs_plain="equal")
+              r_log2=field.R_LOG2S,
+              tpi=f"plan {field.kp1_plan(FIELD_LANES, dev)[0]}, "
+              f"{','.join(map(str, field.TPIS))}",
+              vs_ints="equal", vs_plain="equal")
     field_probe_row = field_probe_phase(torch, dev, args.trials, imad_rate)
 
     # --- 3b. experiments ----------------------------------------------------
@@ -8729,7 +8787,8 @@ def main(argv=None) -> int:
          "bound_by": by(ke5_ops_s, ke5_bytes_s),
          "library_ms": None, "on_main_path": True,
          "ms_block": ke5_block_ms, **ke5_chain, **ke5_res},
-        *experiment_rows(exp_results, total, field_err),
+        *experiment_rows(exp_results, total, field_err,
+                         {lib: info["log"] for lib, info in built.items()}),
     ]
     for row in kernels:
         # phases 12's, 13's, 14's, 15's, 16's, 17's and 18's main-path

@@ -7,7 +7,11 @@ NITER), K and tile grid, on the script's data: `np.random.default_rng(0)`,
 B values `int.from_bytes(rng.bytes(32), "big") % p`, a = vals and
 b = vals[::-1].  A TPU tile of t lanes becomes min(t, 512) threads a block
 (a block of the card holds at most 1,024 threads and these kernels keep
-everything in registers), and every preset also runs at 128 threads.  It
+everything in registers), and every preset also runs at 128 threads
+and, on the card, at the launch plan's block (`field.group_plan`: at
+most 128 threads, halved while the grid has fewer blocks than SMs) where
+no configuration runs that block already (`threads` None); the row whose
+launch is the plan's has `plan` true.  It
 holds each kernel's output against the plain version on the first 16,384
 lanes and against Python ints on 64 lanes, raising on any difference,
 then times each launch with CUDA events and reports, per configuration:
@@ -16,8 +20,10 @@ clock x SMs / (B n)), the least-work bound (128 multiply-adds a multiply
 at 64 per SM per clock: 2 SM-cycles) and its share of the time, registers
 and stack frame, SASS instructions per multiply where the toolkit has
 `cuobjdump`, and one warp's cycles per multiply from the kernel's
-clock64 build, alone on the card and inside the full launch, with the
-SM clock that warp ran at (clock64 cycles over globaltimer ns).
+clock64 build, alone on the card (one warp, 32 K / TPI lanes) and
+inside the full launch, with the SM clock that warp ran at (clock64
+cycles over globaltimer ns), and the threads a lane (TPI) and block size
+each ran at.
 
 Entry points run on CUDA unless given `device="cpu"`; on the CPU the
 wrappers take their plain versions, the checks run, and no time is
@@ -212,8 +218,9 @@ def sass_functions(lib: str) -> dict | None:
     return funcs
 
 
-def sass_per_mul(counts: dict | None, muls: int) -> dict:
-    """A span's counts as SASS figures a multiply (muls in the span)."""
+def sass_per_mul(counts: dict | None, muls: float) -> dict:
+    """A span's counts as SASS figures a multiply (muls in the span: a
+    thread's K chains over its TPI threads a lane, K / TPI)."""
     if counts is None:
         return dict.fromkeys(("sass_per_mul", "sass_imads_per_mul",
                               "sass_local_per_mul", "sass_top_ops"))
@@ -243,13 +250,11 @@ def _span_counts(span: list) -> dict:
 
 
 def sass_counts(lib: str, fragment: str) -> dict | None:
-    """Instruction counts of the function whose name holds `fragment`:
-    its largest loop (the instructions from a backward branch's target to
-    the branch) and each subroutine it calls (from a CALL's target to the
-    next RET: a non-inlined device function, in address order), each as
-    instructions, multiply-adds (IMAD*, not IMAD.MOV), local-memory
-    accesses and the four commonest opcodes; None without cuobjdump or a
-    match."""
+    """Instruction counts of the largest loop (the instructions from a
+    backward branch's target to the branch) of the function whose name
+    holds `fragment`: instructions, multiply-adds (IMAD*, not IMAD.MOV),
+    local-memory accesses and the four commonest opcodes; None without
+    cuobjdump or a match."""
     funcs = sass_functions(lib)
     if not funcs:
         return None
@@ -257,24 +262,14 @@ def sass_counts(lib: str, fragment: str) -> dict | None:
     if len(names) != 1:
         return None
     code = [(a, i) for a, i in funcs[names[0]] if _opcode(i) != "NOP"]
-    loop, called = [], {}
+    loop = []
     for addr, instr in code:
         m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", instr)
         if m and int(m.group(1), 16) < addr:
             span = [i for a, i in code if int(m.group(1), 16) <= a <= addr]
             if len(span) > len(loop):
                 loop = span
-        m = re.search(r"\bCALL\.REL\S*\s+(0x[0-9a-f]+)", instr)
-        if m:
-            body = []
-            for a, i in code:
-                if a >= int(m.group(1), 16):
-                    body.append(i)
-                    if _opcode(i).startswith("RET"):
-                        break
-            called[int(m.group(1), 16)] = _span_counts(body)
-    return {"loop": _span_counts(loop),
-            "called": [called[a] for a in sorted(called)]}
+    return {"loop": _span_counts(loop)}
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +289,18 @@ def plan(grid) -> list:
     return [(p, k, t, tuple(tiles)) for (p, k, t), tiles in out.items()]
 
 
+def with_plan(configs: list, B: int, dev: torch.device) -> list:
+    """plan()'s configurations plus, for each (preset, K), the launch
+    plan's block (`field_variants.variant_plan`) at B lanes where no
+    configuration runs that block already (threads None)."""
+    have = {(p, k, t) for p, k, t, _ in configs}
+    out = list(configs)
+    for preset, k in dict.fromkeys((p, k) for p, k, _, _ in configs):
+        if (preset, k, FV.variant_plan(preset, k, B, dev)[1]) not in have:
+            out.append((preset, k, None, ()))
+    return out
+
+
 def chain_times(dev: torch.device, fn, B: int, n: int, trials: int) -> dict:
     """ms and the per-multiply figures of one chain launch fn()."""
     c = card(dev)
@@ -310,18 +317,22 @@ def no_times() -> dict:
                           "bound_ms", "bound_by", "bound_share"))
 
 
-def clock_cycles(dev, a, b, n, preset, k, threads, B) -> dict:
-    """One warp's cycles per multiply from the clock64 build, alone (one
-    warp's lanes) and inside the full launch, and the SM clock it ran at
-    (its cycles over globaltimer's nanoseconds for the same chain)."""
+def clock_cycles(dev, a, b, n, preset, k, threads, tpi, B) -> dict:
+    """One warp's cycles per multiply from the clock64 build at tpi
+    threads a lane, alone (one warp: 32 K / TPI lanes, which the plan
+    runs as one block of 32 threads) and inside the full launch
+    (`threads` a block), and the SM clock it ran at (its cycles over
+    globaltimer's nanoseconds for the same chain)."""
     v = FV.variant_of(preset, k)
     clk = torch.zeros(2, dtype=torch.int64, device=dev)
     out = {}
-    for what, lanes in (("alone", 32 * v.k), ("loaded", B)):
+    for what, lanes, block in (("alone", 32 * v.k // tpi, None),
+                               ("loaded", B, threads)):
         x, y = a[:lanes], b[:lanes]
         if v.planes:
             x, y = FV.to_planes(x), FV.to_planes(y)
-        FV.field_chain_variant(x, y, n, preset, k, threads, clock=clk)
+        FV.field_chain_variant(x, y, n, preset, k, block, clock=clk,
+                               tpi=tpi)
         cycles, ns = clk.tolist()
         out[f"clock_cycles_per_mul_{what}"] = cycles / (n * v.k)
         out[f"sm_mhz_{what}"] = cycles / ns * 1e3 if ns > 0 else None
@@ -336,7 +347,10 @@ def chain_sweep(script: str, n: int, grid, device=None, trials: int = 5,
     a, b = operands(B, dev)
     ref = reference(B, n, dev)
     rows = []
-    for preset, k, threads, tiles in plan(grid):
+    configs = plan(grid)
+    if dev.type == "cuda":
+        configs = with_plan(configs, B, dev)
+    for preset, k, threads, tiles in configs:
         v = FV.variant_of(preset, k)
         x, y = (FV.to_planes(a), FV.to_planes(b)) if v.planes else (a, b)
 
@@ -352,14 +366,21 @@ def chain_sweep(script: str, n: int, grid, device=None, trials: int = 5,
                "vs_ints": f"equal on {len(ref.ints)} lanes",
                "plain_ms": ref.plain_ms}
         if dev.type == "cuda":
+            tpi, block, _ = FV.variant_plan(preset, k, B, dev, threads)
+            row.update(tpi=tpi, block_threads=block, plan=block == (
+                FV.variant_plan(preset, k, B, dev)[1]))
             row.update(chain_times(dev, launch, B, n, trials))
-            row.update(clock_cycles(dev, a, b, n, preset, k, threads, B))
-            row.update(FV.kernel_attrs(preset, k))
+            row.update(clock_cycles(dev, a, b, n, preset, k, threads, tpi,
+                                    B))
+            row.update(FV.kernel_attrs(preset, k, tpi=tpi))
+            # the loop is one thread's share: K multiplies, each of them
+            # spread over TPI threads
             counts = sass_counts("field_chain_variants",
-                                 FV.kernel_symbol(preset, k))
+                                 FV.kernel_symbol(preset, k, tpi=tpi))
             row.update(sass_per_mul(None if counts is None
-                                    else counts["loop"], v.k))
+                                    else counts["loop"], v.k / tpi))
         else:
+            row.update(tpi=None, block_threads=None, plan=None)
             row.update(no_times())
         rows.append(row)
     return {"script": script, "B": B, "n": n, "card": card(dev),

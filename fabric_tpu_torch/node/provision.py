@@ -8,9 +8,8 @@ JSON config file per orderer process and per peer.
 Counterpart of `fabric_tpu/node/provision.py`, the same code on the
 port's imports: the files are the reference's layout (JSON, PEM, hex), so
 either package's nodes load them.  A peer's file is ready for
-`python -m fabric_tpu_torch.node.peer <node.json>`; the orderer's files
-are for `python -m fabric_tpu.node.orderer <node.json>` until the port
-has its own orderer process.
+`python -m fabric_tpu_torch.node.peer <node.json>`, an orderer's for
+`python -m fabric_tpu_torch.node.orderer <node.json>`.
 """
 
 from __future__ import annotations

@@ -34,12 +34,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
     "field_chain": {
-        "field_mul_chain_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "field_mul_chain_group_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _P],
     },
     "field_chain_variants": {
-        "field_chain_variant_launch": [_I, _I, _P, _P, _P, _I, _I, _I, _P,
-                                       _P],
-        "field_chain_variant_attrs": [_I, _I, _P],
+        "field_chain_variant_group_launch": [_I, _I, _P, _P, _P, _I, _I, _I,
+                                             _I, _P, _P],
+        "field_chain_variant_attrs": [_I, _I, _I, _P],
     },
     "isa_probe": {
         "isa_probe_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -23,35 +23,54 @@
 //           With a < 2^256 and b < p the CIOS sum is < 2p, so the chain
 //           keeps its bound.  Without LAZY each multiply reduces fully.
 //   K       K independent chains per thread, interleaved in one
-//           instruction stream; thread j carries lanes k * (B / K) + j,
-//           the lane order of the reference's .reshape(L, K, B // K).
+//           instruction stream; thread (group) j carries lanes k * (B / K)
+//           + j, the lane order of the reference's .reshape(L, K, B // K).
 //   PLANES  limb-major (8, B) global layout: word w of lane i at w * B + i,
 //           so loads and stores coalesce, against KP1's element-major
 //           (B, 8).
-//   MIN     the minimised multiply mod p: the 64 limb products through
-//           PTX carry chains (mad.lo.cc / madc.hi.cc / addc), 128 32-bit
-//           multiply-adds, and the reduction from p's special form (limbs
-//           0, 1 and 2^32 - 1; -p^-1 = 1 mod 2^32) with adds only: with
-//           q = t_i, (t + q p) / 2^32 adds q at word i+3, q at i+6 and
-//           q (2^32 - 1) at i+7..i+8.  Operands stay in registers.
+//   MIN     the minimised multiply mod p: the reduction from p's special
+//           form (limbs 0, 1 and 2^32 - 1; -p^-1 = 1 mod 2^32) with adds
+//           only: with q = t_i, (t + q p) / 2^32 adds q at word i+3, q at
+//           i+6 and q (2^32 - 1) at i+7..i+8.  Without MIN the reduction
+//           is the generic q p row (CIOS), as the reference's relaxed
+//           variants keep it.
 //   CLOCK   thread 0 of block 0 reads clock64 and globaltimer around the
 //           chain and writes the SM cycles to clk[0] and the nanoseconds
 //           to clk[1] (their ratio is the SM clock it ran at); off in
 //           timed runs.
-// Without MIN the multiply is p256_field.cuh's CIOS, inlined here so that
-// its operands stay in registers and K chains can interleave (KP1 calls
-// the header's non-inlined mont_mul on operands in local memory).
+//   TPI     threads a lane, chosen by the launcher
+//           (fabric_tpu_torch/ops/field.py group_plan) from the lane count
+//           B and the card's SM count:
+//     1     kf2_kernel, one thread a lane, where the B lanes fill the
+//           card (SMs x 2,048; K chains in a thread stand in for K
+//           threads): p256_field.cuh's CIOS inlined (or, MIN,
+//           the PTX product rows and special-form steps), operands in
+//           registers;
+//     4     kf2_group_kernel below that: field_group.cuh's group
+//           multiply, one lane's limbs spread over TPI threads of a warp,
+//           b's words gathered once into each thread.  Under a group, K
+//           keeps its meaning: K chains interleaved in each thread of the
+//           group, so K = 4 at 16,384 lanes is 4,096 groups of 4, 16,384
+//           threads.  Unless the caller fixes the block, the launcher
+//           halves it (down to a warp) while the grid has fewer blocks
+//           than SMs, so no preset leaves an SM idle.  At the reference's
+//           16,384 lanes the group beat one thread for relaxed, stacked
+//           and ilp, tied for planes and lost for min (0.0837 against
+//           0.0708 ms, tools/field_ab.py on an H100; ROADMAP B11).  The
+//           header's TPI = 8 is not instantiated: there 4 beat it for
+//           every preset but planes, a tie (PERF.md §6).
 //
 // Bound on the H100: operations.  The least work of a multiply mod p is
 // its 64 limb products, 128 multiply-adds (field.py IMADS["p", "mul"]),
 // against 64 per SM per clock: 2 SM-cycles per multiply.  A lane moves
 // 96 bytes.  The chain is serial in each lane, so the card hides its
-// latency only with enough independent multiplies in flight: lanes
-// (B >= 132 SMs x 2,048 threads fills it) or K chains per thread.
+// latency only with enough independent multiplies in flight: threads
+// (lanes x TPI) or K chains per thread.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "field_group.cuh"
 #include "p256_field.cuh"
 
 using namespace p256;
@@ -267,18 +286,94 @@ __global__ void __launch_bounds__(MAXT)
   }
 }
 
+// the group design: lane j's K chains on TPI threads (see the note above)
+template <bool LAZY, int K, bool PLANES, bool MIN, bool CLOCK, int MAXT,
+          int TPI>
+__global__ void __launch_bounds__(MAXT, 1)
+    kf2_group_kernel(const uint32_t* __restrict__ a,
+                     const uint32_t* __restrict__ b,
+                     uint32_t* __restrict__ out, int lanes, int n,
+                     long long* __restrict__ clk) {
+  constexpr int L = 8 / TPI;
+  constexpr int RED = MIN ? fgroup::RED_P : fgroup::RED_GENERIC;
+  const int per = lanes / K;
+  const int th = blockIdx.x * blockDim.x + threadIdx.x;
+  if ((th & ~31) / TPI >= per) return;   // the whole warp is past the end
+  const bool live = th / TPI < per;      // else: repeat the last group
+  const int j = live ? th / TPI : per - 1;
+  const fgroup::Group<TPI> g;
+  const fgroup::GroupMod<TPI> gm = fgroup::group_mod<TPI, MOD_P, RED>(g);
+  uint32_t t[K][L], bw[K][8];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const size_t lane = (size_t)k * per + j;
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+      bw[k][w] = b[PLANES ? (size_t)w * lanes + lane : lane * 8 + w];
+    fe_canon<MOD_P>(bw[k], bw[k]);
+    uint32_t s[8], bl[L];
+    scale_const(s);
+    fgroup::group_own<TPI>(bl, bw[k], g);
+    fgroup::group_mul<TPI, MOD_P, RED, false>(bl, bl, s, g, gm);
+    fgroup::group_gather<TPI>(bw[k], bl, g);   // b < p
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t w = (size_t)g.rank * L + l;
+      t[k][l] = a[PLANES ? w * lanes + lane : lane * 8 + w];
+    }
+  }
+  long long c0 = 0, g0 = 0;
+  if (CLOCK) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+    c0 = clock64();
+  }
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      fgroup::group_mul<TPI, MOD_P, RED, LAZY>(t[k], t[k], bw[k], g, gm);
+  }
+  if (CLOCK) {
+    const long long c1 = clock64();
+    long long g1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      clk[0] = c1 - c0;
+      clk[1] = g1 - g0;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    fgroup::group_reduce<TPI>(t[k], t[k], g, gm);   // < 2^256 -> [0, p)
+    const size_t lane = (size_t)k * per + j;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const size_t w = (size_t)g.rank * L + l;
+      if (live) out[PLANES ? w * lanes + lane : lane * 8 + w] = t[k][l];
+    }
+  }
+}
+
 typedef void (*kernel_fn)(const uint32_t*, const uint32_t*, uint32_t*, int,
                           int, long long*);
 
+// a variant's kernels by threads a lane: 1, 4
+struct Kernels {
+  kernel_fn one, four;
+};
+
 template <bool LAZY, int K, bool PLANES, bool MIN>
-kernel_fn pick(int clock) {
+Kernels pick(int clock) {
   constexpr int MAXT = K >= 8 ? 128 : 512;
-  return clock ? kf2_kernel<LAZY, K, PLANES, MIN, true, MAXT>
-               : kf2_kernel<LAZY, K, PLANES, MIN, false, MAXT>;
+  if (clock)
+    return {kf2_kernel<LAZY, K, PLANES, MIN, true, MAXT>,
+            kf2_group_kernel<LAZY, K, PLANES, MIN, true, MAXT, 4>};
+  return {kf2_kernel<LAZY, K, PLANES, MIN, false, MAXT>,
+          kf2_group_kernel<LAZY, K, PLANES, MIN, false, MAXT, 4>};
 }
 
 // the variants, in the order of field_variants.VARIANTS
-kernel_fn variant(int v, int clock, int* k) {
+Kernels variant(int v, int clock, int* k) {
   switch (v) {
     case 0: *k = 1; return pick<false, 1, false, false>(clock);  // exact
     case 1: *k = 1; return pick<true, 1, false, false>(clock);   // lazy
@@ -287,25 +382,34 @@ kernel_fn variant(int v, int clock, int* k) {
     case 4: *k = 8; return pick<true, 8, false, false>(clock);   // lazy_k8
     case 5: *k = 1; return pick<true, 1, false, true>(clock);    // min
     case 6: *k = 1; return pick<true, 1, true, false>(clock);    // planes
-    default: return nullptr;
+    default: return {nullptr, nullptr};
   }
+}
+
+kernel_fn kernel(int v, int clock, int tpi, int* k) {
+  const Kernels ks = variant(v, clock, k);
+  return tpi == 1 ? ks.one : tpi == 4 ? ks.four : nullptr;
 }
 
 }  // namespace kf2
 
 // Launch variant v (clock != 0: its clock64 build) on `lanes` lanes with
-// `threads` threads a block; clk is two device int64s (clock only).
-// Returns the CUDA error of the launch, or -1 for an unknown variant.
-extern "C" int field_chain_variant_launch(int v, int clock, const void* a,
-                                          const void* b, void* out,
-                                          int lanes, int n, int threads,
-                                          void* clk, void* stream) {
+// tpi threads a lane (1 or 4) and `threads` threads a block (a
+// multiple of 32); clk is two device int64s (clock only).  Returns the
+// CUDA error of the launch, or -1 for an unknown variant or tpi.
+extern "C" int field_chain_variant_group_launch(int v, int clock,
+                                                const void* a,
+                                                const void* b, void* out,
+                                                int lanes, int n, int tpi,
+                                                int threads, void* clk,
+                                                void* stream) {
   int k = 1;
-  kf2::kernel_fn fn = kf2::variant(v, clock, &k);
-  if (fn == nullptr) return -1;
+  const kf2::kernel_fn fn = kf2::kernel(v, clock, tpi, &k);
+  if (fn == nullptr || threads <= 0 || threads % 32) return -1;
   const int per = lanes / k;
   if (per <= 0) return 0;
-  const int blocks = (per + threads - 1) / threads;
+  const long long total = (long long)per * tpi;
+  const int blocks = (int)((total + threads - 1) / threads);
   fn<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, lanes, n,
       (long long*)clk);
@@ -313,10 +417,11 @@ extern "C" int field_chain_variant_launch(int v, int clock, const void* a,
 }
 
 // out[0..2] = registers a thread, local (stack) bytes a thread and the
-// most threads a block of variant v's kernel
-extern "C" int field_chain_variant_attrs(int v, int clock, void* out) {
+// most threads a block of variant v's kernel at tpi threads a lane
+extern "C" int field_chain_variant_attrs(int v, int clock, int tpi,
+                                         void* out) {
   int k = 1;
-  kf2::kernel_fn fn = kf2::variant(v, clock, &k);
+  const kf2::kernel_fn fn = kf2::kernel(v, clock, tpi, &k);
   if (fn == nullptr) return -1;
   cudaFuncAttributes at;
   const cudaError_t err = cudaFuncGetAttributes(&at, (const void*)fn);

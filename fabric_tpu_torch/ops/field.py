@@ -7,9 +7,9 @@ int32 tensors of 12-bit limbs with R = 2^264 and lazily reduced values,
 a layout chosen so that products stay exact in int32 and f32 on the TPU.
 The port changes the representation and keeps the values:
 
-* The CUDA kernels (`csrc/p256_field.cuh`) hold 8 x 32-bit limbs per
-  value with R = 2^256 and 64-bit products, one CIOS multiply for all
-  four moduli.
+* The CUDA kernels (`csrc/p256_field.cuh`, `field_ptx.cuh`,
+  `field_group.cuh`) hold 8 x 32-bit limbs per value with R = 2^256 and
+  64-bit products.
 * The plain PyTorch version here holds (16, B) int64 tensors of 16-bit
   little-endian limbs, also with R = 2^256, so a 16 x 16-bit product plus
   its carries stays exact in int64.  It runs the same CIOS Montgomery
@@ -22,8 +22,11 @@ runs for tensors on the CPU; `chip_smoke.py` holds each kernel against it
 on the card.
 
 KP1 (`field_mul_chain`) is the standalone launch of the device field
-layer that KP2 inlines, and the Hopper counterpart of the Pallas
-field-multiply microbenchmark `experiments/proto_pallas.py:run`.  It is
+layer, and the Hopper counterpart of the Pallas field-multiply
+microbenchmark `experiments/proto_pallas.py:run`.  It runs one lane on
+TPI threads (`group_plan`): field_ptx.cuh's one-thread multiplies where
+one thread a lane fills the card, field_group.cuh's group multiply
+below that.  It is
 a benchmark and a check of the field layer, not part of the provider's
 path.  With `r_log2=264` it computes that benchmark's own function, a
 chain of `bignum.Mont` multiplies (R = 2^264), on the port's R = 2^256:
@@ -34,6 +37,7 @@ after which every multiply of the chain equals one with R = 2^264.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -306,6 +310,48 @@ def mul_chain_plain(a: torch.Tensor, b: torch.Tensor, k: int,
     return limbs_to_words_le(t)
 
 
+# ---------------------------------------------------------------------------
+# Threads a lane (TPI) and block size of the chain kernels
+# ---------------------------------------------------------------------------
+
+FILL_THREADS_PER_SM = 2048     # an H100 SM's resident threads
+# the instantiated TPIs: one thread, and field_group.cuh's group of 4.
+# The header also takes 8, which no kernel instantiates: at the
+# reference's 16,384 lanes 4 beat 8 for every modulus and preset but
+# `planes` (a tie), and at SMs x 2,048 lanes one thread beats both, on
+# an H100 (tools/field_ab.py, PERF.md §6).
+TPIS = (1, 4)
+# the plan's group.  At 16,384 lanes it is not the fastest launch for
+# every kernel: one thread a lane beats it for KP1 (every modulus) and
+# KF2's `min`, `planes` ties, and the group wins for `relaxed`, `stacked`
+# and `ilp` (PERF.md §6; ROADMAP B11 queues a rule chosen per kernel).
+GROUP_TPI = 4
+BLOCK_THREADS = 128
+
+
+def group_plan(lanes: int, sms: int, threads: int | None = None,
+               tpi: int | None = None, k: int = 1) -> tuple:
+    """Launch shape of a chain kernel for `lanes` lanes, K chains a
+    thread (group), on a card of `sms` SMs -> (tpi, threads a block,
+    blocks).
+
+    TPI: one thread a lane where the lanes fill the card's thread slots
+    (SMs x 2,048; K chains in one thread stand in for K threads), else a
+    group of GROUP_TPI; `tpi` forces one of TPIS.  The block: `threads`
+    where given, else at most BLOCK_THREADS, halved (down to one warp)
+    while the grid would have fewer blocks than SMs."""
+    if tpi is None:
+        tpi = 1 if lanes >= sms * FILL_THREADS_PER_SM else GROUP_TPI
+    if tpi not in TPIS:
+        raise ValueError(f"tpi must be one of {TPIS}, got {tpi!r}")
+    total = lanes // k * tpi
+    if threads is None:
+        threads = BLOCK_THREADS
+        while threads > 32 and -(-total // threads) < sms:
+            threads //= 2
+    return tpi, threads, -(-total // threads)
+
+
 def _check_r(r_log2: int) -> None:
     if r_log2 not in R_LOG2S:
         raise ValueError(f"r_log2 must be one of {R_LOG2S}, got {r_log2!r}")
@@ -321,11 +367,38 @@ def _check_words(name: str, x: torch.Tensor, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (group_plan's card size)."""
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())
+
+
+def kp1_symbol(modulus: str, tpi: int) -> str:
+    """The (Itanium-mangled) name fragment of KP1's kernel for a modulus
+    at tpi threads a lane, as `cuobjdump -sass` and ptxas print it."""
+    m = MOD_INDEX[modulus]
+    return (f"kp1_thread_kernelILi{m}E" if tpi == 1
+            else f"kp1_group_kernelILi{m}ELi{tpi}E")
+
+
+def kp1_plan(lanes: int, device: torch.device,
+             tpi: int | None = None) -> tuple:
+    """KP1's launch shape on a CUDA device -> (tpi, threads, blocks)."""
+    return group_plan(lanes, sm_count(device), None, tpi)
+
+
 def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
-                    modulus: str = "p", r_log2: int = 256) -> torch.Tensor:
-    """KP1 wrapper.  CUDA tensors launch the kernel (one thread per
-    lane); CPU tensors take `mul_chain_plain`.  Raises on anything the
-    kernel does not take, and when the launch fails."""
+                    modulus: str = "p", r_log2: int = 256,
+                    tpi: int | None = None) -> torch.Tensor:
+    """KP1 wrapper.  CUDA tensors launch the kernel at `kp1_plan`'s
+    threads a lane (`tpi` forces one of TPIS); CPU tensors take
+    `mul_chain_plain`.  Raises on anything the kernel does not take, and
+    when the launch fails."""
     _check_r(r_log2)
     if modulus not in MODS:
         raise ValueError(f"modulus must be one of {sorted(MODS)}, "
@@ -338,6 +411,8 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
         raise ValueError("k out of range")
     if a.device != b.device:
         raise ValueError("a and b must be on one device")
+    if tpi is not None and tpi not in TPIS:
+        raise ValueError(f"tpi must be one of {TPIS}, got {tpi!r}")
     if a.device.type == "cpu":
         return mul_chain_plain(a, b, k, modulus, r_log2)
     if a.device.type != "cuda":
@@ -345,14 +420,16 @@ def field_mul_chain(a: torch.Tensor, b: torch.Tensor, k: int,
     out = torch.empty_like(a)
     if a.shape[0] == 0:
         return out
+    tpi, threads, _ = kp1_plan(a.shape[0], a.device, tpi)
     lib = _build.load("field_chain")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.field_mul_chain_launch(
+        rc = lib.field_mul_chain_group_launch(
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_int(a.shape[0]),
             ctypes.c_int(k), ctypes.c_int(MOD_INDEX[modulus]),
-            ctypes.c_int(r_log2 == 264), ctypes.c_void_p(stream))
+            ctypes.c_int(r_log2 == 264), ctypes.c_int(tpi),
+            ctypes.c_int(threads), ctypes.c_void_p(stream))
     if rc:
         raise RuntimeError(f"field_mul_chain launch failed: CUDA error {rc}")
     field_mul_chain.launches += 1
@@ -376,9 +453,8 @@ field_mul_chain.launches = 0
 # reduction is not Montgomery's but the fold 2^256 = 38: the product's 8
 # high limbs times 38 (8 products) and the fold of the last carry (1).
 # Mod BN254's p, a generic prime, the reduction costs what it costs mod n.
-# This is the least work, not what the kernels issue: their CIOS multiply
-# runs the generic reduction for every modulus and does not special-case
-# squares.
+# This is the least work, not what the kernels issue (the generic
+# reduction's q m products mod n and BN254's p, no dedicated square).
 IMADS = {("p", "mul"): 2 * 64, ("p", "sqr"): 2 * 36,
          ("n", "mul"): 2 * (64 + 64) + 8, ("n", "sqr"): 2 * (36 + 64) + 8,
          ("p25519", "mul"): 2 * (64 + 9), ("p25519", "sqr"): 2 * (36 + 9),

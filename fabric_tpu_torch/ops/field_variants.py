@@ -28,6 +28,11 @@ Layouts: element-major presets take (B, 8) uint32 little-endian limbs, as
 KP1 does; `planes` takes (8, B) limb planes (`to_planes`/`from_planes`).
 With K chains a thread carries lanes k * (B / K) + j (`stack_lanes`), the
 lane order of the reference's `.reshape(L, K, B // K)`.
+
+Each variant runs B / K thread groups of TPI threads (`variant_plan`,
+`field.group_plan`): one thread where the B lanes fill the card, else
+field_group.cuh's group multiply on 4 threads, each thread of the group
+carrying the limbs of its K chains.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from . import field as F
 from .field import IMADS, mul_chain_plain
 
 
@@ -158,22 +164,38 @@ def _check(a: torch.Tensor, b: torch.Tensor, v: Variant) -> int:
     return a.shape[0]
 
 
+def variant_plan(preset: str, k: int | None, lanes: int,
+                 device: torch.device, threads: int | None = None,
+                 tpi: int | None = None) -> tuple:
+    """A preset's launch shape on a CUDA device for `lanes` lanes ->
+    (tpi, threads a block, blocks): B / K groups (`field.group_plan`;
+    `threads` fixes the block, None takes the plan's)."""
+    v = variant_of(preset, k)
+    return F.group_plan(lanes, F.sm_count(device), threads, tpi, v.k)
+
+
 def field_chain_variant(a: torch.Tensor, b: torch.Tensor, n: int,
                         preset: str, k: int | None = None,
-                        threads: int = 128,
-                        clock: torch.Tensor | None = None) -> torch.Tensor:
+                        threads: int | None = None,
+                        clock: torch.Tensor | None = None,
+                        tpi: int | None = None) -> torch.Tensor:
     """KF2 wrapper: a * (b * 2^-264)^n mod p per lane in the preset's
-    layout.  CUDA tensors launch the kernel with `threads` threads a block;
-    CPU tensors take `variant_plain`.  `clock`, a CUDA int64 tensor of two
-    elements, launches the clock64 build instead, which writes there the
-    SM cycles and the nanoseconds (globaltimer) of thread 0's chain.
-    Raises on anything the kernel does not take, and when the launch
-    fails."""
+    layout.  CUDA tensors launch the kernel at `variant_plan`'s shape:
+    `threads` threads a block (None: the plan's), `tpi` threads a lane
+    (one of field.TPIS; None: the plan's); CPU tensors take
+    `variant_plain`.  `clock`, a CUDA int64
+    tensor of two elements, launches the clock64 build instead, which
+    writes there the SM cycles and the nanoseconds (globaltimer) of
+    thread 0's chain.  Raises on anything the kernel does not take, and
+    when the launch fails."""
     v = variant_of(preset, k)
     lanes = _check(a, b, v)
+    if tpi is not None and tpi not in F.TPIS:
+        raise ValueError(f"tpi must be one of {F.TPIS}, got {tpi!r}")
     if not 0 <= n < (1 << 31):
         raise ValueError("n out of range")
-    if threads not in THREADS or threads > v.max_threads:
+    if threads is not None and (threads not in THREADS
+                                or threads > v.max_threads):
         raise ValueError(f"threads must be one of "
                          f"{[t for t in THREADS if t <= v.max_threads]} for "
                          f"{v.name}, got {threads!r}")
@@ -190,14 +212,15 @@ def field_chain_variant(a: torch.Tensor, b: torch.Tensor, n: int,
     out = torch.empty_like(a)
     if lanes == 0:
         return out
+    tpi, threads, _ = variant_plan(preset, k, lanes, a.device, threads, tpi)
     lib = _build.load("field_chain_variants")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.field_chain_variant_launch(
+        rc = lib.field_chain_variant_group_launch(
             ctypes.c_int(VARIANT_ID[v.name]), ctypes.c_int(clock is not None),
             ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_int(lanes),
-            ctypes.c_int(n), ctypes.c_int(threads),
+            ctypes.c_int(n), ctypes.c_int(tpi), ctypes.c_int(threads),
             ctypes.c_void_p(0 if clock is None else clock.data_ptr()),
             ctypes.c_void_p(stream))
     if rc:
@@ -211,27 +234,31 @@ field_chain_variant.launches = 0
 
 
 def kernel_attrs(preset: str, k: int | None = None,
-                 clock: bool = False) -> dict:
+                 clock: bool = False, tpi: int = 1) -> dict:
     """Registers and local (stack) bytes a thread, and the most threads a
-    block, of a preset's kernel, from cudaFuncGetAttributes."""
+    block, of a preset's kernel at tpi threads a lane, from
+    cudaFuncGetAttributes."""
     v = variant_of(preset, k)
     lib = _build.load("field_chain_variants")
     buf = (ctypes.c_int * 3)()
     rc = lib.field_chain_variant_attrs(
         ctypes.c_int(VARIANT_ID[v.name]), ctypes.c_int(clock),
-        ctypes.cast(buf, ctypes.c_void_p))
+        ctypes.c_int(tpi), ctypes.cast(buf, ctypes.c_void_p))
     if rc:
         raise RuntimeError(f"cudaFuncGetAttributes failed: CUDA error {rc}")
     return {"regs": buf[0], "frame_bytes": buf[1], "max_threads": buf[2]}
 
 
 def kernel_symbol(preset: str, k: int | None = None,
-                  clock: bool = False) -> str:
-    """The (Itanium-mangled) name fragment of a preset's kernel, as
-    `cuobjdump -sass` prints it."""
+                  clock: bool = False, tpi: int = 1) -> str:
+    """The (Itanium-mangled) name fragment of a preset's kernel at tpi
+    threads a lane, as `cuobjdump -sass` and ptxas print it."""
     v = variant_of(preset, k)
-    return (f"kf2_kernelILb{int(v.lazy)}ELi{v.k}ELb{int(v.planes)}"
+    args = (f"ILb{int(v.lazy)}ELi{v.k}ELb{int(v.planes)}"
             f"ELb{int(v.min)}ELb{int(clock)}ELi{v.max_threads}E")
+    if tpi == 1:
+        return "kf2_kernel" + args
+    return f"kf2_group_kernel{args[:-1]}ELi{tpi}E"
 
 
 def bound_ms(lanes: int, n: int, rate_imads: float,

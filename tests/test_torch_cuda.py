@@ -1170,6 +1170,105 @@ def test_field_chain_variant_launch_error_propagates(cuda_device,
     assert FV.field_chain_variant.launches == before
 
 
+# -- KP1 and KF2 on the group multiply (field_group.cuh) ---------------------
+
+def group_lane_counts(device, k=1):
+    """1, 31, 16,383 and 16,384 lanes and a card-filling count (SMs x
+    2,048, where the plan takes one thread a lane), each rounded down to
+    a multiple of K (a preset with K chains a thread takes B % K == 0)."""
+    fill = F.sm_count(device) * F.FILL_THREADS_PER_SM * k
+    return sorted({max(k, c - c % k) for c in (1, 31, 16383, 16384, fill)})
+
+
+def chain_operands(lanes, m, seed, device):
+    """(B, 8) uint32 operands from numpy's generator, the edge values in
+    the first lanes -> (a's first 64 ints, b's, a, b)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, (2, lanes, 8), dtype=np.uint64)
+    edge = F.ints_to_words_le(edge_values(m)).numpy().astype(np.uint64)
+    c = min(lanes, len(edge))
+    words[0, :c] = edge[:c]
+    words[1, :c] = edge[::-1][:c]
+    a, b = (torch.from_numpy(w.astype(np.uint32).view(np.int32)).view(
+        torch.uint32).to(device) for w in words)
+    return F.words_le_to_ints(a[:64]), F.words_le_to_ints(b[:64]), a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulus", ["p", "n", "p25519", "bn254"])
+def test_kp1_every_tpi_at_edge_lane_counts(modulus, cuda_device):
+    """KP1 at the plan's TPI and at each forced TPI (1, 4), both R,
+    bit for bit against its plain version (and Python ints on 64 lanes),
+    at lane counts that fill no group or block and at a card-filling one:
+    both sides of the rule."""
+    m = F.MODS[modulus].m
+    sms = F.sm_count(cuda_device)
+    seen = set()
+    for lanes in group_lane_counts(cuda_device):
+        va, vb, a, b = chain_operands(lanes, m, lanes, cuda_device)
+        seen.add(F.kp1_plan(lanes, cuda_device)[0])
+        for r_log2 in F.R_LOG2S:
+            rinv = pow(1 << r_log2, -1, m)
+            k = 5
+            plain = F.mul_chain_plain(a, b, k, modulus, r_log2)
+            want = [x * pow(y * rinv, k, m) % m for x, y in zip(va, vb)]
+            assert F.words_le_to_ints(plain[:64]) == want
+            for tpi in (None, *F.TPIS):
+                before = F.field_mul_chain.launches
+                got = F.field_mul_chain(a, b, k, modulus, r_log2, tpi=tpi)
+                torch.cuda.synchronize()
+                assert F.field_mul_chain.launches == before + 1
+                assert torch.equal(got, plain), (lanes, r_log2, tpi)
+    assert seen == {1, F.GROUP_TPI} and sms > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset,k", PRESET_KS)
+def test_kf2_group_presets_at_edge_lane_counts(preset, k, cuda_device):
+    """Every KF2 preset in its own layout at the plan's TPI and at each
+    forced TPI, bit for bit against variant_plain, at ragged and
+    card-filling lane counts; its clock build on the group computes the
+    same."""
+    v = FV.variant_of(preset, k)
+    seen = set()
+    for lanes in group_lane_counts(cuda_device, v.k):
+        va, vb, a, b = chain_operands(lanes, F.P, 7 + lanes, cuda_device)
+        if v.planes:
+            a, b = FV.to_planes(a), FV.to_planes(b)
+        n = 9
+        plain = FV.variant_plain(a, b, n, preset, k)
+        seen.add(FV.variant_plan(preset, k, lanes, cuda_device)[0])
+        for tpi in (None, *F.TPIS):
+            got = FV.field_chain_variant(a, b, n, preset, k, tpi=tpi)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (lanes, tpi)
+        clk = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+        got = FV.field_chain_variant(a, b, n, preset, k, clock=clk,
+                                     tpi=F.GROUP_TPI)
+        assert torch.equal(got, plain) and clk[0].item() > 0
+    assert seen == {1, F.GROUP_TPI}
+
+
+@pytest.mark.cuda
+def test_chain_kernels_build_with_no_frame_or_spills(cuda_device):
+    """ptxas' figures from the build log: every KP1 and KF2 instantiation,
+    one thread or a group, keeps frame 0 and spills 0."""
+    from fabric_tpu_torch.ops import _build
+    logs = {name: _build._finish(name, *_build._start(name))
+            for name in ("field_chain", "field_chain_variants")}
+    frags = [("field_chain", F.kp1_symbol(mod, tpi))
+             for mod in F.MODS for tpi in F.TPIS]
+    frags += [("field_chain_variants", FV.kernel_symbol(p, kk, clock, tpi))
+              for p, kk in PRESET_KS for clock in (False, True)
+              for tpi in F.TPIS]
+    for lib, frag in frags:
+        res = _build.kernel_resources(logs[lib], frag)
+        assert res["frame_bytes"] == 0, (frag, res)
+        assert res["spill_store_bytes"] == res["spill_load_bytes"] == 0, (
+            frag, res)
+        assert 0 < res["regs"] <= 255
+
+
 def probe_tile(probe, B, device, seed=0):
     rng = np.random.default_rng(seed)
     if probe == "f32":

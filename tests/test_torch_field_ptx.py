@@ -32,13 +32,13 @@ TOP = R - 1
 # The header's asm statements, parsed
 # ---------------------------------------------------------------------------
 
-def _function_body(name: str) -> str:
+def _function_body(name: str, header: str = HEADER) -> str:
     """The text of the function `name` in the header, from its name to
     the closing brace at column 0."""
-    m = re.search(r"\b%s\(" % re.escape(name), HEADER)
+    m = re.search(r"\b%s\(" % re.escape(name), header)
     assert m, name
-    end = HEADER.index("\n}\n", m.end())
-    return HEADER[m.start():end]
+    end = header.index("\n}\n", m.end())
+    return header[m.start():end]
 
 
 def _split_top(s: str, sep: str) -> list:
@@ -72,11 +72,11 @@ def _split_top(s: str, sep: str) -> list:
     return out
 
 
-def parse_asm(name: str) -> dict:
+def parse_asm(name: str, header: str = HEADER) -> dict:
     """The one asm statement of function `name` -> {"instrs": [(opcode,
     [operand, ...]), ...], "outputs": [(constraint, expr)], "inputs":
     [(constraint, expr)]}."""
-    body = _function_body(name)
+    body = _function_body(name, header)
     starts = [m.end() for m in re.finditer(r"\basm\(", body)]
     assert len(starts) == 1, f"{name}: {len(starts)} asm statements"
     depth, i = 1, starts[0]
@@ -174,10 +174,12 @@ def _lvalue(expr: str, env: dict):
     return env, expr
 
 
-def run_asm(name: str, env: dict, fault: Fault = NO_FAULT) -> None:
-    """Run the asm statement of function `name` on the C variables in
-    env (lists, Views or ints), writing its outputs back into them."""
-    st = ASM[name]
+def run_asm(name: str, env: dict, fault: Fault = NO_FAULT,
+            asm: dict = ASM) -> None:
+    """Run the asm statement of function `name` (parsed into `asm`) on
+    the C variables in env (lists, Views or ints), writing its outputs
+    back into them."""
+    st = asm[name]
     ops = st["outputs"] + st["inputs"]
     regs = []
     for cons, expr in ops:

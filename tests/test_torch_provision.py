@@ -22,6 +22,7 @@ Tolerance: exact equality.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -92,6 +93,21 @@ def test_provision_writes_the_reference_layout(nets):
             assert [x["mspid"] for x in b["verify_once"].get(
                 "attestors", [])] == [x["mspid"] for x in a[
                     "verify_once"].get("attestors", [])]
+
+
+def test_docstring_names_the_ports_node_processes():
+    """The provisioned files are for the port's own peer and orderer
+    processes: each `python -m <module> <node.json>` the docstring names
+    is a module of the port whose main takes one node file (and prints
+    its usage without one)."""
+    doc = mod("port", "node.provision").__doc__
+    names = re.findall(r"python -m ([\w.]+) <node\.json>", doc)
+    assert names == ["fabric_tpu_torch.node.peer",
+                     "fabric_tpu_torch.node.orderer"]
+    res = subprocess.run([sys.executable, "-m", names[1]], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2
+    assert f"usage: python -m {names[1]} <node.json>" in res.stderr
 
 
 def test_provisioned_material_is_sound(nets):
