@@ -19,16 +19,21 @@ ends with one JSON line.  Phases:
              mul_p, sqr_p and mont_mul_ptx mod n, KP2's, and mul_25519,
              KE5's and KE6's) on 65,536 seeded inputs
              plus edge values each, bit for bit against the plain field and
-             Python ints, timed
+             Python ints, timed per launch (launches captured in a CUDA
+             graph) and per wrapper call (the enqueue included)
 3b. experiments — the counterparts of the Pallas microbenchmarks in
              experiments/ (fabric_tpu_torch.experiments, each module's
              run()): KP1 at the reference's R = 2^264 (proto_pallas.py) and
              KF2's presets relaxed, stacked (proto_pallas2.py), min
              (proto_pallas4.py), planes (proto_planes.py) and ilp
              (proto_ilp.py) on the scripts' data and grids, KI3's eight
-             probes (proto_pallas3.py); at the reference's B = 16,384
+             probes (proto_pallas3.py) in the plan's layouts and at one
+             thread a column forced, each bit for bit at 1 and 4 passes,
+             timed per launch and per wrapper call, rotate and roll
+             beside torch.roll; at the reference's B = 16,384
              (a card-filling B is left out for the time limit; there
-             tools/field_ab.py times KP1 and KF2), each held against its
+             tools/field_ab.py times KP1 and KF2, tools/ki3_ab.py
+             KI3), each held against its
              plain version and Python ints (64 lanes), timed, with the
              TPI it ran at, SM-cycles per multiply, SASS instructions per
              multiply (cuobjdump) and one warp's clock64 cycles per
@@ -101,7 +106,9 @@ ends with one JSON line.  Phases:
              on the path's own batch for that kernel; KP2 at two sizes,
              the block's whole device-bound batch and the path's own KP2
              batch (the lanes the provider sent to KP2 in the block runs),
-             each against its plain version and the labels, with SM-cycles
+             each against its plain version (the path's: the block's
+             plain call on its lanes, where the words are the block's)
+             and the labels, with SM-cycles
              a multiply and registers, frame and spills from the build log;
              one large pinned host-to-device copy gives the link rate that
              bounds a table upload; KE5 on the block's 64 Ed25519 items
@@ -213,8 +220,9 @@ ends with one JSON line.  Phases:
              idemix block through the classic tail, flags equal; (g)
              block 2 warm on fresh ledgers at height 2, the default
              peer's stack, the deep host and the deep KV7 stack and the
-             default peer's after a speculative fill, in turns, stage by
-             stage, and one profiled run of the default peer's.  Its
+             default peer's after a speculative fill, in turns
+             (CLASSIC_TIMED_TRIALS, 1), stage by stage, and one profiled
+             run of the default peer's.  Its
              main-path launches are counted apart (the kernels line's
              `classic_launches`)
 13. window — (run after 12, before the kernels line) the cross-block
@@ -247,7 +255,7 @@ ends with one JSON line.  Phases:
              blocks 2 and 3 once each to the serial hash and directory;
              (c) the stream's wall time serial, W=2 and W=4, on memory
              and on the durable ledger, fresh ledgers, in turns, medians
-             of WINDOW_MEMORY_TRIALS (2) on memory and of
+             of WINDOW_MEMORY_TRIALS (1) on memory and of
              WINDOW_DURABLE_TRIALS (1) durable, with the spread, each
              block's early and deferred txs, overlap_frac, the stages
              summed; the device
@@ -528,8 +536,9 @@ IDEMIX_POLICY = "OR('Org1.member')"
 # chaincode policy (either org), its key policies by name, and the share
 # of its txs that set or delete a key policy
 CACHE_CAPACITY = 65536
-CLASSIC_TIMED_TRIALS = 2       # (g)'s turns of the four stacks: was
-#                                --trials (3), cut for the time limit
+CLASSIC_TIMED_TRIALS = 1       # (g)'s turns of the four stacks: was
+#                                --trials (3), then 2: cut for the time
+#                                limit (PERF.md §4)
 # envelopes a gateway batch hands to the speculative verifier: the
 # reference gateway's default max_batch (fabric_tpu/gateway/service.py:72)
 SPEC_BATCH = 64
@@ -551,9 +560,9 @@ WINDOWS = (2, 4)
 WINDOW_RUNS = ((2, False, False), (2, True, True), (4, False, True),
                (4, True, False))
 WINDOW_WORKERS = 4
-WINDOW_MEMORY_TRIALS = 2       # timed memory streams (was 3) and durable
-WINDOW_DURABLE_TRIALS = 1      # ones (was 2): cut for the script's time
-#                                limit when phase 17 came (PERF.md §4)
+WINDOW_MEMORY_TRIALS = 1       # timed memory streams (was 3, then 2) and
+WINDOW_DURABLE_TRIALS = 1      # durable ones (was 2): cut for the script's
+#                                time limit (PERF.md §4)
 WINDOW_DEMOTIONS = ("savepoint", "range_query")
 # KV7's multi-device branch (phase 10, its kv7_mesh part): the shard
 # counts its entry points are held to their plain versions at, on cuda:0
@@ -3692,7 +3701,8 @@ def tower_probe_phase(torch, trials: int, imad_rate: float,
     a_any = tower_words(dev, n, SEED + 20)
     a_cyc = tower_words(dev, n, SEED + 21, cyclotomic=True)
     b_any = tower_words(dev, n, SEED + 22)
-    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by_ops": 0.0}
+    sums = {"ms": 0.0, "single_launch_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "by_ops": 0.0}
     err = 0
     for op in kb8.PROBE_OPS:
         a = a_cyc if op in ("cyc_sqr", "pow_u") else a_any
@@ -3732,6 +3742,7 @@ def tower_probe_phase(torch, trials: int, imad_rate: float,
             "source": "fabric_tpu_torch/ops/csrc/bn254_pairing.cu",
             "replaces": "fabric_tpu/ops/bn254_batch.py:93",
             "launches": 0, "max_abs_err": err, "ms": sums["ms"],
+            "single_launch_ms": sums["single_launch_ms"],
             "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
             "bound_by": "operations" if 2 * sums["by_ops"] >= sums[
                 "bound_ms"] else "bytes",
@@ -4400,14 +4411,19 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
     `p256_field_probe`) on PROBE_LANES inputs,
     the edge values of `field_probe_edges` first and seeded ones after,
     bit for bit against the plain field (`field_probe_plain`) and Python
-    ints, then timed by CUDA events.  -> the probe's row of the kernels
-    line (its sums over the ops)."""
+    ints, then timed: `ms` one launch as the card runs it
+    (`experiments.launch_ms`, launches captured in a CUDA graph),
+    `single_launch_ms` one wrapper call between two CUDA events (the
+    host's enqueue inside it).  -> the probe's row of the kernels line
+    (its sums over the ops)."""
+    from fabric_tpu_torch.experiments import launch_ms
     from fabric_tpu_torch.ops import p256
     from fabric_tpu_torch.ops.field import (IMADS, ints_to_words_le,
                                             words_le_to_ints)
     rng = random.Random(SEED + 30)
     R = 1 << 256
-    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "by_ops": 0.0}
+    sums = {"ms": 0.0, "single_launch_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "by_ops": 0.0}
     err = 0
     for op in p256.FIELD_PROBE_OPS:
         m = p256.field_probe_modulus(op)
@@ -4429,7 +4445,10 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
               f"field probe {op} != python ints")
         err = max(err, int((got.to(torch.int64) - plain.to(torch.int64))
                            .abs().max()))
-        ms = event_ms(torch, lambda: p256.p256_field_probe(op, a, b), trials)
+        ms = launch_ms(lambda: p256.p256_field_probe(op, a, b),
+                       trials=trials)
+        single = event_ms(torch, lambda: p256.p256_field_probe(op, a, b),
+                          trials)
         key = {"mul_n": ("n", "mul"), "sqr_p": ("p", "sqr"),
                "mul_25519": ("p25519", "mul")}.get(op, ("p", "mul"))
         ops_s = PROBE_LANES * IMADS[key] / imad_rate
@@ -4437,10 +4456,12 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
         bound = max(ops_s, bytes_s) * 1e3
         phase("field", probe_op=op, inputs=PROBE_LANES, edges=len(ea),
               vs_plain="equal", vs_ints="equal", ms=round(ms, 4),
+              single_launch_ms=round(single, 4),
               ns_per_op=round(ms * 1e6 / PROBE_LANES, 4),
               plain_ms=round(plain_ms, 2), bound_ms=round(bound, 6),
               bound_by="operations" if ops_s >= bytes_s else "bytes")
         sums["ms"] += ms
+        sums["single_launch_ms"] += single
         sums["plain_ms"] += plain_ms
         sums["bound_ms"] += bound
         sums["by_ops"] += bound if ops_s >= bytes_s else 0
@@ -4448,6 +4469,7 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
             "source": "fabric_tpu_torch/ops/csrc/p256_verify.cu",
             "replaces": "fabric_tpu/ops/flatfield.py:231",
             "launches": 0, "max_abs_err": err, "ms": sums["ms"],
+            "single_launch_ms": sums["single_launch_ms"],
             "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
             "bound_by": "operations" if 2 * sums["by_ops"] >= sums[
                 "bound_ms"] else "bytes",
@@ -4489,7 +4511,9 @@ def _fmt(v):
 def experiments_phase(torch, dev, trials: int) -> dict:
     """Each experiments module's run() at the reference's B (a
     card-filling B = SMs x 2,048 is left out for the time limit, PERF.md
-    §4); every check raises inside run().  -> {(module, B): result}."""
+    §4); every check raises inside run().  KI3 (proto_pallas3) runs twice:
+    in the plan's layouts, and at one thread a column forced (key
+    "proto_pallas3_column").  -> {(module, B): result}."""
     from fabric_tpu_torch import experiments as X
     from fabric_tpu_torch.experiments import (proto_ilp, proto_pallas,
                                               proto_pallas2, proto_pallas3,
@@ -4507,6 +4531,15 @@ def experiments_phase(torch, dev, trials: int) -> dict:
                     k: _fmt(v) for k, v in row.items() if k != "replaces"})
             phase("experiments", script=name, B=B,
                   seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        res = proto_pallas3.run(device=dev, trials=trials, B=B,
+                                layout="column")
+        out["proto_pallas3_column", B] = res
+        for row in res["probes"]:
+            phase("experiments", script="proto_pallas3", forced="column", **{
+                k: _fmt(v) for k, v in row.items() if k != "replaces"})
+        phase("experiments", script="proto_pallas3", forced="column", B=B,
+              seconds=round(time.perf_counter() - t0, 2))
     kf2_every_tpi(dev, out)
     return out
 
@@ -4589,22 +4622,63 @@ def experiment_rows(results: dict, total: dict, kp1_err: int,
                         FV.PRESETS[preset][0], total["field_chain_variant"],
                         r, 0, "field_chain_variants",
                         FV.kernel_symbol(preset, k, tpi=r["tpi"])))
-    probes = results["proto_pallas3", X.REF_B]["probes"]
-    for site, group in (("int32", [r for r in probes if r["probe"] != "f32"]),
-                        ("f32", [r for r in probes if r["probe"] == "f32"])):
+    rows += ki3_rows(results, total, logs["isa_probe"])
+    return rows
+
+
+def ki3_rows(results: dict, total: dict, log: str) -> list:
+    """KI3's two rows of the kernels line (its int32 site, seven probes,
+    and its f32 site), from phase 3b's runs at B = 16,384: the sums over
+    the site's probes of `ms` (one launch as the card runs it,
+    `experiments.launch_ms`), `single_launch_ms` (one wrapper call between
+    two events), the bound and the plain version's time, and per probe
+    those figures, the plan's layout, ptxas' registers, frame and spills
+    of that layout's instantiation, `torch.roll`'s time for rotate and
+    roll (`library_ms`), the time at one thread a column forced
+    (`column_ms`, `column_single_launch_ms`), and `body`: "brev" where the
+    layout's kernel runs shift_or on the values' bit reverses (a multiply
+    in place of its shift, `isa_probe.body_form`), so that its `ms` and
+    `column_ms` time different instructions."""
+    from fabric_tpu_torch import experiments as X
+    from fabric_tpu_torch.ops import _build
+    from fabric_tpu_torch.ops import isa_probe as IP
+
+    plan = results["proto_pallas3", X.REF_B]["probes"]
+    column = {r["probe"]: r for r in
+              results["proto_pallas3_column", X.REF_B]["probes"]}
+    rows = []
+    for site, group in (("int32", [r for r in plan if r["probe"] != "f32"]),
+                        ("f32", [r for r in plan if r["probe"] == "f32"])):
         bound = sum(r["bound_ms"] for r in group)
         by_ops = sum(r["bound_ms"] for r in group
                      if r["bound_by"] == "operations")
+        probes = []
+        for r in group:
+            col = column[r["probe"]]
+            probes.append({
+                "probe": r["probe"], "layout": r["layout"], "body": r["body"],
+                "threads": r["threads"], "ms": r["ms"],
+                "single_launch_ms": r["single_launch_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "column_ms": col["ms"],
+                "column_single_launch_ms": col["single_launch_ms"],
+                **_build.kernel_resources(
+                    log, IP.kernel_symbol(r["probe"], r["layout"]))})
         rows.append({
             "name": f"isa_probe:{site}", "route": "cuda",
             "source": "fabric_tpu_torch/ops/csrc/isa_probe.cu",
             "replaces": group[0]["replaces"], "launches": total["isa_probe"],
             "max_abs_err": 0, "ms": sum(r["ms"] for r in group),
+            "single_launch_ms": sum(r["single_launch_ms"] for r in group),
             "plain_ms": sum(r["plain_ms"] for r in group),
             "bound_ms": bound,
             "bound_by": "operations" if 2 * by_ops >= bound else "bytes",
+            # one PyTorch call computes rotate's and roll's function
+            # (torch.roll, per probe below); none computes the site's
             "library_ms": None, "on_main_path": False,
-            "probes": [r["probe"] for r in group]})
+            "launches_a_replay": group[0]["launches_a_replay"],
+            "probes": probes})
     return rows
 
 
@@ -8420,6 +8494,7 @@ def main(argv=None) -> int:
     kern = p256.p256_verify(*block_words, table)
     plain, plain_ms = timed_once(torch, lambda: (
         p256.verify_words_plain(*block_words, table)))
+    block_plain = plain
     check(torch.equal(kern, plain), "KP2 != verify_words_plain on the block")
     check((kern.cpu().numpy() == want[np.asarray(keep)]).all(),
           "KP2 on the block != labels")
@@ -8427,14 +8502,31 @@ def main(argv=None) -> int:
                                 - plain.to(torch.int8)).abs().max()))
 
     # KP2 on the path's own KP2 batch: the lanes the provider sent to KP2
-    # in the block runs (one block of threads, latency-bound)
+    # in the block runs (one block of threads, latency-bound).  Where they
+    # are lanes of the block's batch above with the same words, the plain
+    # version's verdicts on them are the block's plain verdicts on those
+    # lanes (every lane verifies alone): one plain call, not two, since
+    # the plain version takes ~30 s a call whatever the lanes (cut for the
+    # time limit); else the plain version runs on the path's batch
     path_words = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                   for a in kp2_arrays]
     kp2_path_ms = event_ms(torch, lambda: p256.p256_verify(*path_words,
                                                            table), t)
     kern = p256.p256_verify(*path_words, table)
-    plain, kp2_path_plain_ms = timed_once(torch, lambda: (
-        p256.verify_words_plain(*path_words, table)))
+    at = {int(i): k for k, i in enumerate(keep)}
+    lane_ix = None
+    if all(int(i) in at for i in kp2_keep):
+        lane_ix = np.array([at[int(i)] for i in kp2_keep], dtype=np.int64)
+        if not all(np.array_equal(pa, ba[:, lane_ix])
+                   for pa, ba in zip(kp2_arrays, arrays)):
+            lane_ix = None
+    if lane_ix is not None:
+        plain = block_plain.cpu()[torch.from_numpy(lane_ix)].to(dev)
+        kp2_path_plain = "the block's call"
+    else:
+        plain, path_plain_ms = timed_once(torch, lambda: (
+            p256.verify_words_plain(*path_words, table)))
+        kp2_path_plain = f"{path_plain_ms:.2f} ms"
     check(torch.equal(kern, plain),
           "KP2 != verify_words_plain on the path's KP2 batch")
     check((kern.cpu().numpy() == want[kp2_keep]).all(),
@@ -8628,7 +8720,7 @@ def main(argv=None) -> int:
                                   / kp2_issued, 2),
           kp2_bound_ms=round(kp2_bound_ms, 4), **kp2_res)
     phase("times", kp2_path_ms=round(kp2_path_ms, 4), kp2_path_sigs=path_lanes,
-          kp2_path_plain_ms=round(kp2_path_plain_ms, 2),
+          kp2_path_plain=kp2_path_plain,
           kp2_path_vs_plain_and_labels="equal",
           issued_muls_per_verify=round(path_issued / path_lanes, 1),
           chain_cycles_per_mul=round(kp2_path_ms * 1e-3 * clock_hz

@@ -39,6 +39,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 from dataclasses import dataclass
 
@@ -56,6 +57,7 @@ MAX_THREADS = 512
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
 INT32_PER_SM_PER_CLOCK = 64
 ISSUE_PER_SM_PER_CLOCK = 128
+LAUNCHES = 100                     # launch_ms's launches a replay
 P = field.P
 
 
@@ -100,6 +102,57 @@ def event_ms(fn, trials: int) -> float:
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def _launch_counters() -> list:
+    """Every kernel wrapper of the port's loaded ops modules that counts
+    its launches (a `launches` attribute)."""
+    out = {}
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("fabric_tpu_torch.ops.") and mod is not None:
+            for v in vars(mod).values():
+                if callable(v) and isinstance(getattr(v, "launches", None),
+                                              int):
+                    out[id(v)] = v
+    return list(out.values())
+
+
+def launch_ms(fn, launches: int = LAUNCHES, trials: int = 5) -> float:
+    """Median device ms of one fn() as the card runs it, without the
+    host's enqueue: after one warm-up, `launches` calls of fn are
+    captured in a CUDA graph, and each of `trials` replays is timed by
+    CUDA events around it and divided by `launches`.  fn launches on the
+    current stream (the capture's inside the capture) and allocates only
+    through PyTorch.  Timing launches do not count: every wrapper's launch
+    count is left as it was before the call.  Raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("launch_ms needs a CUDA card: "
+                           "torch.cuda.is_available() is False")
+    if launches < 1:
+        raise ValueError("launches must be at least 1")
+    counts = [(f, f.launches) for f in _launch_counters()]
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+    finally:
+        for f, n in counts:
+            f.launches = n
+    graph.replay()                 # the first replay uploads the graph
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / launches)
     return statistics.median(out)
 
 

@@ -43,8 +43,9 @@ SIGNATURES = {
         "field_chain_variant_attrs": [_I, _I, _I, _P],
     },
     "isa_probe": {
-        "isa_probe_launch": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        "isa_probe_attrs": [_I, _P],
+        "isa_probe_layout_launch": [_I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _P],
+        "isa_probe_attrs": [_I, _I, _P],
     },
     "p256_verify": {
         "p256_verify_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -1311,6 +1311,90 @@ def test_isa_probe_launch_error_propagates(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("probe", IP.PROBES)
+def test_isa_probe_every_layout_matches_plain(probe, cuda_device):
+    """Every KI3 probe at the plan's layout and at each of its layouts
+    forced (one thread a column, and each spread layout), bit for bit
+    against its plain version on ragged B at 0, 1 and 4 passes; the int32
+    probes on the script's values, full-range values and odd ones (whose
+    row_mul products never reach 0)."""
+    for B in (1, 31, 1000):
+        for seed in ((0,) if probe == "f32" else (0, 1, 2)):
+            # probe_tile puts 4 edge values in row 0: cut a wider tile
+            x = probe_tile(probe, max(B, 4), cuda_device,
+                           min(seed, 1))[:, :B].contiguous()
+            if seed == 2:
+                x = x | 1
+            for iters in (0, 1, IP.ITERS):
+                want = IP.probe_plain(x, probe, iters).view(torch.int32)
+                for layout in (None, *IP.PROBE_LAYOUTS[probe]):
+                    before = IP.isa_probe.launches
+                    got = IP.isa_probe(x, probe, iters, layout)
+                    torch.cuda.synchronize()
+                    assert IP.isa_probe.launches == before + 1
+                    assert torch.equal(got.view(torch.int32), want), (
+                        B, seed, iters, layout)
+    for layout in IP.PROBE_LAYOUTS[probe]:
+        assert IP.kernel_attrs(probe, layout)["regs"] > 0
+
+
+@pytest.mark.cuda
+def test_isa_probe_plan_on_the_card(cuda_device):
+    """The reference's 16,384 columns take each probe's spread layout on
+    an H100's 132 SMs, SMs x 2,048 columns one thread a column; both
+    outputs equal the plain version."""
+    sms = F.sm_count(cuda_device)
+    for B in (16384, sms * F.FILL_THREADS_PER_SM):
+        for probe in ("row_mul", "mul", "where"):
+            x = probe_tile(probe, B, cuda_device, 1) | 1
+            want = IP.probe_plain(x, probe, 1)
+            assert torch.equal(IP.isa_probe(x, probe, 1), want)
+            layout = IP.probe_plan(probe, B, sms)[0]
+            assert (layout == "column") == (B >= sms * F.FILL_THREADS_PER_SM)
+
+
+@pytest.mark.cuda
+def test_isa_probe_kernels_build_with_no_frame_or_spills(cuda_device):
+    """ptxas' figures from the build log: every KI3 instantiation keeps
+    frame 0 and spills 0."""
+    from fabric_tpu_torch.ops import _build
+    log = _build._finish("isa_probe", *_build._start("isa_probe"))
+    for probe in IP.PROBES:
+        for layout in IP.PROBE_LAYOUTS[probe]:
+            res = _build.kernel_resources(log, IP.kernel_symbol(probe,
+                                                                layout))
+            assert res["frame_bytes"] == 0, (probe, layout, res)
+            assert res["spill_store_bytes"] == res["spill_load_bytes"] == 0
+            assert 0 < res["regs"] <= 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["row_mul", "rotate", "f32"])
+def test_launch_ms_gives_one_launchs_output(probe, cuda_device):
+    """The per-launch timer (launches captured in a CUDA graph, replayed)
+    leaves the output of one launch: a copy captured after each launch
+    holds the last replay's, equal to one wrapper call's and the plain
+    version's; the wrapper's launch count is left as it was."""
+    x = probe_tile(probe, 1000, cuda_device, 0 if probe == "f32" else 1)
+    once = IP.isa_probe(x, probe)
+    out = torch.full_like(x, 7)
+    before = IP.isa_probe.launches
+    ms = X.launch_ms(lambda: out.copy_(IP.isa_probe(x, probe)), launches=8,
+                     trials=2)
+    torch.cuda.synchronize()
+    assert ms > 0
+    assert IP.isa_probe.launches == before      # timing launches not counted
+    assert torch.equal(out.view(torch.int32), once.view(torch.int32))
+    assert torch.equal(once.view(torch.int32),
+                       IP.probe_plain(x, probe).view(torch.int32))
+    roll = torch.full_like(x, 7)
+    if probe == "rotate":
+        X.launch_ms(lambda: roll.copy_(torch.roll(x, -IP.REP * IP.ITERS, 0)),
+                    launches=4, trials=1)
+        assert torch.equal(roll, once)
+
+
+@pytest.mark.cuda
 def test_experiments_on_the_card(cuda_device):
     """Two counterparts end to end at a small B: every configuration
     checked, timed, and reported with its clock64 and SASS figures."""
