@@ -20,7 +20,9 @@ ends with one JSON line.  Phases:
              KE5's and KE6's) on 65,536 seeded inputs
              plus edge values each, bit for bit against the plain field and
              Python ints, timed per launch (launches captured in a CUDA
-             graph) and per wrapper call (the enqueue included)
+             graph, its inputs read from device memory: rotated over
+             copies that hold twice the L2; and warm, on one copy) and
+             per wrapper call (the enqueue included)
 3b. experiments — the counterparts of the Pallas microbenchmarks in
              experiments/ (fabric_tpu_torch.experiments, each module's
              run()): KP1 at the reference's R = 2^264 (proto_pallas.py) and
@@ -359,7 +361,8 @@ ends with one JSON line.  Phases:
              Org1 node on SW in a child process of its own (the identity
              check).  The seed: 10,000 `create` txs stamped by peer 1's
              gateway plane and broadcast with their verdict
-             attestations, 500 a call: 20 blocks through Raft; then 32
+             attestations, 500 a call: 20 blocks through Raft (more
+             where the leader cuts one on its 2-s timeout); then 32
              clients (16 an org, Org1 P-256, Org2 Ed25519, half through
              each peer's gateway; a thread each in 4 client processes of
              their own) endorse 16 transfers each, then all submit at
@@ -470,6 +473,7 @@ import argparse
 import contextlib
 import gc
 import hashlib
+import itertools
 import json
 import multiprocessing
 import os
@@ -4412,18 +4416,23 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
     the edge values of `field_probe_edges` first and seeded ones after,
     bit for bit against the plain field (`field_probe_plain`) and Python
     ints, then timed: `ms` one launch as the card runs it
-    (`experiments.launch_ms`, launches captured in a CUDA graph),
-    `single_launch_ms` one wrapper call between two CUDA events (the
-    host's enqueue inside it).  -> the probe's row of the kernels line
-    (its sums over the ops)."""
+    (`experiments.launch_ms`, launches captured in a CUDA graph) with
+    its inputs read from device memory, the launches rotating over
+    copies of them that hold twice the card's L2, as the bytes bound
+    assumes; `warm_ms` the same on one copy, which the replays keep in
+    the L2; `single_launch_ms` one wrapper call between two CUDA events
+    (the host's enqueue inside it).  -> the probe's row of the kernels
+    line (its sums over the ops)."""
     from fabric_tpu_torch.experiments import launch_ms
     from fabric_tpu_torch.ops import p256
-    from fabric_tpu_torch.ops.field import (IMADS, ints_to_words_le,
-                                            words_le_to_ints)
+    from fabric_tpu_torch.ops.field import ints_to_words_le, words_le_to_ints
     rng = random.Random(SEED + 30)
+    plan = "%d blocks of %d threads" % (p256.field_probe_plan(PROBE_LANES),
+                                         p256.FIELD_PROBE_THREADS)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     R = 1 << 256
-    sums = {"ms": 0.0, "single_launch_ms": 0.0, "plain_ms": 0.0,
-            "bound_ms": 0.0, "by_ops": 0.0}
+    sums = {"ms": 0.0, "warm_ms": 0.0, "single_launch_ms": 0.0,
+            "plain_ms": 0.0, "bound_ms": 0.0, "by_ops": 0.0}
     err = 0
     for op in p256.FIELD_PROBE_OPS:
         m = p256.field_probe_modulus(op)
@@ -4445,30 +4454,40 @@ def field_probe_phase(torch, dev, trials: int, imad_rate: float) -> dict:
               f"field probe {op} != python ints")
         err = max(err, int((got.to(torch.int64) - plain.to(torch.int64))
                            .abs().max()))
-        ms = launch_ms(lambda: p256.p256_field_probe(op, a, b),
-                       trials=trials)
+        warm = launch_ms(lambda: p256.p256_field_probe(op, a, b),
+                         trials=trials)
+        per = a.numel() * 4 * (1 if b is None else 2)
+        copies = [(a, b)] + [(a.clone(), None if b is None else b.clone())
+                             for _ in range(-(-2 * l2 // per) - 1)]
+        turn = itertools.count()
+
+        def cold():
+            ca, cb = copies[next(turn) % len(copies)]
+            return p256.p256_field_probe(op, ca, cb)
+        ms = launch_ms(cold, trials=trials)
+        del copies
         single = event_ms(torch, lambda: p256.p256_field_probe(op, a, b),
                           trials)
-        key = {"mul_n": ("n", "mul"), "sqr_p": ("p", "sqr"),
-               "mul_25519": ("p25519", "mul")}.get(op, ("p", "mul"))
-        ops_s = PROBE_LANES * IMADS[key] / imad_rate
-        bytes_s = PROBE_LANES * 32 * (2 if b is None else 3) / HBM_BYTES_PER_S
-        bound = max(ops_s, bytes_s) * 1e3
+        bound, by = p256.field_probe_bound_ms(op, PROBE_LANES, imad_rate,
+                                              HBM_BYTES_PER_S)
         phase("field", probe_op=op, inputs=PROBE_LANES, edges=len(ea),
-              vs_plain="equal", vs_ints="equal", ms=round(ms, 4),
+              plan=plan, vs_plain="equal", vs_ints="equal", ms=round(ms, 5),
+              warm_ms=round(warm, 5), input_copies=-(-2 * l2 // per),
               single_launch_ms=round(single, 4),
               ns_per_op=round(ms * 1e6 / PROBE_LANES, 4),
               plain_ms=round(plain_ms, 2), bound_ms=round(bound, 6),
-              bound_by="operations" if ops_s >= bytes_s else "bytes")
+              bound_by=by, bound_share=round(bound / ms, 3))
         sums["ms"] += ms
+        sums["warm_ms"] += warm
         sums["single_launch_ms"] += single
         sums["plain_ms"] += plain_ms
         sums["bound_ms"] += bound
-        sums["by_ops"] += bound if ops_s >= bytes_s else 0
+        sums["by_ops"] += bound if by == "operations" else 0
     return {"name": "p256_field_probe", "route": "cuda",
             "source": "fabric_tpu_torch/ops/csrc/p256_verify.cu",
             "replaces": "fabric_tpu/ops/flatfield.py:231",
             "launches": 0, "max_abs_err": err, "ms": sums["ms"],
+            "warm_ms": sums["warm_ms"],
             "single_launch_ms": sums["single_launch_ms"],
             "plain_ms": sums["plain_ms"], "bound_ms": sums["bound_ms"],
             "bound_by": "operations" if 2 * sums["by_ops"] >= sums[
@@ -6227,6 +6246,38 @@ def node_seed(signers, peers, n: int) -> list:
     return out
 
 
+def node_txid(raw: bytes) -> str:
+    """The txid of a serialized envelope (the block store's header peek,
+    a full decode where the peek refuses)."""
+    from fabric_tpu_torch.protocol import Envelope, wire
+    summary = wire.envelope_summary(raw)
+    if summary is not None:
+        return summary[2]
+    return Envelope.deserialize(raw).header().channel_header.txid
+
+
+def seed_cut(blocks: list, seed_ids: list, batch: int) -> tuple:
+    """Phase 16's seed check.  The txids of the blocks that hold the seed,
+    block by block -> (sizes, short blocks, faults).  The blocks must hold
+    every seed txid exactly once, in the order broadcast, and no other
+    tx, at least one and at most `batch` (the channel's MaxMessageCount)
+    a block.  A block under `batch` is a cut on BatchTimeout, the
+    orderer's documented behaviour: it is counted, not refused."""
+    sizes = [len(b) for b in blocks]
+    faults = []
+    bad = [k for k, n in enumerate(sizes) if not 1 <= n <= batch]
+    if bad:
+        faults.append(f"blocks {bad} hold {[sizes[k] for k in bad]} txs "
+                      f"(1 to {batch} a block)")
+    got = [t for b in blocks for t in b]
+    if got != list(seed_ids):
+        first = next((i for i, (x, y) in enumerate(zip(got, seed_ids))
+                      if x != y), min(len(got), len(seed_ids)))
+        faults.append(f"{len(got)} txs ordered against {len(seed_ids)} "
+                      f"broadcast, the first difference at tx {first}")
+    return sizes, sum(n < batch for n in sizes), faults
+
+
 class _CacheSources:
     """Peer 1's verdict cache, spied: each entry's source (`attest` from
     the orderer's deliver attestations, `speculative` from the gateway's
@@ -7038,7 +7089,9 @@ def node_phase(torch, args, fns, name_power, dev,
     batch, the endorsement sets queued) and broadcast through its
     gateway's broadcaster with the verdict attestations, 500 a call, so
     the leader's SigFilter honours the allowlisted peer's verdicts; the
-    orderers cut them at 500 a block.  The load (profiled): 2 x
+    orderers cut them at 500 a block, or fewer on BatchTimeout (2 s), and
+    the seed ends with the block that holds its last tx (`seed_cut`: each
+    seed tx once, in order, no other).  The load (profiled): 2 x
     NODE_CLIENTS clients in NODE_CLIENT_PROCS processes of their own
     (`node_clients`, a thread a client), half through each peer's
     gateway; each `GatewayClient.endorse`s NODE_TXS_PER_CLIENT
@@ -7326,6 +7379,7 @@ def node_phase(torch, args, fns, name_power, dev,
 
         # --- the seed ---------------------------------------------------
         base_phase = {f: fns[f].launches for f in fns}
+        seed_ids = [node_txid(raw) for raw in seed]
         t0 = time.perf_counter()
         check(node1.speculative is not None and node1.gateway is not None,
               "node: peer 1 has no gateway or speculative plane")
@@ -7342,7 +7396,6 @@ def node_phase(torch, args, fns, name_power, dev,
             check(all(st == 200 for st, _info in res),
                   f"node: a seed broadcast was refused: {res[:2]}")
         broadcast_s = time.perf_counter() - t0 - stamp_s
-        seed_blocks = -(-NODE_SEED_TXS // SEED_BATCH)
         status = {}
 
         def at(height, names=("peer2", "sw")):
@@ -7357,23 +7410,38 @@ def node_phase(torch, args, fns, name_power, dev,
                     and ch1.ledger.statedb.savepoint == height - 1
                     and ch1.ledger.historydb.savepoint == height - 1
                     and all(status[n]["height"] >= height for n in names))
-        # the SW node (untimed) catches up during the load
-        wait_until(lambda: at(seed_blocks, ("peer2",)),
-                   f"the seed's {seed_blocks} blocks on peers 1 and 2",
-                   step_s=0.1)
+        # the seed ends with the block that holds its last tx: the orderer
+        # cuts at SEED_BATCH envelopes or on BatchTimeout, so the count of
+        # blocks depends on how fast the leader admits each batch.  The SW
+        # node (untimed) catches up during the load
+        store1, seed_end = ch1.ledger.blockstore, []
+
+        def seed_committed():
+            if not seed_end:
+                if not store1.has_txid(seed_ids[-1]):
+                    return False
+                seed_end.append(
+                    store1.get_by_txid(seed_ids[-1]).header.number + 1)
+            return at(seed_end[0], ("peer2",))
+        wait_until(seed_committed, f"the seed's last tx ({seed_ids[-1]}) "
+                   "committed on peers 1 and 2", step_s=0.1)
         seed_s = time.perf_counter() - t0
         part("seed_order_and_commit")
-        sizes = [len(ch1.ledger.blockstore.get_by_number(n).data)
-                 for n in range(ch1.ledger.height)]
-        check(ch1.ledger.height == seed_blocks
-              and sizes == [SEED_BATCH] * seed_blocks,
-              f"node: the seed was not cut into {seed_blocks} blocks of "
-              f"{SEED_BATCH}: peer 1 holds {len(sizes)} blocks of {sizes} "
-              f"txs, broadcast in {broadcast_s:.3f} s")
+        seed_blocks = seed_end[0]
+        sizes, short, faults = seed_cut(
+            [[node_txid(bytes(d)) for d in store1.get_by_number(n).data]
+             for n in range(ch1.ledger.height)], seed_ids, SEED_BATCH)
+        check(not faults and len(sizes) == seed_blocks,
+              f"node: the seed's {NODE_SEED_TXS} txs were not ordered once "
+              f"each, in order, at most {SEED_BATCH} a block: {faults}; "
+              f"peer 1 holds {len(sizes)} blocks of {sizes} txs, the last "
+              f"seed tx in block {seed_blocks - 1}, broadcast in "
+              f"{broadcast_s:.3f} s")
         seed_metrics = {k: scrape(url + "/metrics")
                         for k, url in enumerate(ourl, 1)}
         phase("node", seed_txs=NODE_SEED_TXS, sign_s=parts["seed_sign"],
-              seed_blocks=seed_blocks, stamp_s=round(stamp_s, 3),
+              seed_blocks=seed_blocks, seed_block_sizes=sizes,
+              seed_short_blocks=short, stamp_s=round(stamp_s, 3),
               broadcast_s=round(broadcast_s, 3),
               ordered_delivered_and_committed_on_peers_1_2_s=round(
                   seed_s, 3),

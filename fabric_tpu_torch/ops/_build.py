@@ -49,7 +49,7 @@ SIGNATURES = {
     },
     "p256_verify": {
         "p256_verify_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-        "p256_field_probe_launch": [_I, _P, _P, _P, _I, _P],
+        "p256_field_probe_plan_launch": [_I, _I, _P, _P, _P, _I, _P],
     },
     "p256_verify_rows": {
         "p256_verify_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -330,7 +330,7 @@ def verify_words(qx, qy, r, s, e, require_low_s: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# The field probe: one of KP2's field routines per thread
+# The field probe: one of KP2's field routines a lane
 # ---------------------------------------------------------------------------
 # Inputs and output (n, 8) uint32, little-endian words, Montgomery form
 # (R = 2^256).  mul_p is field_ptx.cuh's a b R^-1 mod p, sqr_p its a^2
@@ -339,6 +339,36 @@ def verify_words(qx, qy, r, s, e, require_low_s: bool = True,
 
 _PROBE_FIELD = {"mul_p": fp, "sqr_p": fp, "mul_n": fn, "mul_25519": f25519}
 FIELD_PROBE_OPS = tuple(_PROBE_FIELD)
+
+# A warp moves one tile of PROBE_TILE lanes, one lane a thread, in blocks
+# of FIELD_PROBE_THREADS (the kernel's PROBE_THREADS).  The A/B
+# (tools/probe_ab.py, H100, PERF.md §6) found 128 and 256 threads within
+# 1.5% at 65,536 and SMs x 2,048 lanes, and two lanes a thread 7-8% slower
+# at both, so one layout is kept.
+PROBE_TILE = 32
+FIELD_PROBE_THREADS = 256
+
+
+def field_probe_plan(n: int) -> int:
+    """Blocks of FIELD_PROBE_THREADS threads that launch the field probe
+    over n lanes, a warp a tile of PROBE_TILE lanes; n = 0 gives none."""
+    if n < 0:
+        raise ValueError("n must be >= 0")
+    return -(-n // FIELD_PROBE_THREADS)
+
+
+def field_probe_bound_ms(op: str, n: int, imad_rate: float,
+                         bytes_per_s: float) -> tuple:
+    """The least time of one probe launch over n lanes -> (ms, "bytes" or
+    "operations"): the larger of its 32-bit multiply-adds (`field.IMADS`
+    of the op's multiply) over `imad_rate` and its bytes (a and b read
+    once, out written once: 96 a lane, 64 for sqr_p) over `bytes_per_s`."""
+    key = {"mul_n": ("n", "mul"), "sqr_p": ("p", "sqr"),
+           "mul_25519": ("p25519", "mul")}.get(op, ("p", "mul"))
+    ops_s = n * IMADS[key] / imad_rate
+    bytes_s = n * 32 * (2 if op == "sqr_p" else 3) / bytes_per_s
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
 
 
 def field_probe_modulus(op: str) -> int:
@@ -359,11 +389,13 @@ def field_probe_plain(op: str, a: torch.Tensor,
 
 def p256_field_probe(op: str, a: torch.Tensor,
                      b: torch.Tensor = None) -> torch.Tensor:
-    """Wrapper of KP2's field probe (`p256_field_probe_launch`, in KP2's
-    library): op (`FIELD_PROBE_OPS`) on each row of a (and b; sqr_p
-    takes a alone), one thread each.  CUDA tensors launch the kernel on
-    the current stream; CPU tensors take `field_probe_plain`.  The kernel
-    does not check the preconditions (a < 2^256, b < m, sqr_p's a < p)."""
+    """Wrapper of KP2's field probe (`p256_field_probe_plan_launch`, in
+    KP2's library): op (`FIELD_PROBE_OPS`) on each row of a (and b;
+    sqr_p takes a alone), one lane each.  CUDA tensors launch the op's
+    kernel on the current stream in `field_probe_plan`'s blocks, and
+    raise on an input not 16-byte aligned; CPU tensors
+    take `field_probe_plain`.  No lanes, no launch.  The kernel does not
+    check the preconditions (a < 2^256, b < m, sqr_p's a < p)."""
     if op not in FIELD_PROBE_OPS:
         raise ValueError(f"unknown field op {op!r}; one of {FIELD_PROBE_OPS}")
     if a.dim() != 2 or a.shape[1] != 8 or a.dtype != torch.uint32 \
@@ -376,19 +408,25 @@ def p256_field_probe(op: str, a: torch.Tensor,
         raise ValueError("b must be a contiguous uint32 tensor of a's shape "
                          "on a's device")
     dev = a.device
+    n = a.shape[0]
+    if n == 0:
+        return torch.empty_like(a)
     if dev.type == "cpu":
         return field_probe_plain(op, a, b)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty_like(a)
-    n = a.shape[0]
-    if n == 0:
-        return out
+    for name, t in (("a", a), ("b", b), ("out", out)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "moves 16-byte vectors); got a view at "
+                             f"{t.data_ptr() % 16} bytes past a boundary")
     lib = _build.load("p256_verify")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.p256_field_probe_launch(
+        rc = lib.p256_field_probe_plan_launch(
             ctypes.c_int(FIELD_PROBE_OPS.index(op)),
+            ctypes.c_int(field_probe_plan(n)),
             ctypes.c_void_p(a.data_ptr()),
             ctypes.c_void_p((a if b is None else b).data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_int(n),

@@ -108,30 +108,65 @@ def test_p256_verify_kernel_matches_plain(cuda_device):
     assert got.cpu().tolist()[:24] == [r[5] for r in rows[:24]]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [37, 4096])
-@pytest.mark.parametrize("op", p256.FIELD_PROBE_OPS)
-def test_p256_field_probe_matches_plain_and_ints(op, n, cuda_device):
-    """The field routines of field_ptx.cuh (mul_p, sqr_p, mont_mul_ptx
-    mod n; mul_25519, KE5's and KE6's) through the probe, bit for bit
-    against the plain field and Python ints; the edge values first."""
-    rng = random.Random(31 + n)
+def probe_case(op, n, device, seed):
+    """(va, vb, a, b) of the field probe: the op's edge values first,
+    then seeded ones within its preconditions."""
+    rng = random.Random(seed)
     m = p256.field_probe_modulus(op)
     ea, eb = p256.field_probe_edges(op)
     va = (ea + [rng.randrange(m if op == "sqr_p" else R)
                 for _ in range(n)])[:n]
     vb = va if op == "sqr_p" else (eb + [rng.randrange(m)
                                          for _ in range(n)])[:n]
-    a = F.ints_to_words_le(va, cuda_device)
-    b = None if op == "sqr_p" else F.ints_to_words_le(vb, cuda_device)
+    a = F.ints_to_words_le(va, device)
+    b = None if op == "sqr_p" else F.ints_to_words_le(vb, device)
+    return va, vb, a, b
+
+
+def probe_ints(op, va, vb):
+    m = p256.field_probe_modulus(op)
+    rinv = pow(R, -1, m)
+    return [x * y * rinv % m for x, y in zip(va, vb)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 37, 127, 129, 4096, 4097,
+                               65_536, 65_537, 270_336])
+@pytest.mark.parametrize("op", p256.FIELD_PROBE_OPS)
+def test_p256_field_probe_matches_plain_and_ints(op, n, cuda_device):
+    """The field routines of field_ptx.cuh (mul_p, sqr_p, mont_mul_ptx
+    mod n; mul_25519, KE5's and KE6's) through the probe in the plan's
+    grid, bit for bit against the plain field and Python ints; the
+    edge values first; ragged tails; one call, one launch."""
+    va, vb, a, b = probe_case(op, n, cuda_device, 31 + n)
     before = p256.p256_field_probe.launches
     got = p256.p256_field_probe(op, a, b)
     torch.cuda.synchronize()
     assert p256.p256_field_probe.launches == before + 1
     assert torch.equal(got, p256.field_probe_plain(op, a, b))
-    rinv = pow(R, -1, m)
-    assert F.words_le_to_ints(got) == [x * y * rinv % m
-                                       for x, y in zip(va, vb)]
+    assert F.words_le_to_ints(got) == probe_ints(op, va, vb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", p256.FIELD_PROBE_OPS)
+def test_p256_field_probe_rejects_misaligned(op, cuda_device):
+    """A view 4 bytes past a 16-byte boundary raises ValueError, for a
+    and for b; nothing launches and nothing falls back."""
+    n = 40
+    _, _, a, b = probe_case(op, n, cuda_device, 5)
+    buf = torch.zeros(n * 8 + 4, dtype=torch.uint32, device=cuda_device)
+    off = buf[1:n * 8 + 1].view(n, 8)
+    off.copy_(a)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    before = p256.p256_field_probe.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        p256.p256_field_probe(op, off, None if b is None else b)
+    if b is not None:
+        offb = buf[1:n * 8 + 1].view(n, 8)
+        offb.copy_(b)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            p256.p256_field_probe(op, a, offb)
+    assert p256.p256_field_probe.launches == before
 
 
 def on_curve_rows(rows):

@@ -511,17 +511,24 @@ def test_probe_cpu_path_matches_ints_and_emulation(op):
     assert got[:60] == [emulate(op, x, y) for x, y in pairs[:60]]
 
 
-@pytest.mark.parametrize("op", ["mul_p", "mul_n"])
+@pytest.mark.parametrize("op", ["mul_p", "mul_n", "sqr_p", "mul_25519"])
 def test_probe_matches_reference_mont(op):
     """The reference's Montgomery multiply (`bignum.Mont`, R = 2^264)
-    on the same seeded inputs: Mont(a, b) = probe(a, b 2^-8 mod m)."""
+    on the same seeded inputs: Mont(a, b) = probe(a, b 2^-8 mod m); for
+    sqr_p, which takes a alone, Mont(a, a) 2^8 = probe(a)."""
     m = MOD[op]
     va, vb = seeded(op, 64, seed=21)
     va = [x % m for x in va]
+    if op == "sqr_p":
+        vb = va
     mont = bn.Mont(m, "ref")
     ref = jax.jit(mont.mul)(jnp.asarray(bn.ints_to_limbs(va)),
                             jnp.asarray(bn.ints_to_limbs(vb)))
     ref = [v % m for v in bn.limbs_to_ints(np.asarray(ref))]
+    if op == "sqr_p":
+        got = p256.p256_field_probe(op, F.ints_to_words_le(va))
+        assert F.words_le_to_ints(got) == [v * 256 % m for v in ref]
+        return
     inv8 = pow(1 << 8, -1, m)
     got = p256.p256_field_probe(
         op, F.ints_to_words_le(va),
